@@ -1,0 +1,155 @@
+// Device-wide exclusive prefix sum, shared by the CSR build (bucket
+// offsets, radix digit offsets), the probe (candidate bases) and the
+// compaction (survivor positions).
+//
+// Replaces the `jnp.cumsum` calls of the JAX package (hash_table.py:118-119,
+// :287; columnar.py:418-444's survivor count).
+//
+// Bound on the H100: memory traffic. The input is read twice (reduce, then
+// downsweep) and the output written once; everything else is one int64 per
+// 4096-element tile. Blocks run in no order on 132 SMs, so the scan is the
+// classic three passes: per-tile sums -> one block scans the tile sums ->
+// each tile rescans itself from its offset. Sums are carried in int64, so a
+// total past 2^31 is reported exactly instead of wrapping.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+// Everything here has internal linkage: several .cu files of one library
+// include it, and each gets its own copy of the kernels.
+namespace dfp {
+namespace {
+
+typedef long long i64;
+
+constexpr int SCAN_BLOCK = 256;
+constexpr int SCAN_ITEMS = 16;
+constexpr int SCAN_TILE = SCAN_BLOCK * SCAN_ITEMS;
+
+// one padding slot every 16 int64s keeps a thread's 16 consecutive
+// elements on distinct banks
+__device__ __forceinline__ int scan_pad(int j) { return j + (j >> 4); }
+
+__device__ __forceinline__ i64 warp_inclusive_scan(i64 v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    i64 u = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
+// Exclusive scan of one value per thread over the whole block (blockDim a
+// multiple of 32, at most 1024). `smem` holds 33 int64. Returns the
+// thread's exclusive prefix and stores the block total in *total.
+__device__ __forceinline__ i64 block_exclusive_scan(i64 v, i64* smem, i64* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  i64 inc = warp_inclusive_scan(v);
+  if (lane == 31) smem[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    i64 w = lane < nwarps ? smem[lane] : 0;
+    i64 winc = warp_inclusive_scan(w);
+    if (lane < nwarps) smem[lane] = winc - w;
+    if (lane == 31) smem[32] = winc;
+  }
+  __syncthreads();
+  i64 res = smem[warp] + inc - v;
+  *total = smem[32];
+  __syncthreads();  // smem is reused by the caller's next scan
+  return res;
+}
+
+template <typename In>
+__global__ void scan_reduce_kernel(const In* __restrict__ in, i64 n, i64* __restrict__ tile_sums) {
+  __shared__ i64 smem[33];
+  const i64 base = (i64)blockIdx.x * SCAN_TILE;
+  i64 s = 0;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    i64 i = base + (i64)k * SCAN_BLOCK + threadIdx.x;
+    if (i < n) s += (i64)in[i];
+  }
+  i64 total;
+  block_exclusive_scan(s, smem, &total);
+  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
+}
+
+// One block of 1024 threads: tile sums -> exclusive tile offsets (in place);
+// the grand total goes to *total.
+__global__ void scan_tile_sums_kernel(i64* __restrict__ tile_sums, i64 n_tiles, i64* __restrict__ total) {
+  __shared__ i64 smem[33];
+  i64 carry = 0;
+  for (i64 base = 0; base < n_tiles; base += blockDim.x) {
+    const i64 i = base + threadIdx.x;
+    const i64 v = i < n_tiles ? tile_sums[i] : 0;
+    i64 chunk;
+    const i64 ex = block_exclusive_scan(v, smem, &chunk);
+    if (i < n_tiles) tile_sums[i] = carry + ex;
+    carry += chunk;
+  }
+  if (threadIdx.x == 0) *total = carry;
+}
+
+template <typename In, typename Out>
+__global__ void scan_downsweep_kernel(const In* in, i64 n,  // in, out may alias
+                                      const i64* __restrict__ tile_offsets,
+                                      Out* out) {
+  __shared__ i64 tile[SCAN_TILE + SCAN_TILE / 16];
+  __shared__ i64 smem[33];
+  const i64 base = (i64)blockIdx.x * SCAN_TILE;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int j = k * SCAN_BLOCK + threadIdx.x;
+    const i64 i = base + j;
+    tile[scan_pad(j)] = i < n ? (i64)in[i] : 0;
+  }
+  __syncthreads();
+  i64 s = 0;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) s += tile[scan_pad(threadIdx.x * SCAN_ITEMS + k)];
+  i64 unused;
+  i64 run = block_exclusive_scan(s, smem, &unused) + tile_offsets[blockIdx.x];
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int j = scan_pad(threadIdx.x * SCAN_ITEMS + k);
+    const i64 v = tile[j];
+    tile[j] = run;
+    run += v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int j = k * SCAN_BLOCK + threadIdx.x;
+    const i64 i = base + j;
+    if (i < n) out[i] = (Out)tile[scan_pad(j)];
+  }
+}
+
+inline i64 scan_tiles(i64 n) { return (n + SCAN_TILE - 1) / SCAN_TILE; }
+
+// Scratch bytes exclusive_scan needs for n elements.
+inline i64 scan_scratch_bytes(i64 n) { return (scan_tiles(n) + 1) * (i64)sizeof(i64); }
+
+// out[i] = in[0] + ... + in[i-1] for i < n; *total (device int64) = the sum
+// of all n. `in` and `out` may alias: every tile is read into shared memory
+// before it is written. Launches only; the caller checks cudaGetLastError.
+template <typename In, typename Out>
+void exclusive_scan(const In* in, i64 n, Out* out, i64* total, void* scratch,
+                    cudaStream_t stream) {
+  i64* tile_sums = static_cast<i64*>(scratch);
+  const i64 n_tiles = scan_tiles(n);
+  if (n_tiles > 0) scan_reduce_kernel<In><<<(unsigned)n_tiles, SCAN_BLOCK, 0, stream>>>(in, n, tile_sums);
+  scan_tile_sums_kernel<<<1, 1024, 0, stream>>>(tile_sums, n_tiles, total);
+  if (n_tiles > 0)
+    scan_downsweep_kernel<In, Out><<<(unsigned)n_tiles, SCAN_BLOCK, 0, stream>>>(in, n, tile_sums, out);
+}
+
+inline unsigned grid_for(i64 n, int block) { return (unsigned)((n + block - 1) / block); }
+
+}  // namespace
+}  // namespace dfp

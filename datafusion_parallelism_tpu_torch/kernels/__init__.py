@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels of the port (sources in ../csrc), each with its
+plain torch version: K1 hash_slot, K2 csr_build, K3 probe_expand, K4
+compact_gather."""

@@ -1,0 +1,485 @@
+"""Columnar substrate: host tables and fixed-capacity device tables (torch).
+
+Counterpart of `datafusion_parallelism_tpu/utils/columnar.py`, with the same
+data model:
+
+  * A column is `(values, validity)` — two dense tensors. Strings are
+    dictionary-encoded to int32 codes at ingest; the dictionary stays on the
+    host.
+  * A `DeviceTable` has a static capacity and a `num_rows` 0-dim int32 tensor
+    on the table's device. Rows past `num_rows` are padding.
+  * `PackedTable` holds all columns of a table as ONE `[W, cap]` int32
+    word-major matrix plus validity words, with float64 columns carried
+    beside it. The layout and the validity-bit placement are the JAX
+    package's, so packed words compare one for one across the two packages.
+
+The host half (everything above `DeviceTable`) is numpy code copied from the
+JAX package: the machine with the GPU has no jax, so nothing is imported
+from there.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, replace
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+_M32 = 0xFFFFFFFF
+
+
+def round_capacity(n: int, minimum: int = 128) -> int:
+    """Round a row count up to the next power of two; above 64M rows, to the
+    next multiple of 4M (a power of two would waste up to 2x of device
+    memory at exactly the scale where it binds)."""
+    n = max(int(n), minimum)
+    if n > (1 << 26):
+        step = 1 << 22
+        return -(-n // step) * step
+    return 1 << (n - 1).bit_length()
+
+
+class Kind(enum.Enum):
+    INT32 = "int32"
+    INT64 = "int64"
+    FLOAT32 = "float32"
+    FLOAT64 = "float64"
+    BOOL = "bool"
+    DATE32 = "date32"      # days since 1970-01-01, int32 on device
+    STRING = "string"      # dictionary codes, int32 on device
+    DECIMAL = "decimal"    # fixed-point int64 (value * 10**scale)
+
+
+_DEVICE_DTYPE = {
+    Kind.INT32: torch.int32,
+    Kind.INT64: torch.int64,
+    Kind.FLOAT32: torch.float32,
+    Kind.FLOAT64: torch.float64,
+    Kind.BOOL: torch.bool,
+    Kind.DATE32: torch.int32,
+    Kind.STRING: torch.int32,
+    Kind.DECIMAL: torch.int64,
+}
+
+
+@dataclass(frozen=True)
+class DType:
+    kind: Kind
+    scale: int = 0  # decimal scale only
+
+    @property
+    def device_dtype(self) -> torch.dtype:
+        return _DEVICE_DTYPE[self.kind]
+
+    def __repr__(self):
+        if self.kind is Kind.DECIMAL:
+            return f"decimal(.,{self.scale})"
+        return self.kind.value
+
+
+INT32 = DType(Kind.INT32)
+INT64 = DType(Kind.INT64)
+FLOAT32 = DType(Kind.FLOAT32)
+FLOAT64 = DType(Kind.FLOAT64)
+BOOL = DType(Kind.BOOL)
+DATE32 = DType(Kind.DATE32)
+STRING = DType(Kind.STRING)
+
+
+def DECIMAL(scale: int) -> DType:
+    return DType(Kind.DECIMAL, scale)
+
+
+class Dictionary:
+    """String dictionary (host side). Hash/eq by identity."""
+
+    __slots__ = ("values", "_index")
+
+    def __init__(self, values: np.ndarray):
+        self.values = np.asarray(values, dtype=object)
+        self._index: Optional[dict] = None
+
+    def index(self) -> dict:
+        if self._index is None:
+            self._index = {v: i for i, v in enumerate(self.values)}
+        return self._index
+
+    def code_of(self, s) -> int:
+        """Code of string s, or -1 if absent."""
+        return self.index().get(s, -1)
+
+    def __len__(self):
+        return len(self.values)
+
+    def __hash__(self):
+        return id(self)
+
+    def __eq__(self, other):
+        return self is other
+
+    def __repr__(self):
+        return f"Dictionary(n={len(self.values)}, id={id(self):#x})"
+
+
+@dataclass(frozen=True)
+class Field:
+    name: str
+    dtype: DType
+    nullable: bool = True
+    dictionary: Optional[Dictionary] = None
+
+    def with_name(self, name: str) -> "Field":
+        return replace(self, name=name)
+
+
+@dataclass(frozen=True)
+class Schema:
+    fields: Tuple[Field, ...]
+
+    def __init__(self, fields: Sequence[Field]):
+        object.__setattr__(self, "fields", tuple(fields))
+        names = [f.name for f in self.fields]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate column names in schema: {names}")
+
+    @property
+    def names(self) -> List[str]:
+        return [f.name for f in self.fields]
+
+    def field(self, name: str) -> Field:
+        for f in self.fields:
+            if f.name == name:
+                return f
+        raise KeyError(f"no column {name!r}; have {self.names}")
+
+    def index_of(self, name: str) -> int:
+        for i, f in enumerate(self.fields):
+            if f.name == name:
+                return i
+        raise KeyError(name)
+
+    def __len__(self):
+        return len(self.fields)
+
+
+# ---------------------------------------------------------------------------
+# Host table
+# ---------------------------------------------------------------------------
+
+_HOST_DTYPE = {
+    Kind.INT32: np.int32,
+    Kind.INT64: np.int64,
+    Kind.FLOAT32: np.float32,
+    Kind.FLOAT64: np.float64,
+    Kind.BOOL: np.bool_,
+    Kind.DATE32: np.int32,
+    Kind.STRING: np.int32,
+    Kind.DECIMAL: np.int64,
+}
+
+_EPOCH = np.datetime64("1970-01-01", "D")
+
+
+def date32_of(s: str) -> int:
+    """'1994-03-15' -> days since epoch."""
+    return int((np.datetime64(s, "D") - _EPOCH).astype(np.int64))
+
+
+class HostTable:
+    """Host-resident columnar table: numpy values + validity per column."""
+
+    def __init__(self, schema: Schema, columns: Dict[str, Tuple[np.ndarray, np.ndarray]],
+                 num_rows: int):
+        self.schema = schema
+        self.columns = columns
+        self.num_rows = int(num_rows)
+
+    @staticmethod
+    def from_pydict(data: Dict[str, list], dtypes: Optional[Dict[str, DType]] = None
+                    ) -> "HostTable":
+        """Build from python lists; None means null. Strings dict-encode."""
+        dtypes = dtypes or {}
+        fields, columns = [], {}
+        num_rows = None
+        for name, vals in data.items():
+            vals = list(vals)
+            if num_rows is None:
+                num_rows = len(vals)
+            elif num_rows != len(vals):
+                raise ValueError("ragged columns")
+            validity = np.array([v is not None for v in vals], dtype=np.bool_)
+            dt = dtypes.get(name)
+            dictionary = None
+            nonnull = [v for v in vals if v is not None]
+            if dt is None:
+                if any(isinstance(v, str) for v in nonnull):
+                    dt = STRING
+                elif any(isinstance(v, float) for v in nonnull):
+                    dt = FLOAT64
+                elif all(isinstance(v, (bool, np.bool_)) for v in nonnull) and nonnull:
+                    dt = BOOL
+                else:
+                    dt = INT32
+                    if any(abs(int(v)) > 2**31 - 1 for v in nonnull):
+                        dt = INT64
+            if dt.kind is Kind.STRING:
+                uniq = sorted({v for v in nonnull})
+                dictionary = Dictionary(np.array(uniq, dtype=object))
+                idx = dictionary.index()
+                values = np.array([idx[v] if v is not None else 0 for v in vals],
+                                  dtype=np.int32)
+            else:
+                np_dt = _HOST_DTYPE[dt.kind]
+                fill = np_dt(0)
+                if dt.kind is Kind.DECIMAL:
+                    scale = 10 ** dt.scale
+                    values = np.array(
+                        [np.int64(round(float(v) * scale)) if v is not None else fill
+                         for v in vals], dtype=np_dt)
+                elif dt.kind is Kind.DATE32:
+                    values = np.array(
+                        [date32_of(v) if isinstance(v, str) else (v if v is not None else 0)
+                         for v in vals], dtype=np_dt)
+                else:
+                    values = np.array([v if v is not None else fill for v in vals],
+                                      dtype=np_dt)
+            fields.append(Field(name, dt, nullable=not validity.all(),
+                                dictionary=dictionary))
+            columns[name] = (values, validity)
+        return HostTable(Schema(fields), columns, num_rows or 0)
+
+    @staticmethod
+    def from_numpy(data: Dict[str, np.ndarray],
+                   dtypes: Optional[Dict[str, DType]] = None,
+                   dictionaries: Optional[Dict[str, Dictionary]] = None,
+                   validity: Optional[Dict[str, np.ndarray]] = None) -> "HostTable":
+        dtypes = dtypes or {}
+        dictionaries = dictionaries or {}
+        validity = validity or {}
+        fields, columns = [], {}
+        num_rows = None
+        for name, arr in data.items():
+            arr = np.asarray(arr)
+            if num_rows is None:
+                num_rows = len(arr)
+            dt = dtypes.get(name)
+            if dt is None:
+                dt = {np.dtype(np.int32): INT32, np.dtype(np.int64): INT64,
+                      np.dtype(np.float32): FLOAT32, np.dtype(np.float64): FLOAT64,
+                      np.dtype(np.bool_): BOOL}[arr.dtype]
+            valid = validity.get(name)
+            if valid is None:
+                valid = np.ones(len(arr), dtype=np.bool_)
+            fields.append(Field(name, dt, nullable=not valid.all(),
+                                dictionary=dictionaries.get(name)))
+            columns[name] = (arr.astype(_HOST_DTYPE[dt.kind], copy=False), valid)
+        return HostTable(Schema(fields), columns, num_rows or 0)
+
+    def to_device(self, capacity: Optional[int] = None, *,
+                  device) -> "DeviceTable":
+        """Upload, padded to `capacity` rows (default: round_capacity)."""
+        cap = capacity or round_capacity(self.num_rows)
+        if cap < self.num_rows:
+            raise ValueError("capacity < num_rows")
+        cols = {}
+        for f in self.schema.fields:
+            v, valid = self.columns[f.name]
+            tv = torch.zeros(cap, dtype=f.dtype.device_dtype, device=device)
+            tm = torch.zeros(cap, dtype=torch.bool, device=device)
+            tv[:len(v)] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            tm[:len(valid)] = torch.from_numpy(np.ascontiguousarray(valid)).to(device)
+            cols[f.name] = (tv, tm)
+        return DeviceTable(self.schema, cols,
+                           torch.tensor(self.num_rows, dtype=torch.int32, device=device))
+
+    def to_pylist(self) -> List[dict]:
+        out = []
+        for i in range(self.num_rows):
+            row = {}
+            for f in self.schema.fields:
+                v, valid = self.columns[f.name]
+                if not valid[i]:
+                    row[f.name] = None
+                elif f.dtype.kind is Kind.STRING:
+                    row[f.name] = f.dictionary.values[int(v[i])]
+                elif f.dtype.kind is Kind.DECIMAL:
+                    row[f.name] = int(v[i]) / (10 ** f.dtype.scale)
+                elif f.dtype.kind is Kind.BOOL:
+                    row[f.name] = bool(v[i])
+                elif f.dtype.kind in (Kind.FLOAT32, Kind.FLOAT64):
+                    row[f.name] = float(v[i])
+                else:
+                    row[f.name] = int(v[i])
+            out.append(row)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Device table
+# ---------------------------------------------------------------------------
+
+class DeviceTable:
+    """Fixed-capacity device-resident columnar table.
+
+    columns: name -> (values[capacity], validity[capacity]) tensors
+    num_rows: 0-dim int32 tensor on the table's device
+    """
+
+    __slots__ = ("schema", "columns", "num_rows")
+
+    def __init__(self, schema: Schema,
+                 columns: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                 num_rows: torch.Tensor):
+        self.schema = schema
+        self.columns = columns
+        self.num_rows = num_rows
+
+    @property
+    def capacity(self) -> int:
+        for v, _ in self.columns.values():
+            return int(v.shape[0])
+        return 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.num_rows.device
+
+    def column(self, name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.columns[name]
+
+    def row_mask(self) -> torch.Tensor:
+        return (torch.arange(self.capacity, dtype=torch.int32, device=self.device)
+                < self.num_rows)
+
+    def to_host(self) -> HostTable:
+        """Copy the valid rows (never the padding) to the host."""
+        n = int(self.num_rows)
+        cols = {}
+        for f in self.schema.fields:
+            v, valid = self.columns[f.name]
+            cols[f.name] = (v[:n].cpu().numpy(), valid[:n].cpu().numpy())
+        return HostTable(self.schema, cols, n)
+
+    def __repr__(self):
+        return f"DeviceTable(cap={self.capacity}, cols={self.schema.names})"
+
+
+def null_columns_like(schema: Schema, capacity: int, *, device
+                      ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    cols = {}
+    for f in schema.fields:
+        cols[f.name] = (torch.zeros(capacity, dtype=f.dtype.device_dtype, device=device),
+                        torch.zeros(capacity, dtype=torch.bool, device=device))
+    return cols
+
+
+def hstack_tables(a: DeviceTable, b: DeviceTable, num_rows) -> DeviceTable:
+    """Combine columns of two same-capacity tables (e.g. join pair output)."""
+    if a.capacity != b.capacity:
+        raise ValueError(f"capacities differ: {a.capacity} vs {b.capacity}")
+    fields = list(a.schema.fields) + list(b.schema.fields)
+    cols = dict(a.columns)
+    cols.update(b.columns)
+    return DeviceTable(Schema(fields), cols,
+                       torch.as_tensor(num_rows, dtype=torch.int32, device=a.device))
+
+
+# ---------------------------------------------------------------------------
+# Row packing: all columns + validity of a table in ONE [W, cap] int32 matrix
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PackedLayout:
+    fields: Tuple[Tuple[str, Kind, int, int], ...]  # (name, kind, slot, nslots)
+    f64_fields: Tuple[str, ...]  # carried beside the packed words
+    valid_base: int
+    width: int
+
+
+class PackedTable(NamedTuple):
+    packed: torch.Tensor                 # [W, cap] int32, word-major
+    f64s: Dict[str, torch.Tensor]        # name -> float64[cap]
+    layout: Optional[PackedLayout]
+
+    def take_rows(self, indices: torch.Tensor) -> "PackedTable":
+        """Gather rows (plain torch: one index_select per matrix)."""
+        idx = indices.long()
+        return PackedTable(self.packed.index_select(1, idx),
+                           {n: v.index_select(0, idx) for n, v in self.f64s.items()},
+                           self.layout)
+
+
+def packed_layout(schema: Schema) -> PackedLayout:
+    fields = []
+    f64s = []
+    slot = 0
+    for f in schema.fields:
+        if f.dtype.kind is Kind.FLOAT64:
+            f64s.append(f.name)
+            fields.append((f.name, f.dtype.kind, -1, 0))
+            continue
+        n = 2 if f.dtype.kind in (Kind.INT64, Kind.DECIMAL) else 1
+        fields.append((f.name, f.dtype.kind, slot, n))
+        slot += n
+    valid_base = slot
+    width = slot + (len(schema.fields) + 31) // 32
+    return PackedLayout(tuple(fields), tuple(f64s), valid_base, width)
+
+
+def int64_words(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi) int32 words of an int64 tensor; the int32 cast keeps the low
+    32 bits, and hi is the arithmetic shift."""
+    return v.to(torch.int32), (v >> 32).to(torch.int32)
+
+
+def pack_table(t: DeviceTable) -> PackedTable:
+    """All columns + validity bitmask in one [W, cap] int32 matrix (float64
+    columns ride alongside)."""
+    layout = packed_layout(t.schema)
+    cap = t.capacity
+    cols = []
+    f64s = {}
+    for name, kind, _, _ in layout.fields:
+        v, _ = t.columns[name]
+        if kind is Kind.FLOAT64:
+            f64s[name] = v
+        elif kind in (Kind.INT64, Kind.DECIMAL):
+            cols += list(int64_words(v))
+        elif kind is Kind.FLOAT32:
+            cols.append(v.view(torch.int32))
+        else:  # int32/date32/string codes/bool
+            cols.append(v.to(torch.int32))
+    n_fields = len(layout.fields)
+    for w in range((n_fields + 31) // 32):
+        word = torch.zeros(cap, dtype=torch.int64, device=t.device)
+        for j in range(w * 32, min((w + 1) * 32, n_fields)):
+            _, valid = t.columns[layout.fields[j][0]]
+            word |= valid.to(torch.int64) << (j - w * 32)
+        cols.append(word.to(torch.int32))
+    return PackedTable(torch.stack(cols, dim=0), f64s, layout)
+
+
+def unpack_table(pt: PackedTable, schema: Schema, num_rows) -> DeviceTable:
+    """Inverse of pack_table over (possibly gathered) packed rows."""
+    packed, layout = pt.packed, pt.layout
+    cols = {}
+    for j, (name, kind, slot, n) in enumerate(layout.fields):
+        if kind is Kind.FLOAT64:
+            v = pt.f64s[name]
+        elif n == 2:
+            lo = packed[slot].long() & _M32
+            hi = packed[slot + 1].long()
+            v = (hi << 32) | lo
+        elif kind is Kind.FLOAT32:
+            v = packed[slot].contiguous().view(torch.float32)
+        elif kind is Kind.BOOL:
+            v = packed[slot] != 0
+        else:
+            v = packed[slot]
+        word = packed[layout.valid_base + j // 32]
+        valid = ((word >> (j % 32)) & 1).to(torch.bool)
+        cols[name] = (v, valid)
+    return DeviceTable(schema, cols,
+                       torch.as_tensor(num_rows, dtype=torch.int32, device=packed.device))
