@@ -2,19 +2,31 @@
 `datafusion_parallelism_tpu`.
 
 Ported so far: the single-device INNER hash join on the CSR strategy
-(`ops.join.hash_join`), through four hand-written CUDA kernels for Hopper
-(`kernels/`, sources in `csrc/`) with a plain torch version beside each.
+(`ops.join.hash_join`, kernels K1-K4) and the single-table operators
+`filter_table`, `project_table`, `hash_aggregate_counted`, `sort_table` and
+`limit_table` with the expression classes (kernels K5-K8), through eight
+hand-written CUDA kernels for Hopper (`kernels/`, sources in `csrc/`) with
+a plain torch version beside each.
 The package imports torch and never jax; the kernels are built with nvcc
 at first CUDA use, never at import.
 """
 
+from .ops.aggregate import AggSpec, hash_aggregate, hash_aggregate_counted
+from .ops.expressions import (BinOp, Case, Cast, Coalesce, Col, Expr,
+                              ExtractDatePart, InCodes, IsNull, Lit, Not)
+from .ops.filter import filter_table
 from .ops.hash_table import JoinStrategy, JoinTable
 from .ops.join import JoinType, hash_join
+from .ops.project import project_table
+from .ops.sort import SortKey, limit_table, sort_table
 from .utils.columnar import (BOOL, DATE32, DECIMAL, FLOAT32, FLOAT64, INT32,
                              INT64, STRING, DeviceTable, DType, Field,
                              HostTable, Kind, Schema, round_capacity)
 
-__all__ = ["BOOL", "DATE32", "DECIMAL", "DType", "DeviceTable", "FLOAT32",
-           "FLOAT64", "Field", "HostTable", "INT32", "INT64", "JoinStrategy",
-           "JoinTable", "JoinType", "Kind", "STRING", "Schema", "hash_join",
-           "round_capacity"]
+__all__ = ["AggSpec", "BOOL", "BinOp", "Case", "Cast", "Coalesce", "Col",
+           "DATE32", "DECIMAL", "DType", "DeviceTable", "Expr", "ExtractDatePart",
+           "FLOAT32", "FLOAT64", "Field", "HostTable", "INT32", "INT64", "InCodes",
+           "IsNull", "JoinStrategy", "JoinTable", "JoinType", "Kind", "Lit", "Not",
+           "STRING", "Schema", "SortKey", "filter_table", "hash_aggregate",
+           "hash_aggregate_counted", "hash_join", "limit_table", "project_table",
+           "round_capacity", "sort_table"]

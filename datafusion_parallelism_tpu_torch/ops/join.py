@@ -27,7 +27,7 @@ from ..kernels import compact_gather as k4
 from ..kernels import csr_build as k2
 from ..kernels import hash_slot as k1
 from ..kernels import probe_expand as k3
-from ..utils.columnar import (DeviceTable, Kind, PackedTable, Schema,
+from ..utils.columnar import (DeviceTable, Kind, PackedTable, Schema, f64_matrix,
                               hstack_tables, pack_table, unpack_table)
 from .hash_table import JoinStrategy, table_size_for
 from .hashing import KIND_I32, KIND_I64
@@ -123,14 +123,6 @@ PLAIN = JoinKernels(k1.hash_slot_plain, k2.csr_build_plain, k3.probe_expand_plai
                     k4.compact_gather_plain)
 
 
-def _f64_matrix(pt: PackedTable) -> torch.Tensor:
-    """The float64 sidecar columns as one [F, cap] matrix (F may be 0)."""
-    cap = pt.packed.shape[1]
-    if not pt.layout.f64_fields:
-        return torch.empty((0, cap), dtype=torch.float64, device=pt.packed.device)
-    return torch.stack([pt.f64s[n] for n in pt.layout.f64_fields])
-
-
 def _hash_cols(compares, side: int):
     """K1's key columns over one side's narrow rows, from the recheck plan:
     a one-word key hashes as int32, a two-word key as int64 (float keys
@@ -179,7 +171,7 @@ def inner_csr_join(build: DeviceTable, probe: DeviceTable, build_keys: List[str]
         pslot, ok, start_count, pnarrow, bsorted, compares, out_cap)
 
     out_b, out_bf, out_p, out_pf, n_match = kernels.compact_gather(
-        match, build_id, probe_idx, bp.packed, _f64_matrix(bp), pp.packed, _f64_matrix(pp))
+        match, build_id, probe_idx, bp.packed, f64_matrix(bp), pp.packed, f64_matrix(pp))
     n = n_match.to(torch.int32)
     bt = unpack_table(PackedTable(out_b, dict(zip(bp.layout.f64_fields, out_bf)), bp.layout),
                       build.schema, n)

@@ -403,12 +403,99 @@ class PackedTable(NamedTuple):
     f64s: Dict[str, torch.Tensor]        # name -> float64[cap]
     layout: Optional[PackedLayout]
 
-    def take_rows(self, indices: torch.Tensor) -> "PackedTable":
-        """Gather rows (plain torch: one index_select per matrix)."""
-        idx = indices.long()
-        return PackedTable(self.packed.index_select(1, idx),
-                           {n: v.index_select(0, idx) for n, v in self.f64s.items()},
-                           self.layout)
+    def take_rows(self, indices: torch.Tensor, n=None, kernels=None) -> "PackedTable":
+        """Row j = row indices[j] (clipped into range, as the JAX package's
+        mode="clip"), through K5's gather; with `n` (a 0-dim count), rows at
+        or past n are zeros."""
+        words, f64 = _chain(kernels).gather_rows(self.packed, f64_matrix(self),
+                                                 indices.to(torch.int32), n)
+        return PackedTable(words, dict(zip(self.f64s, f64)), self.layout)
+
+
+def _chain(kernels):
+    """The compaction family's kernels: `kernels` (a kernels/chain.py
+    ChainKernels), or its KERNELS when None. Imported here because the
+    kernel modules import this one."""
+    if kernels is not None:
+        return kernels
+    from ..kernels.chain import KERNELS
+    return KERNELS
+
+
+def f64_matrix(pt: PackedTable) -> torch.Tensor:
+    """The float64 sidecar columns as one [F, cap] matrix (F may be 0)."""
+    if not pt.f64s:
+        return torch.empty((0, pt.packed.shape[1]), dtype=torch.float64,
+                           device=pt.packed.device)
+    return torch.stack(list(pt.f64s.values()))
+
+
+def _fuse(pts: Sequence[PackedTable]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Several same-capacity packed tables as one word matrix and one
+    float64 matrix (stacked on the width axis), so one gather moves all."""
+    words = pts[0].packed if len(pts) == 1 else torch.cat([pt.packed for pt in pts])
+    f64s = [f64_matrix(pt) for pt in pts]
+    return words, f64s[0] if len(f64s) == 1 else torch.cat(f64s)
+
+
+def _split(pts: Sequence[PackedTable], words: torch.Tensor, f64: torch.Tensor
+           ) -> List[PackedTable]:
+    out, w, f = [], 0, 0
+    for pt in pts:
+        nw, nf = pt.packed.shape[0], len(pt.f64s)
+        out.append(PackedTable(words[w:w + nw], dict(zip(pt.f64s, f64[f:f + nf])), pt.layout))
+        w, f = w + nw, f + nf
+    return out
+
+
+def take_rows_fused(pts: Sequence[PackedTable], indices: torch.Tensor,
+                    kernels=None) -> List[PackedTable]:
+    """Gather the same rows from several packed tables with ONE K5 gather
+    (their word matrices stacked on the width axis; float64 column names
+    must be disjoint across them)."""
+    names = [n for pt in pts for n in pt.f64s]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate float64 columns in a fused gather: {names}")
+    words, f64 = _chain(kernels).gather_rows(*_fuse(pts), indices.to(torch.int32))
+    return _split(pts, words, f64)
+
+
+def compaction_indices(mask: torch.Tensor, kernels=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gather_idx int32[cap], n int32): gather_idx[j] = index of the j-th
+    True in mask (stable), through K5 over the row ids. Entries at or past
+    n are 0 (the JAX package leaves failing rows' ids there); callers mask
+    with j < n."""
+    cap = mask.shape[0]
+    iota = torch.arange(cap, dtype=torch.int32, device=mask.device)[None]
+    rows, _, n = _chain(kernels).filter_compact(
+        mask, iota, torch.empty((0, cap), dtype=torch.float64, device=mask.device), cap)
+    return rows[0], n.to(torch.int32)
+
+
+def compact_rows(pts: Sequence[PackedTable], mask: torch.Tensor, out_cap: int,
+                 kernels=None) -> Tuple[List[PackedTable], torch.Tensor]:
+    """Rows where mask is True, in order, at the front of out_cap-capacity
+    packed tables: ONE K5 launch for all of them. Survivors past out_cap
+    drop; the returned n (int32 0-dim) is the TRUE survivor count for the
+    caller's overflow check. Rows at or past n are zeros (the JAX package
+    zeroes only their validity words)."""
+    words, f64, n = _chain(kernels).filter_compact(mask, *_fuse(pts), out_cap)
+    return _split(pts, words, f64), n.to(torch.int32)
+
+
+def filter_rows(t: "DeviceTable", mask: torch.Tensor, kernels=None) -> "DeviceTable":
+    """Compact rows where mask is True to the front (stable order)."""
+    (pt,), n = compact_rows([pack_table(t)], mask, t.capacity, kernels)
+    return unpack_table(pt, t.schema, n)
+
+
+def gather_table(t: "DeviceTable", indices: torch.Tensor, new_num_rows,
+                 kernels=None) -> "DeviceTable":
+    """New table of capacity len(indices): row j = t[indices[j]], as pack ->
+    ONE K5 row gather -> unpack. (The JAX package's `row_valid` argument,
+    for outer-join padding, is not ported: ROADMAP queue 1 item 6.)"""
+    return unpack_table(pack_table(t).take_rows(indices, None, kernels), t.schema,
+                        new_num_rows)
 
 
 def packed_layout(schema: Schema) -> PackedLayout:

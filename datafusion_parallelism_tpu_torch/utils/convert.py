@@ -4,10 +4,14 @@
 columns plus a schema of fields with `name`, `dtype.kind.value`,
 `dtype.scale`, `nullable` and `dictionary.values`) into the port's types;
 `join_table_from_reference` turns a JAX-built CSR table's arrays into the
-port's `JoinTable`, so that one package can probe the other's table.
+port's `JoinTable`, so that one package can probe the other's table;
+`expr_from_reference` rebuilds a JAX-package expression tree (a planner's
+predicate, projection or sort key) in the port's classes.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -36,3 +40,42 @@ def join_table_from_reference(offsets, perm, start_count, *, device) -> JoinTabl
         return torch.tensor(np.asarray(a), dtype=torch.int32, device=device)
 
     return JoinTable(t(offsets), t(perm), t(start_count))
+
+
+def _ref_dtype(dt) -> DType:
+    return DType(Kind(dt.kind.value), int(dt.scale))
+
+
+def _ref_value(x):
+    """One dataclass field of a JAX-package object, in the port's types."""
+    cls = type(x).__name__
+    if cls == "DType":
+        return _ref_dtype(x)
+    if cls == "Field":
+        dictionary = None
+        if x.dictionary is not None:
+            dictionary = Dictionary(np.asarray(x.dictionary.values, dtype=object))
+        return Field(x.name, _ref_dtype(x.dtype), bool(x.nullable), dictionary)
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_ref_value(y) for y in x)
+    if dataclasses.is_dataclass(x):
+        return expr_from_reference(x)
+    return x
+
+
+def expr_from_reference(e):
+    """A JAX-package Expr (or SortKey, AggSpec, Field, DType) as the same tree of
+    the port's classes: the class found by name in the port's module, each
+    dataclass field converted recursively (DType and Field mapped,
+    InCodes' codes copied). Imports no jax: it reads names and fields."""
+    from ..ops import aggregate, expressions, sort
+    name = type(e).__name__
+    if name in ("DType", "Field"):
+        return _ref_value(e)
+    cls = next((getattr(m, name) for m in (expressions, sort, aggregate)
+                if hasattr(m, name)), None)
+    if cls is None or not dataclasses.is_dataclass(cls):
+        raise TypeError(f"no port class for {name}")
+    return cls(**{f.name: _ref_value(getattr(e, f.name)) for f in dataclasses.fields(e)})

@@ -1,7 +1,8 @@
 """tools/profile_join.py's trace reading, on a hand-made chrome trace:
 device work is attributed to the stage whose range launched it, the glue
 gets the rest, and the busy share is the union of device intervals over the
-join's window."""
+join's window. tools/profile_ops.py reads its chains' traces the same way,
+with K5-K8 (and K1) as the stages."""
 
 import os
 import sys
@@ -12,6 +13,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
                                 "tools"))
 
 import profile_join  # noqa: E402
+import profile_ops  # noqa: E402
 
 
 def _x(cat, name, ts, dur, corr=None):
@@ -61,3 +63,44 @@ def test_breakdown_refuses_a_trace_without_device_work():
     trace = {"traceEvents": [_x("user_annotation", "join", 0, 10)]}
     with pytest.raises(RuntimeError, match="device events"):
         profile_join.breakdown(trace, 1)
+
+
+def test_breakdown_of_a_chain_with_agg_stages():
+    ev = [
+        _x("user_annotation", "chain", 0, 100),
+        _x("user_annotation", "stage:radix_sort", 10, 20),
+        _x("user_annotation", "stage:direct_agg", 40, 20),
+        _x("cuda_runtime", "cudaLaunchKernel", 5, 1, corr=1),
+        _x("cuda_runtime", "cudaLaunchKernel", 15, 1, corr=2),
+        _x("cuda_runtime", "cudaLaunchKernel", 45, 1, corr=3),
+        _x("kernel", "elementwise", 6, 4, corr=1),
+        _x("kernel", "digit_scatter_kernel", 16, 30, corr=2),
+        _x("kernel", "direct_partial_kernel", 50, 50, corr=3),
+        # a join range in the same trace is not a chain
+        _x("user_annotation", "join", 200, 10),
+    ]
+    res = profile_join.breakdown({"traceEvents": ev}, 1, profile_ops.STAGES, "chain")
+    assert set(res["stage_ms"]) == set(profile_ops.STAGES) | {"glue"}
+    assert res["stage_ms"]["radix_sort"] == pytest.approx(0.030)
+    assert res["stage_ms"]["direct_agg"] == pytest.approx(0.050)
+    assert res["stage_ms"]["glue"] == pytest.approx(0.004)
+    assert res["stage_ms"]["segment_agg"] == 0.0
+    # window 0-100, busy 6-10, 16-46 and 50-100
+    assert res["busy_ms"] == pytest.approx(0.084)
+
+
+def test_profile_ops_stages_wrap_and_restore_every_entry_point():
+    """staged() wraps each of the chain's kernels in its stage range and
+    leaves the kernel table itself as it was."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels.chain import KERNEL_OF, KERNELS
+    before = tuple(KERNELS)
+    staged = profile_ops.staged()
+    assert staged._fields == KERNELS._fields and tuple(KERNELS) == before
+    assert all(s is not k for s, k in zip(staged, KERNELS))
+    assert set(profile_ops.STAGES) == set(KERNEL_OF.values())
+    idx = torch.tensor([2, 0], dtype=torch.int32)
+    words = torch.arange(6, dtype=torch.int32).reshape(2, 3)
+    f64 = torch.zeros((0, 3), dtype=torch.float64)
+    got = staged.gather_rows(words, f64, idx)
+    assert torch.equal(got[0], KERNELS.gather_rows(words, f64, idx)[0])

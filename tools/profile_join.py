@@ -72,18 +72,20 @@ def _holder(ranges, ts):
     return None
 
 
-def breakdown(trace: dict, iters: int) -> dict:
-    """Per-join numbers from a chrome trace of `iters` joins."""
+def breakdown(trace: dict, iters: int, stage_names=JoinKernels._fields,
+              window: str = "join") -> dict:
+    """Per-run numbers from a chrome trace of `iters` runs, each in a
+    `window` range, with `stage:<name>` ranges for the stage names."""
     events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
     joins = [(s, e, i) for i, (s, e) in enumerate(sorted(
         (e["ts"], e["ts"] + e["dur"]) for e in events
-        if e.get("cat") == "user_annotation" and e["name"] == "join"))]
+        if e.get("cat") == "user_annotation" and e["name"] == window))]
     stages = [(e["ts"], e["ts"] + e["dur"], e["name"].split(":", 1)[1]) for e in events
               if e.get("cat") == "user_annotation" and e["name"].startswith("stage:")]
     per_join = {i: [] for _, _, i in joins}
-    stage_us = {name: 0.0 for name in JoinKernels._fields + (GLUE,)}
+    stage_us = {name: 0.0 for name in tuple(stage_names) + (GLUE,)}
     kernel_us = {}
     for e in events:
         if e.get("cat") not in DEVICE_CATS:
@@ -96,7 +98,7 @@ def breakdown(trace: dict, iters: int) -> dict:
         stage_us[_holder(stages, ts) or GLUE] += e["dur"]
         kernel_us[e["name"]] = kernel_us.get(e["name"], 0.0) + e["dur"]
     if len(joins) != iters or not any(per_join.values()):
-        raise RuntimeError(f"trace holds {len(joins)} joins (expected {iters}) and "
+        raise RuntimeError(f"trace holds {len(joins)} {window} ranges (expected {iters}) and "
                            f"{sum(map(len, per_join.values()))} device events in them")
     windows = [(max([e] + [d for _, d in per_join[i]]) - s) / 1e3 for s, e, i in joins]
     busy = [_union_ms(per_join[i]) for _, _, i in joins]
@@ -109,20 +111,21 @@ def breakdown(trace: dict, iters: int) -> dict:
             "top": [(name[:100], us / 1e3 / iters) for name, us in top]}
 
 
-def profile(run, iters: int, trace_path: str) -> dict:
-    """Profile `iters` calls of run() (after one warm-up), each in a `join`
-    range and followed by a synchronize."""
+def profile(run, iters: int, trace_path: str, stage_names=JoinKernels._fields,
+            window: str = "join") -> dict:
+    """Profile `iters` calls of run() (after one warm-up), each in a
+    `window` range and followed by a synchronize."""
     run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(iters):
-            with torch.profiler.record_function("join"):
+            with torch.profiler.record_function(window):
                 run()
             torch.cuda.synchronize()
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
-        return breakdown(json.load(f), iters)
+        return breakdown(json.load(f), iters, stage_names, window)
 
 
 def grown_out_cap(build, probe, keys) -> int:
@@ -136,9 +139,9 @@ def grown_out_cap(build, probe, keys) -> int:
         out_cap = round_capacity(int(total), minimum=1024)
 
 
-def _report(cell: str, res: dict) -> None:
+def report(cell: str, res: dict, unit: str = "join") -> None:
     stages = ", ".join(f"{k} {v:.3f}" for k, v in res["stage_ms"].items())
-    print(f"{cell}: per join (median of {res['iters']}) window {res['window_ms']:.3f} ms, "
+    print(f"{cell}: per {unit} (median of {res['iters']}) window {res['window_ms']:.3f} ms, "
           f"device busy {res['busy_ms']:.3f} ms, busy share {res['busy_share']:.3f}; "
           f"device ms by stage: {stages}", flush=True)
     for name, ms in res["top"]:
@@ -166,7 +169,7 @@ def main() -> int:
     result["size512"] = profile(
         lambda: inner_csr_join(build, probe, ["b_key"], ["p_key"],
                                chip_smoke.SIZE512_OUT_CAP, kernels), 5, trace_path)
-    _report("Size512", result["size512"])
+    report("Size512", result["size512"])
     del build, probe
 
     orders, lineitem, _, _ = chip_smoke.sf10_tables(np.random.default_rng(10), device)
@@ -175,7 +178,7 @@ def main() -> int:
     result["sf10"] = profile(
         lambda: inner_csr_join(orders, lineitem, *keys, out_cap, kernels), 3, trace_path)
     result["sf10"]["out_cap"] = out_cap
-    _report(f"SF10-shaped (out_cap {out_cap})", result["sf10"])
+    report(f"SF10-shaped (out_cap {out_cap})", result["sf10"])
     os.remove(trace_path)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
