@@ -3,17 +3,22 @@
 
     python3 chip_smoke.py
 
-Drives `datafusion_parallelism_tpu_torch`'s two main paths through their
-eight hand-written CUDA kernels and holds every result against the plain
-torch versions: the single-device INNER CSR hash join (K1-K4) and the
+Drives `datafusion_parallelism_tpu_torch`'s three main paths through its
+eleven hand-written CUDA kernels and holds every result against the plain
+torch versions: the single-device INNER CSR hash join (K1-K4), the
 single-table chain filter -> project -> hash aggregate -> sort -> limit
-(K5-K8, with K1 for multi-column group keys). Phases, one line each:
+(K5-K8, with K1 for multi-column group keys), and SQL through
+`SessionContext`: the planner, the eager executor and all eight join types
+(K9-K11 beside K1-K8). Phases, one line each:
 
-  1. build the kernels with nvcc; print the card's name and power limit
+  1. build the kernels with nvcc, one process per source, all at once;
+     print the card's name and power limit
   2. K1-K4 against their plain versions on the card, exact, on seeded
      inputs (nulls, negative int64, a two-column key, padding, a hot key,
      no match, an overflowing out_cap, float keys, a non-power-of-two
-     table size) and at the Size512 join's shapes,
+     table size, K1's row mask), every join type, residual, late
+     materialized and chain-fused variant through K1-K5 and K9-K11 (2a),
+     and at the Size512 join's shapes (2b),
      where each kernel is also timed against its plain version
   3. the `entry()` twin on the card against the same step on the CPU
   4. Size512 (4,194,304 build and probe rows): kernel path == plain path
@@ -25,9 +30,10 @@ single-table chain filter -> project -> hash aggregate -> sort -> limit
      exact, and timed
   8. K5-K8 against their plain versions on seeded inputs through the
      operators (nulls in keys and values, every row filtered out, one
-     group holding every row, an overflowing out_cap, -0.0 and NaN sort
-     keys, int64 extremes, G = 1 and G = 64); K7 timed on 16,777,216
-     sorted rows in one group beside the same rows over uniform keys
+     group holding every row, an overflowing out_cap whose last kept
+     group sums to the end of the rows, -0.0 and NaN sort keys, int64
+     extremes, G = 1 and G = 64); K7 timed on 16,777,216 sorted rows in
+     one group beside the same rows over uniform keys
   9. the reference roofline harness's three single-table operations at
      4,194,304 rows (filter_compact, hash_aggregate, sort_table_13col):
      kernel path == plain path, each kernel's ms against its plain ms
@@ -39,6 +45,21 @@ single-table chain filter -> project -> hash aggregate -> sort -> limit
  11. every kernel of the chain launched during phase 10's first runs
  12. K5-K8 against their plain versions at the shapes phase 10 gave them,
      and timed
+ 13. the eight join types at Size512 (4,194,304 x 4,194,304 uniform int32
+     keys), INNER and LEFT_SEMI with the residual b_val < p_val, one
+     float64-key and one int32 x int64-key join: kernel path == plain
+     path word for word, row counts == numpy's counts of matches and of
+     unmatched build and probe rows; ms of both paths
+ 14. all 22 TPC-H queries through `SessionContext(device=cuda).sql` at
+     SF10 (the tables of phase 10): one collect() settles the
+     capacities, then the median of 3 timed collect()s; each result ==
+     the numpy oracle under tpch/diff_results.py's rule; per query ms,
+     retries, staged or not, peak bytes and launches per kernel; every
+     kernel K1-K11 launched during the phase
+ 15. the largest call of every kernel entry point recorded in phase 14
+     replayed through the kernel and its plain version: equal, and timed
+     beside its bound (bytes moved at 3.35 TB/s) and, where one PyTorch
+     call computes the same function, that call
 
 Exact means bit for bit, except float64 sums (and the averages built on
 them), which K7 and K8 add in another order than the plain versions:
@@ -46,15 +67,16 @@ those agree within rtol 1e-9 + 1e-12 * sum|x| (a chain's outputs within
 rtol 1e-9).
 
 The last line is {"ok": true, "device": {...}}, printed only when every
-phase passed; the line before it lists the kernels with their launches,
-errors and times. Without a CUDA device the script exits non-zero and
-prints no result.
+phase passed; the line before it lists the kernels with their launches in
+phase 14 and phase 15's errors, times and bounds. Without a CUDA device
+the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -87,15 +109,29 @@ KERNEL_INFO = {
                     "datafusion_parallelism_tpu/ops/aggregate.py:338"),
     "direct_agg": ("datafusion_parallelism_tpu_torch/csrc/direct_agg.cu",
                    "datafusion_parallelism_tpu/ops/aggregate.py:108"),
+    "pair_fetch": ("datafusion_parallelism_tpu_torch/csrc/pair_fetch.cu",
+                   "datafusion_parallelism_tpu/ops/join.py:322"),
+    "match_flags": ("datafusion_parallelism_tpu_torch/csrc/match_flags.cu",
+                    "datafusion_parallelism_tpu/ops/join.py:363"),
+    "concat_rows": ("datafusion_parallelism_tpu_torch/csrc/concat_rows.cu",
+                    "datafusion_parallelism_tpu/utils/columnar.py:818"),
 }
-AGG_KERNELS = ("filter_compact", "radix_sort", "segment_agg", "direct_agg")   # K5-K8
 ROOFLINE_N = 4_194_304                # benches/roofline.py's N
 K7_ROWS = 16_777_216
 TPCH_SF = 10
 LINEITEM_CAP = 67_108_864
+HBM_BYTES_PER_S = 3.35e12             # H100 SXM device memory rate
+PEAK_OPS_PER_S = 67e12                # H100 SXM float32 outside the tensor cores
+
+
+_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
+    """One line of output; a phase's line ends with the seconds since the
+    script started."""
+    if msg.startswith("phase"):
+        msg += f" [{time.perf_counter() - _START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -285,8 +321,80 @@ def phase_kernels_vs_plain(device, n: int = 1 << 18) -> None:
     max_abs_err(slot, k1.hash_slot_plain(*args, T, num_rows)[1])
     rows = torch.from_numpy(rng.integers(-9, 9, (2, n)).astype(np.int32)).to(device)
     max_abs_err(k2.csr_build(slot, T, rows), k2.csr_build_plain(slot, T, rows))
+    # K1's row mask (a chain-fused build side's build_valid)
+    row_mask = torch.from_numpy(rng.random(n) < 0.7).to(device)
+    max_abs_err(k1.hash_slot(*args, T, num_rows, row_mask),
+                k1.hash_slot_plain(*args, T, num_rows, row_mask))
+    variants = join_variants(rng, n, device)
     log(f"phase 2a ok: K1-K4 == plain, exact, on {n}-row inputs: " + "; ".join(names)
-        + "; float32/float64 keys with -0.0; non-pow2 T")
+        + "; float32/float64 keys with -0.0; non-pow2 T; K1's row mask; and every stage "
+        f"(K1-K5, K9-K11) == plain in {len(variants)} joins: " + "; ".join(variants))
+
+
+def join_variants(rng, n, device):
+    """Every join type, residual, late-materialized and chain-fused join
+    on seeded inputs, each stage of each (K1-K4, K9-K11 and the K5
+    compactions) run through the kernel and its plain version, equal."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels.chain import KERNELS as CHAIN
+    from datafusion_parallelism_tpu_torch.kernels.chain import PLAIN as CHAIN_PLAIN
+    from datafusion_parallelism_tpu_torch.kernels.chain import ChainKernels
+    from datafusion_parallelism_tpu_torch.ops.expressions import BinOp, Col
+    from datafusion_parallelism_tpu_torch.ops.join import PLAIN, JoinType, hash_join
+    from datafusion_parallelism_tpu_torch.utils.columnar import HostTable
+
+    def checked_chain():
+        def stage(kernel, plain):
+            def run(*args):
+                got = kernel(*args)
+                entry_err(kernel.__name__, args, got, plain(*args))
+                return got
+            return run
+        return ChainKernels(*(stage(k, p) for k, p in zip(CHAIN, CHAIN_PLAIN)))
+
+    keys = rng.integers(0, n // 4, n)
+    b = HostTable.from_numpy({"bk": keys.astype(np.int32), "bf": keys * 0.5,
+                              "bl": keys, "bv": rng.random(n)},
+                             validity={"bk": rng.random(n) >= 0.1})
+    pkeys = rng.integers(0, n // 4, n)
+    pf = pkeys * 0.5
+    pf[pkeys == 0] = -0.0
+    pf[rng.random(n) < 0.01] = np.nan
+    p = HostTable.from_numpy({"pk": pkeys.astype(np.int32), "pf": pf, "pl": pkeys,
+                              "pv": rng.random(n).astype(np.float32)},
+                             validity={"pk": rng.random(n) >= 0.1})
+    build, probe = b.to_device(n + n // 3, device=device), p.to_device(device=device)
+    below = BinOp("<", Col("bv"), Col("pv"))
+    residual = lambda pair: below.eval(pair)[:2]   # noqa: E731
+    bvalid = torch.from_numpy(rng.random(build.capacity) < 0.6).to(device)
+    pvalid = torch.from_numpy(rng.random(probe.capacity) < 0.6).to(device)
+    cases = [(t.name, ["bk"], ["pk"], {}) for t in JoinType]
+    cases += [(f"{t} residual", ["bk"], ["pk"], {"residual": residual})
+              for t in ("INNER", "LEFT", "FULL", "LEFT_SEMI", "RIGHT_ANTI")]
+    cases += [(f"{t} expanded", ["bk"], ["pk"], {"expanded": True})
+              for t in ("INNER", "LEFT_ANTI", "RIGHT_SEMI")]
+    cases += [("LEFT_SEMI expanded residual", ["bk"], ["pk"],
+               {"expanded": True, "residual": residual})]
+    cases += [(f"{t} build_valid/probe_valid", ["bk"], ["pk"],
+               {"build_valid": bvalid, "probe_valid": pvalid})
+              for t in ("INNER", "LEFT", "RIGHT_ANTI")]
+    cases += [("INNER float64 keys", ["bf"], ["pf"], {}), ("FULL float64 keys", ["bf"], ["pf"], {}),
+              ("INNER int32 x int64 keys", ["bk"], ["pl"], {}),
+              ("LEFT int64 x int32 two keys", ["bl", "bk"], ["pk", "pl"], {}),
+              ("RIGHT return_visited", ["bk"], ["pk"], {"return_visited": True})]
+    labels = []
+    for label, bk, pk, kw in cases:
+        jt = JoinType[label.split()[0]]
+        got = hash_join(build, probe, bk, pk, jt, 4 * n, kernels=Checked().stages,
+                        chain=checked_chain(), **kw)
+        with no_launches():
+            want = hash_join(build, probe, bk, pk, jt, 4 * n, kernels=PLAIN, chain=CHAIN_PLAIN,
+                             **kw)
+        tables_equal(got[0], want[0])
+        max_abs_err(got[1:], want[1:])   # (mask,) total (, visited)
+        rows = int(got[1].sum()) if kw.get("expanded") else int(got[0].num_rows)
+        labels.append(f"{label} {rows} rows")
+    return labels
 
 
 def phase_size512_kernels(device):
@@ -482,16 +590,33 @@ def recorder(record):
     return ChainKernels(*(stage(e, fn) for e, fn in zip(ChainKernels._fields, KERNELS)))
 
 
+def all_counters():
+    """{(table, entry point): wrapper} over the join's and the chain's
+    kernel tables; each wrapper counts its own launches."""
+    from datafusion_parallelism_tpu_torch.kernels.chain import KERNELS as CHAIN
+    from datafusion_parallelism_tpu_torch.ops.join import KERNELS as JOIN
+    return {**{("join", e): fn for e, fn in JOIN._asdict().items()},
+            **{("chain", e): fn for e, fn in CHAIN._asdict().items()}}
+
+
+def kernel_of(key) -> str:
+    """The kernel (KERNEL_INFO's name) a (table, entry point) launches."""
+    from datafusion_parallelism_tpu_torch.kernels.chain import KERNEL_OF as CHAIN_OF
+    from datafusion_parallelism_tpu_torch.ops.join import KERNEL_OF as JOIN_OF
+    table, entry = key
+    return (JOIN_OF if table == "join" else CHAIN_OF)[entry]
+
+
 @contextlib.contextmanager
 def no_launches():
-    """Fails unless the chain's kernel wrappers launch nothing inside: the
-    plain path must not reach a kernel past its `kernels` argument."""
-    from datafusion_parallelism_tpu_torch.kernels.chain import KERNELS
-    before = [fn.launches for fn in KERNELS]
+    """Fails unless no kernel wrapper launches anything inside: a plain
+    path must not reach a kernel past its `kernels` arguments."""
+    wrappers = set(all_counters().values())
+    before = {fn: fn.launches for fn in wrappers}
     yield
-    after = [fn.launches for fn in KERNELS]
-    if after != before:
-        raise AssertionError(f"the plain path launched kernels: {before} -> {after}")
+    moved = {fn.__name__: (n, fn.launches) for fn, n in before.items() if fn.launches != n}
+    if moved:
+        raise AssertionError(f"the plain path launched kernels: {moved}")
 
 
 def _diff(a, b):
@@ -880,7 +1005,7 @@ CHAINS = {"Q1": q1_steps, "Q6": q6_steps, "Q18-shaped": q18_steps, "Q20-shaped":
 def phase_tpch_chains(device, counters):
     """The four lineitem chains at SF10. Counters are zeroed before their
     first runs and read after them. Returns (launches, per-chain results,
-    the recorded kernel calls' timing)."""
+    the recorded kernel calls' timing, the generated tables)."""
     import torch
     from datafusion_parallelism_tpu_torch.kernels.chain import PLAIN
     from datafusion_parallelism_tpu_torch.ops.plan import run_steps
@@ -908,7 +1033,6 @@ def phase_tpch_chains(device, counters):
     _oracle_rows_match(outs["Q6"][0].to_host().to_pylist(), _q6_np(tables))
     rows = {"Q1": 4, "Q6": 1, "Q18-shaped": check_q18(outs["Q18-shaped"][0], host),
             "Q20-shaped": check_q20(outs["Q20-shaped"][0], host)}
-    del tables
 
     res, timing, lines = {}, {}, []
     for name in CHAINS:
@@ -942,7 +1066,352 @@ def phase_tpch_chains(device, counters):
         f"(generated in {gen_s:.1f} s, uploaded in {upload_s:.1f} s); Q1 and Q6 == the numpy "
         "oracle, the Q18- and Q20-shaped chains == numpy, every chain == its plain path. "
         + " | ".join(lines))
-    return launches, res, timing
+    return launches, res, timing, tables
+
+
+# ---------------------------------------------------------------------------
+# the join types at Size512, and SQL at SF10
+# ---------------------------------------------------------------------------
+
+def _size512_counts(bk, pk, bv, pv):
+    """numpy's counts at Size512: matches, unmatched build rows, unmatched
+    probe rows, and under the residual b_val < p_val the matching pairs
+    and the build rows with at least one."""
+    n = len(bk)
+    cnt_b, cnt_p = np.bincount(bk, minlength=n), np.bincount(pk, minlength=n)
+    order = np.argsort(bk, kind="stable")
+    lo = np.searchsorted(bk[order], pk, "left")
+    cnt = cnt_b[pk]
+    pidx = np.repeat(np.arange(n), cnt)
+    bidx = order[np.repeat(lo, cnt) + np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)]
+    keep = bv[bidx] < pv[pidx]
+    return {"matches": int(cnt.sum()), "unmatched_build": int((cnt_p[bk] == 0).sum()),
+            "unmatched_probe": int((cnt == 0).sum()), "residual_pairs": int(keep.sum()),
+            "residual_build": int(np.unique(bidx[keep]).size)}
+
+
+def phase_join_types(device):
+    """All eight join types and four variants at Size512: kernel path ==
+    plain path word for word, row counts == numpy's, ms of both paths."""
+    import torch
+    from datafusion_parallelism_tpu_torch.entry import make_tables
+    from datafusion_parallelism_tpu_torch.kernels.chain import PLAIN as CHAIN_PLAIN
+    from datafusion_parallelism_tpu_torch.ops.expressions import BinOp, Col
+    from datafusion_parallelism_tpu_torch.ops.join import KERNELS, PLAIN, JoinType, hash_join
+    from datafusion_parallelism_tpu_torch.utils.columnar import (FLOAT64, INT64, DeviceTable,
+                                                                 Field, Schema)
+
+    n = SIZE512
+    build, probe = make_tables(np.random.default_rng(0), n, n, n, device=device)
+    c = _size512_counts(_np(build, "b_key", n), _np(probe, "p_key", n), _np(build, "b_val", n),
+                        _np(probe, "p_val", n))
+    m, ub, up = c["matches"], c["unmatched_build"], c["unmatched_probe"]
+    expect = {"INNER": m, "LEFT": m + ub, "RIGHT": m + up, "FULL": m + ub + up,
+              "LEFT_SEMI": n - ub, "LEFT_ANTI": ub, "RIGHT_SEMI": n - up, "RIGHT_ANTI": up}
+
+    def with_column(t, name, values, dtype):
+        ones = torch.ones(t.capacity, dtype=torch.bool, device=device)
+        return DeviceTable(Schema(list(t.schema.fields) + [Field(name, dtype)]),
+                           {**t.columns, name: (values, ones)}, t.num_rows)
+
+    # the same keys as float64 (0 as -0.0 on the build side) and as int64
+    bkey = build.column("b_key")[0]
+    fbuild = with_column(build, "b_fkey",
+                         torch.where(bkey == 0, -0.0, bkey.double()), FLOAT64)
+    fprobe = with_column(probe, "p_fkey", probe.column("p_key")[0].double(), FLOAT64)
+    lprobe = with_column(probe, "p_lkey", probe.column("p_key")[0].long(), INT64)
+    below = BinOp("<", Col("b_val"), Col("p_val"))
+    residual = lambda pair: below.eval(pair)[:2]   # noqa: E731
+    cases = [(t.name, build, probe, "b_key", "p_key", {}, expect[t.name]) for t in JoinType]
+    cases += [("INNER residual", build, probe, "b_key", "p_key", {"residual": residual},
+               c["residual_pairs"]),
+              ("LEFT_SEMI residual", build, probe, "b_key", "p_key", {"residual": residual},
+               c["residual_build"]),
+              ("INNER float64 keys", fbuild, fprobe, "b_fkey", "p_fkey", {}, m),
+              ("INNER int32 x int64 keys", build, lprobe, "b_key", "p_lkey", {}, m)]
+    lines, res = [], {}
+    for label, b, p, bkey_name, pkey_name, kw, rows in cases:
+        jt = JoinType[label.split()[0]]
+
+        def run(kernels, chain, b=b, p=p, bkey_name=bkey_name, pkey_name=pkey_name, kw=kw,
+                jt=jt):
+            return hash_join(b, p, [bkey_name], [pkey_name], jt, SIZE512_OUT_CAP,
+                             kernels=kernels, chain=chain, **kw)
+
+        out, total = run(KERNELS, None)
+        with no_launches():
+            ref, ref_total = run(PLAIN, CHAIN_PLAIN)
+            t_plain = wall_s(lambda: run(PLAIN, CHAIN_PLAIN), 1)
+        if int(total) != int(ref_total) or int(total) > SIZE512_OUT_CAP:
+            raise AssertionError(f"{label}: total {int(total)}, plain {int(ref_total)}")
+        tables_equal(out, ref)
+        if int(out.num_rows) != rows:
+            raise AssertionError(f"{label}: {int(out.num_rows)} rows, numpy counts {rows}")
+        del out, ref
+        t_kernel = wall_s(lambda: run(KERNELS, None), 5)
+        res[label] = {"rows": rows, "kernel_ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3}
+        lines.append(f"{label} {rows} rows {t_kernel * 1e3:.3f}/{t_plain * 1e3:.3f}")
+    log(f"phase 13 ok: join types at Size512 ({n} x {n} rows; {m} matches, {ub} unmatched "
+        f"build, {up} unmatched probe rows), kernel path == plain path word for word, rows == "
+        "numpy; ms kernel/plain (median of 5 / one run): " + "; ".join(lines))
+    return res
+
+
+def _unique_tensors(x):
+    seen, out = set(), []
+    for t in _flat(x):
+        if hasattr(t, "data_ptr") and (t.data_ptr(), t.nbytes) not in seen:
+            seen.add((t.data_ptr(), t.nbytes))
+            out.append(t)
+    return out
+
+
+def _bytes(x) -> int:
+    return sum(t.nbytes for t in _unique_tensors(x))
+
+
+class LargestCalls:
+    """Kernel tables that pass every call through to the wrappers and,
+    while `on`, note each entry point's largest call (by the bytes of its
+    tensor arguments): `sizes` keeps (bytes, query) of the largest so far,
+    `calls` the arguments of the running query's largest where `capture`
+    is set. Phase 14 notes sizes only; phase 15 reruns a query to capture
+    the calls it owns, so no argument is held between queries."""
+
+    def __init__(self, capture: bool = False):
+        from datafusion_parallelism_tpu_torch.kernels.chain import KERNELS as CHAIN
+        from datafusion_parallelism_tpu_torch.kernels.chain import ChainKernels
+        from datafusion_parallelism_tpu_torch.ops.join import KERNELS as JOIN
+        from datafusion_parallelism_tpu_torch.ops.join import JoinKernels
+        self.on, self.capture, self.query = False, capture, None
+        self.sizes, self.calls = {}, {}
+        self.join = JoinKernels(*(self._wrap(("join", e), fn) for e, fn in JOIN._asdict().items()))
+        self.chain = ChainKernels(*(self._wrap(("chain", e), fn)
+                                    for e, fn in CHAIN._asdict().items()))
+
+    def _wrap(self, key, fn):
+        def run(*args):
+            if self.on:
+                size = _bytes(args)
+                if size > self.sizes.get(key, (-1,))[0]:
+                    self.sizes[key] = (size, self.query)
+                    if self.capture:
+                        self.calls[key] = args
+            return fn(*args)
+        return run
+
+
+def kernel_launches():
+    """{kernel name: launches so far}, each wrapper counted once."""
+    wrappers = {fn: kernel_of(key) for key, fn in all_counters().items()}
+    out = {}
+    for fn, name in wrappers.items():
+        out[name] = out.get(name, 0) + fn.launches
+    return out
+
+
+def _diff_rule_rows(rows):
+    """tpch/diff_results.py's normal form: every value as its CSV text,
+    numbers rounded to 4 places, rows sorted."""
+    def norm(v):
+        s = "" if v is None else str(v)
+        try:
+            return (0, round(float(s), 4))
+        except ValueError:
+            return (1, s)
+    return sorted(tuple((k, norm(r[k])) for k in sorted(r)) for r in rows)
+
+
+def diff_rule_match(got, want) -> None:
+    """tpch/diff_results.py's rule: equal row multisets, floats within
+    rel 1e-6 or abs 1e-4."""
+    import math
+    a, b = _diff_rule_rows(got), _diff_rule_rows(want)
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} rows, oracle {len(b)}")
+    for ra, rb in zip(a, b):
+        for (ka, (ta, va)), (kb, (tb, vb)) in zip(ra, rb, strict=True):
+            ok = ka == kb and ta == tb and (
+                math.isclose(va, vb, rel_tol=ORACLE_REL, abs_tol=ORACLE_ABS) if ta == 0
+                else va == vb)
+            if not ok:
+                raise AssertionError(f"{ka}: {va!r} vs oracle {vb!r}")
+
+
+def phase_tpch_sql(device, tables):
+    """All 22 TPC-H queries through SessionContext.sql at SF10. Counters
+    are zeroed before the first query and read after the last; the size
+    and the query of every kernel entry point's largest call are noted for
+    phase 15."""
+    import torch
+    from datafusion_parallelism_tpu_torch import SessionContext
+    from datafusion_parallelism_tpu_torch.tpch import QUERIES
+    from datafusion_parallelism_tpu_torch.tpch.oracle import oracle_query
+
+    ctx = SessionContext(device=device)
+    for name, t in tables.items():
+        ctx.register_table(name, t)
+    rec = LargestCalls()
+    for fn in set(all_counters().values()):
+        fn.launches = 0
+    res, lines = {}, []
+    oracle_s = 0.0
+    for q in sorted(QUERIES):
+        before = kernel_launches()
+        rec.on, rec.query = True, q
+        handle = ctx.sql(QUERIES[q], kernels=rec.join, chain=rec.chain)
+        t0 = time.perf_counter()
+        rows = handle.collect().to_pylist()
+        first_s = time.perf_counter() - t0
+        rec.on = False
+        after = kernel_launches()
+        launched = {k: after[k] - before.get(k, 0) for k in after if after[k] > before.get(k, 0)}
+        retries = handle.metrics.retries
+        t0 = time.perf_counter()
+        diff_rule_match(rows, oracle_query(q, tables))
+        oracle_s += time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            handle.collect()
+            torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+        ms = statistics.median(times) * 1e3
+        peak = torch.cuda.max_memory_allocated(device)
+        res[q] = {"ms": ms, "first_ms": first_s * 1e3, "retries": retries,
+                  "staged": handle.metrics.staged, "peak_bytes": peak, "rows": len(rows),
+                  "launches": launched}
+        lines.append(f"Q{q} {ms:.3f} ms (first run {first_s * 1e3:.1f}), {len(rows)} rows, "
+                     f"{retries} retries, {'staged' if handle.metrics.staged else 'one run'}, "
+                     f"peak {peak} bytes, launches {launched}")
+        del handle
+    launches = kernel_launches()
+    missing = [k for k in KERNEL_INFO if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the SQL path: {missing}")
+    log(f"phase 14 ok: TPC-H SF{TPCH_SF}, 22 queries through SessionContext.sql, each == the "
+        "numpy oracle (diff_results rule); median of 3 collect()s after a settling one: "
+        + " | ".join(lines) + f"; launches over the phase: {launches}; the oracle took "
+        f"{oracle_s:.1f} s of host time")
+    return res, launches, ctx, rec.sizes
+
+
+def _row_bytes(words, f64) -> int:
+    return words.shape[0] * 4 + f64.shape[0] * 8
+
+
+def work(key, args, out):
+    """(bytes, operations) one call needs: each input byte it must read
+    once (a gathered input only at the rows it gathers), each output byte
+    written once; operations only where they could bound it (K8's
+    requests x groups per row)."""
+    entry = key[1]
+    if entry == "probe_expand":
+        slot, ok, start_count, pwords, bwords, _, out_cap = args
+        k = min(int(out[-4]), out_cap)
+        reads = (_bytes([slot, ok, pwords]) + 8 * slot.numel()
+                 + min(bwords.nbytes, k * bwords.shape[0] * 4))
+    elif entry == "probe_ranges":
+        slot, ok, _ = args
+        reads = _bytes([slot, ok]) + 8 * slot.numel()
+    elif entry == "compact_gather":
+        match, build_id, probe_idx, bw, bf, pw, pf = args
+        k = int(out[-1])
+        reads = (_bytes([match, build_id, probe_idx]) + min(bw.nbytes + bf.nbytes, k * _row_bytes(bw, bf))
+                 + min(pw.nbytes + pf.nbytes, k * _row_bytes(pw, pf)))
+    elif entry == "gather_rows":
+        words, f64, idx = args[:3]
+        reads = idx.nbytes + min(words.nbytes + f64.nbytes, idx.numel() * _row_bytes(words, f64))
+    elif entry == "filter_compact":
+        mask, words, f64, out_cap = args
+        k = min(int(out[-1]), out_cap)
+        reads = mask.nbytes + min(words.nbytes + f64.nbytes, k * _row_bytes(words, f64))
+    elif entry == "pair_fetch":
+        start, base, total, pwords, pf64, bwords, _, _, out_cap = args
+        k = min(int(total), out_cap)
+        reads = (_bytes([start, base]) + min(pwords.nbytes + pf64.nbytes, k * _row_bytes(pwords, pf64))
+                 + min(bwords.nbytes, k * bwords.shape[0] * 4))
+    elif entry == "concat_rows":
+        reads = sum(min(w.nbytes + f.nbytes, int(n) * _row_bytes(w, f)) for w, f, n in args[0])
+    else:
+        reads = _bytes(args)
+    ops = 0
+    if entry == "direct_agg":
+        keys, doms, _, _, reqs, cap = args
+        ops = cap * int(np.prod(doms)) * len(reqs)
+    return reads + _bytes(out), ops
+
+
+def library_call(key, args):
+    """One PyTorch call computing the same function on the same inputs, or
+    None: K6 on one signed key word is torch.argsort(stable=True); K5's
+    row gather without float64 rows is index_select."""
+    import torch
+    entry = key[1]
+    if entry == "radix_sort" and args[0].shape[0] == 1 and args[1][0]:
+        return lambda: torch.argsort(args[0][0], stable=True)
+    if entry == "gather_rows" and args[1].shape[0] == 0 and len(args) < 4:
+        return lambda: args[0].index_select(1, args[2])
+    return None
+
+
+def phase_replay(device, ctx, sizes):
+    """For each query that made an entry point's largest call in phase
+    14, its first run again, capturing those calls; each captured call
+    then goes through the kernel and its plain version (equal), timed,
+    beside its bound and its library call."""
+    from datafusion_parallelism_tpu_torch.kernels.chain import KERNELS as CHAIN
+    from datafusion_parallelism_tpu_torch.kernels.chain import PLAIN as CHAIN_PLAIN
+    from datafusion_parallelism_tpu_torch.ops.join import KERNELS as JOIN
+    from datafusion_parallelism_tpu_torch.ops.join import PLAIN as JOIN_PLAIN
+    from datafusion_parallelism_tpu_torch.tpch import QUERIES
+    per_kernel, lines = {}, []
+    for q in sorted({q for _, q in sizes.values()}):
+        rec = LargestCalls(capture=True)
+        rec.on, rec.query = True, q
+        ctx.sql(QUERIES[q], kernels=rec.join, chain=rec.chain).collect()
+        rec.on = False
+        for key in sorted(k for k, (_, owner) in sizes.items() if owner == q):
+            args = rec.calls.pop(key)
+            if _bytes(args) != sizes[key][0]:
+                raise AssertionError(f"Q{q} {key}: rerun call of {_bytes(args)} bytes, phase 14 "
+                                     f"noted {sizes[key][0]}")
+            kernel, plain = (JOIN, JOIN_PLAIN) if key[0] == "join" else (CHAIN, CHAIN_PLAIN)
+            kernel, plain = getattr(kernel, key[1]), getattr(plain, key[1])
+            with no_launches():
+                want = plain(*args)
+            got = kernel(*args)
+            err = entry_err(key[1], args, got, want)
+            nbytes, ops = work(key, args, got)
+            del got, want
+            ms = cuda_ms(kernel, *args, reps=3)
+            with no_launches():
+                plain_ms = cuda_ms(plain, *args, reps=1)
+            lib = library_call(key, args)
+            lib_ms = cuda_ms(lib, reps=3) if lib is not None else None
+            del args, lib
+            acc = per_kernel.setdefault(kernel_of(key), {
+                "err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                "bound_ms": 0.0, "library_ms": 0.0, "calls": []})
+            b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+            acc["err"] = max(acc["err"], err)
+            acc["ms"] += ms
+            acc["plain_ms"] += plain_ms
+            acc["bytes_ms"] += b_ms
+            acc["ops_ms"] += o_ms
+            acc["bound_ms"] += max(b_ms, o_ms)
+            acc["library_ms"] = (None if lib_ms is None or acc["library_ms"] is None
+                                 else acc["library_ms"] + lib_ms)
+            acc["calls"].append(f"{key[0]}.{key[1]}@Q{q}")
+            lines.append(f"{key[0]}.{key[1]} (Q{q}, {nbytes} bytes moved) {ms:.3f}/{plain_ms:.3f}"
+                         + (f"/{lib_ms:.3f}" if lib_ms is not None else "")
+                         + f" bound {max(b_ms, o_ms):.3f}")
+        del rec
+    log("phase 15 ok: the largest phase-14 call of every entry point, captured by rerunning "
+        "its query, == its plain version (K9-K11 bit for bit); ms kernel/plain[/library] "
+        "(median of 3 / one run / median of 3) and bound: " + "; ".join(lines))
+    return per_kernel
 
 
 def launch_counters():
@@ -965,9 +1434,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    # every query settles its capacities from the planner's seeds in this
+    # run (phase 15 reruns queries and must see the same calls)
+    os.environ["DFP_NO_CAP_STORE"] = "1"
     smi = phase_build()
     phase_kernels_vs_plain(device)
-    errs, timing = phase_size512_kernels(device)
+    phase_size512_kernels(device)
 
     wrappers = launch_counters()
     for w in wrappers.values():
@@ -983,9 +1455,9 @@ def main() -> int:
     phase_sf10_kernels(*sf10)
     del sf10
 
-    agg_errs, _ = phase_agg_kernels_vs_plain(device)
-    roof = phase_roofline(device)
-    agg_launches, _, chain_timing = phase_tpch_chains(device, agg_counters())
+    phase_agg_kernels_vs_plain(device)
+    phase_roofline(device)
+    agg_launches, _, chain_timing, tables = phase_tpch_chains(device, agg_counters())
     missing = [name for name, n in agg_launches.items() if n < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the chains: {missing}")
@@ -993,19 +1465,19 @@ def main() -> int:
     log("phase 12 ok: K5-K8 == plain at the shapes of the SF10 chains; ms kernel/plain "
         "summed over their calls: " + _fmt_timing(chain_timing))
 
-    kernels = [{"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-                "replaces": KERNEL_INFO[name][1], "launches": launches[name],
-                "max_abs_err": errs[name], "ms": timing[name][0],
-                "plain_ms": timing[name][1]} for name in wrappers]
-    from datafusion_parallelism_tpu_torch.kernels.chain import KERNEL_OF
-    for name in AGG_KERNELS:
-        err = max(part[name][0] for part in (agg_errs, roof, chain_timing) if name in part)
-        kernels.append({"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-                        "replaces": KERNEL_INFO[name][1],
-                        "launches": sum(n for e, n in agg_launches.items()
-                                        if KERNEL_OF[e] == name),
-                        "max_abs_err": err, "ms": chain_timing[name][1],
-                        "plain_ms": chain_timing[name][2]})
+    phase_join_types(device)
+    _, sql_launches, ctx, sizes = phase_tpch_sql(device, tables)
+    replay = phase_replay(device, ctx, sizes)
+    del ctx, tables
+
+    kernels = []
+    for name, (source, replaces) in KERNEL_INFO.items():
+        r = replay[name]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": sql_launches[name], "max_abs_err": r["err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+                        "library_ms": r["library_ms"], "calls": r["calls"]})
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

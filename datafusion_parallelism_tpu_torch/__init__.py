@@ -1,16 +1,20 @@
 """datafusion_parallelism_tpu_torch — the PyTorch/CUDA port of
 `datafusion_parallelism_tpu`.
 
-Ported so far: the single-device INNER hash join on the CSR strategy
-(`ops.join.hash_join`, kernels K1-K4) and the single-table operators
+Ported so far: the SQL path on one device — `SessionContext.sql(text)`
+(the copied parser, planner and optimizer), the eager single-device
+executor (`runtime/executor.py`), the hash join of all eight join types on
+the CSR strategy (`ops.join.hash_join`) and the single-table operators
 `filter_table`, `project_table`, `hash_aggregate_counted`, `sort_table` and
-`limit_table` with the expression classes (kernels K5-K8), through eight
-hand-written CUDA kernels for Hopper (`kernels/`, sources in `csrc/`) with
-a plain torch version beside each.
+`limit_table` with the expression classes — through eleven hand-written
+CUDA kernels for Hopper (`kernels/`, sources in `csrc/`: K1-K4 and K9-K11
+the join, K5-K8 the single-table operators) with a plain torch version
+beside each.
 The package imports torch and never jax; the kernels are built with nvcc
 at first CUDA use, never at import.
 """
 
+from .api import SessionConfig, SessionContext
 from .ops.aggregate import AggSpec, hash_aggregate, hash_aggregate_counted
 from .ops.expressions import (BinOp, Case, Cast, Coalesce, Col, Expr,
                               ExtractDatePart, InCodes, IsNull, Lit, Not)
@@ -27,6 +31,6 @@ __all__ = ["AggSpec", "BOOL", "BinOp", "Case", "Cast", "Coalesce", "Col",
            "DATE32", "DECIMAL", "DType", "DeviceTable", "Expr", "ExtractDatePart",
            "FLOAT32", "FLOAT64", "Field", "HostTable", "INT32", "INT64", "InCodes",
            "IsNull", "JoinStrategy", "JoinTable", "JoinType", "Kind", "Lit", "Not",
-           "STRING", "Schema", "SortKey", "filter_table", "hash_aggregate",
+           "STRING", "Schema", "SessionConfig", "SessionContext", "SortKey", "filter_table", "hash_aggregate",
            "hash_aggregate_counted", "hash_join", "limit_table", "project_table",
            "round_capacity", "sort_table"]

@@ -1,4 +1,4 @@
-// K1 hash_slot: row hash over 1-4 key columns, and its hash-table bucket.
+// K1 hash_slot: row hash over 1-16 key columns, and its hash-table bucket.
 //
 // Replaces the JAX package's `hash_rows` (+ `_fmix32`, `_hash_values_u32`,
 // `combine`; ops/hashing.py:32-81) and `slot_of` (ops/hash_table.py:95-107),
@@ -23,7 +23,7 @@ namespace {
 
 constexpr uint32_t SEED = 0x9747B28Cu;
 constexpr uint32_t NULL_HASH = 0xDEADBEEFu;
-constexpr int MAX_COLS = 4;
+constexpr int MAX_COLS = 16;
 
 // Per key column: its kind (0 int32 word, 1 int64 (lo, hi), 2 float32,
 // 3 float64 (lo, hi)), the word rows of its lo and hi words (hi unused for
@@ -51,10 +51,12 @@ __device__ __forceinline__ uint32_t combine(uint32_t h, uint32_t hv) {
 }
 
 // num_rows (device scalar) marks the build side: rows at or past it, and
-// rows with any null key, go to bucket T.
+// rows with any null key, go to bucket T; so do rows whose row_mask byte is
+// 0 (a chain-fused build side's build_valid, JAX ops/join.py:221-225).
 __global__ void hash_slot_kernel(const int32_t* __restrict__ words, HashSpec spec,
                                  dfp::i64 n, dfp::i64 T,
                                  const int32_t* __restrict__ num_rows,
+                                 const uint8_t* __restrict__ row_mask,
                                  int32_t* __restrict__ hash_out,
                                  int32_t* __restrict__ slot_out) {
   const dfp::i64 i = (dfp::i64)blockIdx.x * blockDim.x + threadIdx.x;
@@ -92,6 +94,7 @@ __global__ void hash_slot_kernel(const int32_t* __restrict__ words, HashSpec spe
       s = (dfp::i64)(((unsigned long long)h * (unsigned long long)T) >> 32);
     }
     if (num_rows != nullptr && (i >= (dfp::i64)*num_rows || !ok)) s = T;
+    if (row_mask != nullptr && !row_mask[i]) s = T;
     slot_out[i] = (int32_t)s;
   }
 }
@@ -100,14 +103,14 @@ __global__ void hash_slot_kernel(const int32_t* __restrict__ words, HashSpec spe
 
 // words [R, n] int32; spec is a host array laid out as HashSpec.
 extern "C" int dfp_hash_slot(const void* words, const int* spec, long long n, long long T,
-                             const void* num_rows, void* hash_out, void* slot_out,
-                             void* stream) {
+                             const void* num_rows, const void* row_mask, void* hash_out,
+                             void* slot_out, void* stream) {
   HashSpec hs = *(const HashSpec*)spec;
   if (hs.n_cols < 1 || hs.n_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     hash_slot_kernel<<<dfp::grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)words, hs, n, T, (const int32_t*)num_rows, (int32_t*)hash_out,
-        (int32_t*)slot_out);
+        (const int32_t*)words, hs, n, T, (const int32_t*)num_rows, (const uint8_t*)row_mask,
+        (int32_t*)hash_out, (int32_t*)slot_out);
   }
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,10 @@
 //     each tile the running value of the group that enters it;
 //   * the tiles again: the last row of each group writes its value, the
 //     carry combined in where the group began in an earlier tile.
+// When groups drop (n_groups > out_cap), the last kept group's size,
+// counts and sums run to row n_valid, as the JAX package's prefix-sum
+// differences do (ops/aggregate.py:378-379): for those requests a dropped
+// group's first row opens no segment. Its min and max cover its own rows.
 // No atomics anywhere: float64 sums come out the same bits on every run.
 // Their order differs from a sequential sum, so they are compared with a
 // tolerance; integer sums, counts, min and max are exact.
@@ -38,7 +42,7 @@ namespace {
 using dfp::AggSpec;
 using dfp::i64;
 
-constexpr int MAX_COLS = 4;
+constexpr int MAX_COLS = 16;  // as K1's spec (kernels/hash_slot.py)
 constexpr int SEG_BLOCK = 512;
 constexpr int CARRY_BLOCK = 1024;
 
@@ -147,9 +151,10 @@ __device__ __forceinline__ void load_spec(const AggSpec& spec, AggSpec* s) {
   __syncthreads();
 }
 
-// FINAL == false: each tile leaves (tile_flag, tile_val[a]); FINAL: the
+// FINAL == false: each tile leaves (tile_flag[a], tile_val[a]); FINAL: the
 // last row of each group writes out[a, g], starts[g] and ends[g] (into
-// `ends`, the sizes output, turned into sizes by finalize_kernel).
+// `ends`, the sizes output, turned into sizes by finalize_kernel). Sum-type
+// requests (count, sum) fold the dropped groups into group out_cap - 1.
 template <bool FINAL>
 __global__ void seg_tile_kernel(AggSpec spec, const uint8_t* __restrict__ flags,
                                 const int32_t* __restrict__ rank, i64 n,
@@ -167,23 +172,29 @@ __global__ void seg_tile_kernel(AggSpec spec, const uint8_t* __restrict__ flags,
   const int flag = in ? flags[i] : 0;
   const i64 g = in ? (i64)rank[i] + flag - 1 : -1;
   const bool last = in && (i + 1 == nv || flags[i + 1]);
-  if (FINAL && in && g < out_cap) {
-    if (flag) starts[g] = (int32_t)i;
-    if (last) ends[g] = i + 1;
+  // the sum-type segmentation: groups past out_cap continue group out_cap - 1
+  const i64 gs = g < out_cap ? g : out_cap - 1;
+  const int flag_s = flag && g < out_cap;
+  const bool last_s = in && (i + 1 == nv || (flags[i + 1] && rank[i + 1] < out_cap));
+  if (FINAL && in) {
+    if (flag && g < out_cap) starts[g] = (int32_t)i;
+    if (last_s && gs >= 0) ends[gs] = i + 1;
   }
   for (int a = 0; a < s.n; ++a) {
     const int op = dfp::agg_op(s.func[a], s.in_type[a]);
-    int f = flag;
+    const bool sum = op == dfp::OP_ISUM || op == dfp::OP_DSUM;
+    int f = sum ? flag_s : flag;
     long long v = in ? dfp::agg_row_value(s, a, op, i) : dfp::agg_identity(op);
     seg_scan_block(op, f, v, sv, sf);
+    const i64 ga = sum ? gs : g;
     if (!FINAL) {
       if (threadIdx.x == blockDim.x - 1) {
         tile_val[(i64)a * n_tiles + blockIdx.x] = v;
-        if (a == 0) tile_flag[blockIdx.x] = (uint8_t)f;
+        tile_flag[(i64)a * n_tiles + blockIdx.x] = (uint8_t)f;
       }
-    } else if (last && g < out_cap) {
+    } else if ((sum ? last_s : last) && ga >= 0 && ga < out_cap) {
       if (!f) v = dfp::agg_combine(op, carry[(i64)a * n_tiles + blockIdx.x], v);
-      out[(i64)a * out_cap + g] = v;
+      out[(i64)a * out_cap + ga] = v;
     }
   }
 }
@@ -204,7 +215,7 @@ __global__ void seg_carry_kernel(AggSpec spec, const uint8_t* __restrict__ tile_
     long long run = dfp::agg_identity(op);  // the same in every thread
     for (i64 base = 0; base < n_tiles; base += blockDim.x) {
       const i64 t = base + threadIdx.x;
-      int f = t < n_tiles ? tile_flag[t] : 0;
+      int f = t < n_tiles ? tile_flag[(i64)a * n_tiles + t] : 0;
       long long v = t < n_tiles ? tile_val[(i64)a * n_tiles + t] : dfp::agg_identity(op);
       seg_scan_block(op, f, v, sv, sf);  // inclusive over this chunk
       inc_v[threadIdx.x] = v;
@@ -264,7 +275,7 @@ Scratch carve(char* base, i64 n, int n_aggs) {
   };
   s.flags = (uint8_t*)take(n);
   s.rank = (int32_t*)take(n * 4);
-  s.tile_flag = (uint8_t*)take(n_tiles);
+  s.tile_flag = (uint8_t*)take((i64)n_aggs * n_tiles);
   s.tile_val = (long long*)take((i64)n_aggs * n_tiles * 8);
   s.carry = (long long*)take((i64)n_aggs * n_tiles * 8);
   s.scan = take(dfp::scan_scratch_bytes(n));

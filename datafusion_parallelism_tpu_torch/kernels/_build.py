@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 All sources under `csrc/` compile into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds, not minutes):
+interface (no PyTorch headers, so a build takes seconds, not minutes): one
+nvcc per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o kernels/_build/libdfp_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -I csrc -c csrc/<kernel>.cu -o <kernel>.cu.o   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o kernels/_build/libdfp_torch_kernels.so *.cu.o
 
 The library is built at first CUDA use into `kernels/_build/` (listed in
 .gitignore) and rebuilt when a hash of the sources changes. A failed build
@@ -63,17 +66,31 @@ def build() -> float:
         with open(_STAMP) as f:
             if f.read().strip() == digest:
                 return 0.0
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = os.path.join(_BUILD, f"libdfp_torch_kernels.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", _CSRC, "-o", tmp]
-    cmd += [s for s in _sources() if s.endswith(".cu")]
+    work = os.path.join(_BUILD, f"objects.{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-I", _CSRC]
     t0 = time.perf_counter()
+    # one nvcc per source, all started together, then one link
+    objects, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(work, os.path.basename(src) + ".o")
+        cmd = [_nvcc(), *flags, "-c", src, "-o", obj]
+        objects.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    tmp = os.path.join(work, "libdfp_torch_kernels.so")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objects]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stderr}")
     os.replace(tmp, _LIB)
+    shutil.rmtree(work, ignore_errors=True)
     with open(_STAMP, "w") as f:
         f.write(digest)
     return time.perf_counter() - t0

@@ -20,7 +20,7 @@ from ..ops.hashing import (KIND_F32, KIND_I32, NULL_HASH, SEED, combine,
                            hash_words)
 from . import _build
 
-MAX_KEY_COLUMNS = 4
+MAX_KEY_COLUMNS = 16   # TPC-H Q10 groups by 7 columns
 # one key column as K1 reads it from the word matrix: (kind, its word rows
 # (lo,) or (lo, hi), (validity word row, bit))
 KeyCol = Tuple[int, Tuple[int, ...], Tuple[int, int]]
@@ -35,13 +35,15 @@ def _bit(words: torch.Tensor, row: int, bit: int) -> torch.Tensor:
 
 
 def hash_slot_plain(words: torch.Tensor, cols: Sequence[KeyCol], T: Optional[int] = None,
-                    num_rows: Optional[torch.Tensor] = None
+                    num_rows: Optional[torch.Tensor] = None,
+                    row_mask: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(hash, slot): hash int32[n] with the uint32 bits of the row hash over
     the key columns `cols` of the word matrix `words` [R, n] int32 (kinds
     are ops.hashing's KIND_*); slot = the bucket of the hash in [0, T), or
     None without T. With `num_rows` (the build side) rows at or past it,
-    or with a null key, go to bucket T."""
+    or with a null key, go to bucket T; so do rows where the bool [n]
+    `row_mask` is False (a chain-fused build side's `build_valid`)."""
     h, ok = None, None
     for kind, rows, (vrow, vbit) in cols:
         valid = _bit(words, vrow, vbit)
@@ -56,12 +58,14 @@ def hash_slot_plain(words: torch.Tensor, cols: Sequence[KeyCol], T: Optional[int
         n = hashes.shape[0]
         ok = ok & (torch.arange(n, dtype=torch.int32, device=hashes.device) < num_rows)
         slot = torch.where(ok, slot, T).to(torch.int32)
+    if row_mask is not None:
+        slot = torch.where(row_mask, slot, T).to(torch.int32)
     return hashes, slot
 
 
 def _spec(cols: Sequence[KeyCol], n_rows: int):
-    """The columns as the kernel's HashSpec: n_cols, kind[4], lo[4], hi[4],
-    vrow[4], vbit[4]."""
+    """The columns as the kernel's HashSpec: n_cols, then kind, lo, hi, vrow
+    and vbit, each MAX_KEY_COLUMNS long."""
     if not 1 <= len(cols) <= MAX_KEY_COLUMNS:
         raise ValueError(f"hash_slot takes 1-{MAX_KEY_COLUMNS} key columns, got {len(cols)}")
     for kind, rows, (vrow, vbit) in cols:
@@ -82,11 +86,12 @@ def _spec(cols: Sequence[KeyCol], n_rows: int):
 
 
 def hash_slot(words: torch.Tensor, cols: Sequence[KeyCol], T: Optional[int] = None,
-              num_rows: Optional[torch.Tensor] = None
+              num_rows: Optional[torch.Tensor] = None,
+              row_mask: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """hash_slot_plain's contract; launches the CUDA kernel for CUDA tensors."""
     if not words.is_cuda:
-        return hash_slot_plain(words, cols, T, num_rows)
+        return hash_slot_plain(words, cols, T, num_rows, row_mask)
     if words.dim() != 2:
         raise ValueError(f"words: expected [R, n], got {tuple(words.shape)}")
     _build.require(words, "words", torch.int32)
@@ -98,12 +103,18 @@ def hash_slot(words: torch.Tensor, cols: Sequence[KeyCol], T: Optional[int] = No
         if T is None:
             raise ValueError("num_rows masks slots: give T too")
         _build.require(num_rows, "num_rows", torch.int32, (), dev)
+    if row_mask is not None:
+        if T is None:
+            raise ValueError("row_mask masks slots: give T too")
+        _build.require(row_mask, "row_mask", torch.bool, (n,), dev)
     hashes = torch.empty(n, dtype=torch.int32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev) if T is not None else None
     fn = _build.function("dfp_hash_slot", (_build.P, ctypes.POINTER(ctypes.c_int), _build.I64,
-                                           _build.I64, _build.P, _build.P, _build.P, _build.P))
+                                           _build.I64, _build.P, _build.P, _build.P, _build.P,
+                                           _build.P))
     err = fn(words.data_ptr(), spec, n, T if T is not None else 0,
              num_rows.data_ptr() if num_rows is not None else None,
+             row_mask.data_ptr() if row_mask is not None else None,
              hashes.data_ptr(), slot.data_ptr() if slot is not None else None,
              _build.stream(dev))
     hash_slot.launches += 1

@@ -77,6 +77,7 @@ def probe_ranges(slot: torch.Tensor, ok: torch.Tensor, start_count: torch.Tensor
     err = fn(slot.data_ptr(), ok.data_ptr(), m, start_count.data_ptr(), start_count.shape[1],
              start.data_ptr(), count.data_ptr(), base.data_ptr(), total64.data_ptr(),
              scratch.data_ptr(), nbytes, _build.stream(dev))
+    probe_ranges.launches += 1
     _build.check(err, "probe_ranges")
     return start, count, base, _check_total(total64)
 
@@ -174,3 +175,4 @@ def probe_expand(slot, ok, start_count, pwords, bwords, compares, out_cap):
 
 
 probe_expand.launches = 0
+probe_ranges.launches = 0

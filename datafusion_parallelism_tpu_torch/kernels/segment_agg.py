@@ -63,20 +63,27 @@ def segment_agg_plain(words: torch.Tensor, cols: Sequence[KeyCol], n_valid: torc
     [out_cap] tensor per aggregate request (kernels/_agg.py) in its
     accumulator type; n_groups (int32 0-dim) is the true group count, which
     may exceed out_cap (later groups drop). Entries at or past
-    min(n_groups, out_cap) are zeros."""
+    min(n_groups, out_cap) are zeros.
+
+    When groups drop, the last kept group's size, counts and sums run to
+    row n_valid, over the dropped groups' rows too, as the JAX package's
+    prefix-sum differences do (ops/aggregate.py:378-379); its min and max
+    cover its own rows."""
     boundary = boundaries_plain(words, cols, n_valid)
     n_groups = boundary.sum(dtype=torch.int32)
     first = torch.nonzero(boundary).flatten()
-    ends = torch.cat([first[1:], n_valid.reshape(1).long()])
+    kept = min(int(n_groups), out_cap)
+    ends = torch.cat([first[1:kept], n_valid.reshape(1).long()])
     seg = torch.where(torch.arange(words.shape[1], device=words.device) < n_valid,
                       torch.cumsum(boundary, 0) - 1, -1)
-    kept = min(int(n_groups), out_cap)
+    seg_sum = torch.where(seg >= out_cap, out_cap - 1, seg)
     starts = torch.zeros(out_cap, dtype=torch.int32, device=words.device)
     sizes = torch.zeros(out_cap, dtype=torch.int64, device=words.device)
     starts[:kept] = first[:kept].to(torch.int32)
-    sizes[:kept] = (ends - first)[:kept]
+    sizes[:kept] = (ends - first[:kept])[:kept]
     ok = torch.arange(out_cap, device=words.device) < kept
-    results = [torch.where(ok, _agg.reduce_plain(f, v, m, seg, out_cap), 0)
+    results = [torch.where(ok, _agg.reduce_plain(f, v, m, seg_sum if f in ("count", "sum")
+                                                 else seg, out_cap), 0)
                for f, v, m in reqs]
     return starts, sizes, results, n_groups
 

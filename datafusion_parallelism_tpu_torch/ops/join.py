@@ -1,36 +1,54 @@
-"""Vectorized hash join (torch): the INNER join on the CSR strategy.
+"""Vectorized hash join (torch): all eight join types on the CSR strategy.
 
-Counterpart of `datafusion_parallelism_tpu/ops/join.py`, restricted to its
-deferred-materialization INNER path (JAX ops/join.py:255-320 and :393-416):
-only the key words, the validity word and the row id travel through the
-candidate stage, and full rows are gathered once, at the matches. The chain
-is four kernels:
+Counterpart of `datafusion_parallelism_tpu/ops/join.py`. Two paths, as in
+the JAX package:
 
-  K1 hash_slot       row hash and bucket of both sides
-  K2 csr_build       CSR table + the build's narrow rows in bucket order
-  K3 probe_expand    candidate ranges, candidate pairs, key recheck
-  K4 compact_gather  stable compaction + full packed-row gather
+  * deferred (no residual, not a late-materialized INNER join, keys whose
+    packed words compare bit for bit): only the key words, the validity
+    word and the row id travel through the candidate stage; full rows are
+    gathered once, at the matches (JAX ops/join.py:255-320, :393-416);
+  * full fetch (a residual filter, `expanded` INNER, float keys, keys of
+    different widths): every candidate pair's whole rows, rechecked by
+    value (JAX :322-357).
 
-Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
-torch version on CPU tensors. Any input outside the slice raises
-NotImplementedError naming the ROADMAP item that will port it.
+The kernels, each reached through a `JoinKernels` table:
+
+  K1  hash_slot       row hash and bucket of both sides (+ build_valid)
+  K2  csr_build       CSR table + build rows in bucket order
+  K3  probe_expand    candidate ranges (probe_ranges), candidate pairs and
+                      the bitwise key recheck of the deferred path
+  K4  compact_gather  stable compaction + full packed-row gather (deferred)
+  K9  pair_fetch      whole candidate rows + the value recheck (full fetch)
+  K10 match_flags     visited build rows / matched probe rows
+  K11 concat_rows     pairs + unmatched rows of LEFT/RIGHT/FULL joins
+
+plus K5 (through the chain's `ChainKernels`) for the compactions of the
+full-fetch pairs and of semi, anti and unmatched rows. Each wrapper launches
+its CUDA kernel on CUDA tensors and runs its plain torch version on CPU
+tensors. `prepared=` and the other strategies raise NotImplementedError
+naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
 from ..kernels import compact_gather as k4
+from ..kernels import concat_rows as k11
 from ..kernels import csr_build as k2
 from ..kernels import hash_slot as k1
+from ..kernels import match_flags as k10
+from ..kernels import pair_fetch as k9
 from ..kernels import probe_expand as k3
-from ..utils.columnar import (DeviceTable, Kind, PackedTable, Schema, f64_matrix,
-                              hstack_tables, pack_table, unpack_table)
+from ..kernels.chain import ChainKernels
+from ..utils.columnar import (DeviceTable, Kind, PackedTable, Schema, compact_rows,
+                              concat_tables, f64_matrix, filter_rows, hstack_tables,
+                              int64_words, null_columns_like, pack_table, unpack_table)
 from .hash_table import JoinStrategy, table_size_for
-from .hashing import KIND_I32, KIND_I64
+from .hashing import KIND_I32, KIND_I64, key_words
 
 
 class JoinType(enum.Enum):
@@ -54,6 +72,12 @@ class JoinType(enum.Enum):
                         JoinType.FULL, JoinType.RIGHT_SEMI, JoinType.RIGHT_ANTI)
 
 
+# the join types that read each flag of K10
+_READS_VISITED = (JoinType.LEFT, JoinType.FULL, JoinType.LEFT_SEMI, JoinType.LEFT_ANTI)
+_READS_PROBE_MATCHED = (JoinType.RIGHT, JoinType.FULL, JoinType.RIGHT_SEMI,
+                        JoinType.RIGHT_ANTI)
+
+
 def join_output_schema(build: Schema, probe: Schema, join_type: JoinType) -> Schema:
     fields = []
     if join_type.emits_build:
@@ -69,6 +93,11 @@ def _keys_valid(t: DeviceTable, keys: List[str]) -> torch.Tensor:
         _, valid = t.column(k)
         v = valid if v is None else (v & valid)
     return v
+
+
+def _null_side(schema: Schema, capacity: int, num_rows) -> DeviceTable:
+    return DeviceTable(schema, null_columns_like(schema, capacity, device=num_rows.device),
+                       num_rows)
 
 
 def _field_info(layout):
@@ -107,20 +136,53 @@ def _defer_key_plan(blayout, playout, build_keys, probe_keys):
     return brows, prows, compares
 
 
-class JoinKernels(NamedTuple):
-    """The four stages of the slice, as functions with the kernels'
-    contracts."""
-    hash_slot: Callable
-    csr_build: Callable
-    probe_expand: Callable
-    compact_gather: Callable
+def _fetch_key(layout, name: str, build: bool):
+    """(kind, row, (validity row, bit)) of one key for K9. A float64 key is
+    the build's word pair at rows width + 2 i (`_with_f64_pairs`) or the
+    probe's sidecar i."""
+    kind, slot, n, vrow, vbit = _field_info(layout)[name]
+    if kind is Kind.FLOAT64:
+        i = layout.f64_fields.index(name)
+        return k9.KEY_F64, layout.width + 2 * i if build else i, (vrow, vbit)
+    if n == 2:
+        return k9.KEY_I64, slot, (vrow, vbit)
+    return (k9.KEY_F32 if kind is Kind.FLOAT32 else k9.KEY_I32), slot, (vrow, vbit)
 
+
+def _fetch_keys(blayout, playout, build_keys, probe_keys):
+    keys = []
+    for bk, pk in zip(build_keys, probe_keys):
+        bkind, brow, bv = _fetch_key(blayout, bk, True)
+        pkind, prow, pv = _fetch_key(playout, pk, False)
+        keys.append((bkind, brow, pkind, prow, bv, pv))
+    return keys
+
+
+class JoinKernels(NamedTuple):
+    """The join's stages, as functions with the kernels' contracts."""
+    hash_slot: Callable        # K1
+    csr_build: Callable        # K2
+    probe_expand: Callable     # K3 (ranges + candidates + bitwise recheck)
+    compact_gather: Callable   # K4
+    probe_ranges: Callable     # K3's first pass alone (the full-fetch path)
+    pair_fetch: Callable       # K9
+    match_flags: Callable      # K10
+    concat_rows: Callable      # K11
+
+
+# the kernel each entry point belongs to
+KERNEL_OF = {"hash_slot": "hash_slot", "csr_build": "csr_build",
+             "probe_expand": "probe_expand", "compact_gather": "compact_gather",
+             "probe_ranges": "probe_expand", "pair_fetch": "pair_fetch",
+             "match_flags": "match_flags", "concat_rows": "concat_rows"}
 
 # the wrappers: kernels on CUDA tensors, plain versions on CPU tensors
-KERNELS = JoinKernels(k1.hash_slot, k2.csr_build, k3.probe_expand, k4.compact_gather)
+KERNELS = JoinKernels(k1.hash_slot, k2.csr_build, k3.probe_expand, k4.compact_gather,
+                      k3.probe_ranges, k9.pair_fetch, k10.match_flags, k11.concat_rows)
 # the plain versions on any device: the reference the kernel path is held to
 PLAIN = JoinKernels(k1.hash_slot_plain, k2.csr_build_plain, k3.probe_expand_plain,
-                    k4.compact_gather_plain)
+                    k4.compact_gather_plain, k3.probe_ranges_plain, k9.pair_fetch_plain,
+                    k10.match_flags_plain, k11.concat_rows_plain)
 
 
 def _hash_cols(compares, side: int):
@@ -138,46 +200,23 @@ def _word_rows(pt: PackedTable, rows: List[int]) -> torch.Tensor:
     return torch.stack([pt.packed[r] for r in rows])
 
 
+def _with_f64_pairs(pt: PackedTable) -> torch.Tensor:
+    """The packed words with each float64 sidecar appended as its (lo, hi)
+    word pair: the rows K2 puts into perm order for K9 (`_perm_rows`)."""
+    if not pt.f64s:
+        return pt.packed
+    pairs = [w for v in pt.f64s.values() for w in int64_words(v.view(torch.int64))]
+    return torch.cat([pt.packed, torch.stack(pairs)])
+
+
 def inner_csr_join(build: DeviceTable, probe: DeviceTable, build_keys: List[str],
                    probe_keys: List[str], out_cap: int,
                    kernels: JoinKernels = KERNELS):
-    """The slice's chain K1 -> K2 -> K3 -> K4 through `kernels`.
-
-    Returns (table, candidate_total): the build columns then the probe
-    columns, capacity out_cap, num_rows = min(matches, out_cap). The
-    caller must check candidate_total <= out_cap and retry with a larger
-    out_cap otherwise."""
-    if len(build_keys) != len(probe_keys) or not build_keys:
-        raise ValueError("join needs the same number (>= 1) of keys on both sides")
-    if set(build.schema.names) & set(probe.schema.names):
-        raise ValueError("join inputs must have disjoint column names")
-    bp, pp = pack_table(build), pack_table(probe)
-    plan = _defer_key_plan(bp.layout, pp.layout, build_keys, probe_keys)
-    if plan is None:
-        raise NotImplementedError(
-            "float or mixed-width join keys take the full-fetch path "
-            "(ROADMAP queue 1 item 6)")
-    brows, prows, compares = plan
-    T = table_size_for(build.capacity)
-
-    bnarrow = _word_rows(bp, brows)
-    _, bslot = kernels.hash_slot(bnarrow, _hash_cols(compares, 0), T, build.num_rows)
-    _, _, _, start_count, bsorted = kernels.csr_build(bslot, T, bnarrow)
-
-    pnarrow = _word_rows(pp, prows)
-    _, pslot = kernels.hash_slot(pnarrow, _hash_cols(compares, 1), T)
-    ok = probe.row_mask() & _keys_valid(probe, probe_keys)
-    *_, total, match, probe_idx, build_id = kernels.probe_expand(
-        pslot, ok, start_count, pnarrow, bsorted, compares, out_cap)
-
-    out_b, out_bf, out_p, out_pf, n_match = kernels.compact_gather(
-        match, build_id, probe_idx, bp.packed, f64_matrix(bp), pp.packed, f64_matrix(pp))
-    n = n_match.to(torch.int32)
-    bt = unpack_table(PackedTable(out_b, dict(zip(bp.layout.f64_fields, out_bf)), bp.layout),
-                      build.schema, n)
-    pt = unpack_table(PackedTable(out_p, dict(zip(pp.layout.f64_fields, out_pf)), pp.layout),
-                      probe.schema, n)
-    return hstack_tables(bt, pt, n), total
+    """The INNER join's deferred chain K1 -> K2 -> K3 -> K4 through
+    `kernels`: hash_join(..., JoinType.INNER, out_cap) for keys the
+    deferred path takes. Returns (table, candidate_total)."""
+    return hash_join(build, probe, build_keys, probe_keys, JoinType.INNER, out_cap,
+                     kernels=kernels)
 
 
 def hash_join(build: DeviceTable, probe: DeviceTable,
@@ -185,24 +224,149 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
               join_type: JoinType, out_cap: int,
               strategy: JoinStrategy = JoinStrategy.CSR,
               residual=None, prepared=None, expanded: bool = False,
-              build_valid=None, probe_valid=None, return_visited: bool = False):
-    """Join two device tables; the JAX package's signature.
+              build_valid: Optional[torch.Tensor] = None,
+              probe_valid: Optional[torch.Tensor] = None,
+              return_visited: bool = False,
+              kernels: JoinKernels = KERNELS, chain: Optional[ChainKernels] = None):
+    """Join two device tables; the JAX package's signature and results.
 
-    Ported: INNER on the CSR strategy with non-float keys of the same width
-    on both sides (int32, date32, string codes, int64, decimal). Returns
-    (result, candidate_total); the caller checks candidate_total <= out_cap
-    and retries with a larger out_cap otherwise."""
-    if join_type is not JoinType.INNER:
-        raise NotImplementedError(
-            f"{join_type.name} joins are not ported (ROADMAP queue 1 item 6)")
+    Returns (result, candidate_total); the caller checks candidate_total
+    <= out_cap and retries with a larger out_cap otherwise. residual: a
+    predicate over the candidate pair table returning (values, validity);
+    NULL rejects the pair. expanded (INNER and the semi/anti types):
+    (table, mask, candidate_total), for INNER the uncompacted candidate
+    slots (capacity out_cap) with the match mask, for semi/anti the input
+    side itself with its flag. build_valid / probe_valid: masks of an input
+    side that is itself another join's or filter's uncompacted output.
+    return_visited: the build-side visited mask is appended to the tuple.
+    `kernels` and `chain` (kernels/chain.py's table, its KERNELS when
+    None) are the kernels the join reaches."""
+    if len(build_keys) != len(probe_keys) or not build_keys:
+        raise ValueError("join needs the same number (>= 1) of keys on both sides")
     if strategy is not JoinStrategy.CSR:
         raise NotImplementedError(
             f"the {strategy.name} strategy is not ported (ROADMAP queue 1 item 11)")
-    for name, value in (("residual", residual), ("prepared", prepared),
-                        ("build_valid", build_valid), ("probe_valid", probe_valid)):
-        if value is not None:
-            raise NotImplementedError(f"{name}= is not ported (ROADMAP queue 1 item 6)")
-    for name, value in (("expanded", expanded), ("return_visited", return_visited)):
-        if value:
-            raise NotImplementedError(f"{name}=True is not ported (ROADMAP queue 1 item 6)")
-    return inner_csr_join(build, probe, build_keys, probe_keys, out_cap)
+    if prepared is not None:
+        raise NotImplementedError("prepared= (a frozen build side) serves streaming "
+                                  "execution, not ported (ROADMAP queue 1 item 12)")
+    if set(build.schema.names) & set(probe.schema.names):
+        raise ValueError("join inputs must have disjoint column names")
+    if expanded and join_type not in (JoinType.INNER, JoinType.LEFT_SEMI, JoinType.LEFT_ANTI,
+                                      JoinType.RIGHT_SEMI, JoinType.RIGHT_ANTI):
+        raise ValueError(f"expanded unsupported for {join_type}")
+    if expanded and join_type is JoinType.INNER and return_visited:
+        raise ValueError("an expanded INNER join returns no visited mask")
+
+    bp, pp = pack_table(build), pack_table(probe)
+    T = table_size_for(build.capacity)
+    probe_ok = probe.row_mask() & _keys_valid(probe, probe_keys)
+    if probe_valid is not None:
+        probe_ok = probe_ok & probe_valid
+    plan = None
+    if residual is None and not (expanded and join_type is JoinType.INNER):
+        plan = _defer_key_plan(bp.layout, pp.layout, build_keys, probe_keys)
+
+    if plan is not None:
+        brows, prows, compares = plan
+        bnarrow = _word_rows(bp, brows)
+        _, bslot = kernels.hash_slot(bnarrow, _hash_cols(compares, 0), T, build.num_rows,
+                                     build_valid)
+        _, _, _, start_count, bsorted = kernels.csr_build(bslot, T, bnarrow)
+        pnarrow = _word_rows(pp, prows)
+        _, pslot = kernels.hash_slot(pnarrow, _hash_cols(compares, 1), T)
+        *_, total, match, probe_idx, build_id = kernels.probe_expand(
+            pslot, probe_ok, start_count, pnarrow, bsorted, compares, out_cap)
+        gb = gp = None
+    else:
+        # full fetch: the build's whole rows (float64 sidecars as word pairs)
+        # go into perm order with K2 (JAX `_perm_rows`), K9 fetches both
+        # sides' rows at every candidate slot and rechecks the keys by value
+        bwords, bcols = key_words([build.column(k) for k in build_keys])
+        _, bslot = kernels.hash_slot(bwords, bcols, T, build.num_rows, build_valid)
+        _, _, _, start_count, bperm = kernels.csr_build(bslot, T, _with_f64_pairs(bp))
+        pwords, pcols = key_words([probe.column(k) for k in probe_keys])
+        _, pslot = kernels.hash_slot(pwords, pcols, T)
+        start, _, base, total = kernels.probe_ranges(pslot, probe_ok, start_count)
+        out_b, out_bf, out_p, out_pf, probe_idx, build_id, match = kernels.pair_fetch(
+            start, base, total, pp.packed, f64_matrix(pp), bperm, len(bp.f64s),
+            _fetch_keys(bp.layout, pp.layout, build_keys, probe_keys), out_cap)
+        gb = PackedTable(out_b, dict(zip(bp.layout.f64_fields, out_bf)), bp.layout)
+        gp = PackedTable(out_p, dict(zip(pp.layout.f64_fields, out_pf)), pp.layout)
+        inner_expanded = expanded and join_type is JoinType.INNER
+        if residual is not None or inner_expanded:
+            pairs = hstack_tables(unpack_table(gb, build.schema, out_cap),
+                                  unpack_table(gp, probe.schema, out_cap), out_cap)
+            if residual is not None:
+                rvals, rvalid = residual(pairs)
+                match = match & rvalid & rvals.to(torch.bool)
+            if inner_expanded:   # late-materialized: the uncompacted pairs
+                return pairs, match, total
+
+    visited = probe_matched = None
+    if join_type in _READS_VISITED or join_type in _READS_PROBE_MATCHED or return_visited:
+        visited, probe_matched = kernels.match_flags(match, build_id, probe_idx,
+                                                     build.capacity, probe.capacity)
+    # each side's live rows, made only where the join type reads them (an
+    # INNER join reads neither: XLA drops them as dead code in JAX)
+    def build_in() -> torch.Tensor:
+        rows = build.row_mask()
+        return rows if build_valid is None else rows & build_valid
+
+    def probe_in() -> torch.Tensor:
+        rows = probe.row_mask()
+        return rows if probe_valid is None else rows & probe_valid
+
+    if expanded:   # semi/anti, late-materialized: the input side and its flag
+        if join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            side, rows, flag = build, build_in(), visited
+        else:
+            side, rows, flag = probe, probe_in(), probe_matched
+        semi = join_type in (JoinType.LEFT_SEMI, JoinType.RIGHT_SEMI)
+        out = (side, rows & (flag if semi else ~flag), total)
+        return out + (visited,) if return_visited else out
+
+    def pairs_table() -> DeviceTable:
+        if gb is None:   # deferred: compact the pairs, fetch full rows once (K4)
+            out_b, out_bf, out_p, out_pf, n_match = kernels.compact_gather(
+                match, build_id, probe_idx, bp.packed, f64_matrix(bp), pp.packed,
+                f64_matrix(pp))
+            cb = PackedTable(out_b, dict(zip(bp.layout.f64_fields, out_bf)), bp.layout)
+            cp = PackedTable(out_p, dict(zip(pp.layout.f64_fields, out_pf)), pp.layout)
+            n = n_match.to(torch.int32)
+        else:            # full fetch: both sides compact in ONE K5 launch
+            (cb, cp), n = compact_rows([gb, gp], match, out_cap, chain)
+        return hstack_tables(unpack_table(cb, build.schema, n),
+                             unpack_table(cp, probe.schema, n), n)
+
+    def unmatched_build() -> DeviceTable:
+        ub = filter_rows(build, build_in() & ~visited, chain)
+        return hstack_tables(ub, _null_side(probe.schema, ub.capacity, ub.num_rows),
+                             ub.num_rows)
+
+    def unmatched_probe() -> DeviceTable:
+        up = filter_rows(probe, probe_in() & ~probe_matched, chain)
+        return hstack_tables(_null_side(build.schema, up.capacity, up.num_rows), up,
+                             up.num_rows)
+
+    def concat(parts):
+        return concat_tables(parts, kernels.concat_rows)
+
+    if join_type is JoinType.INNER:
+        result = pairs_table()
+    elif join_type is JoinType.LEFT:
+        result = concat([pairs_table(), unmatched_build()])
+    elif join_type is JoinType.RIGHT:
+        result = concat([pairs_table(), unmatched_probe()])
+    elif join_type is JoinType.FULL:
+        result = concat([pairs_table(), unmatched_build(), unmatched_probe()])
+    elif join_type is JoinType.LEFT_SEMI:
+        result = filter_rows(build, build_in() & visited, chain)
+    elif join_type is JoinType.LEFT_ANTI:
+        result = filter_rows(build, build_in() & ~visited, chain)
+    elif join_type is JoinType.RIGHT_SEMI:
+        result = filter_rows(probe, probe_in() & probe_matched, chain)
+    else:
+        result = filter_rows(probe, probe_in() & ~probe_matched, chain)
+    if return_visited:
+        return result, total, visited
+    return result, total

@@ -1,11 +1,12 @@
 """A single-table plan run operator by operator (torch).
 
-`run_steps` runs the chain filter -> project -> aggregate -> sort -> limit
-as the JAX package's `models/physical.py` operators run it, until the
-port has a planner and an executor of its own: a filter under an
-aggregate becomes the aggregate's row filter (PAggregate.fused_child), and
-a filter or grouped aggregate whose seeded capacity overflows runs again
-at the grown one (runtime/executor.py's run -> check -> grow).
+`run_steps` runs a hand-built chain filter -> project -> aggregate ->
+sort -> limit as `models/physical.py`'s operators run it, for plans that
+are not SQL (the Q18- and Q20-shaped lineitem chains of `chip_smoke.py`
+and `tools/profile_ops.py`; SQL goes through `runtime/executor.py`): a
+filter under an aggregate becomes the aggregate's row filter
+(PAggregate.fused_child), and a filter or grouped aggregate whose seeded
+capacity overflows runs again at the grown one (run -> check -> grow).
 """
 
 from __future__ import annotations

@@ -1,0 +1,322 @@
+"""Query executor (torch): runs the physical plan eagerly on one device.
+
+Counterpart of `datafusion_parallelism_tpu/runtime/executor.py`. Where the
+JAX executor traces the plan into one XLA program, this one runs its
+operators one after another on the tables' device, each through the kernel
+tables it is given (`kernels`: the join's JoinKernels, `chain`: the
+single-table operators' ChainKernels). Output capacities are
+data-dependent: each run reports every adaptive node's true total as a
+device tensor, the executor reads them all in one host sync, grows the
+capacities that overflowed and runs again (run -> check -> grow), and
+shrinks oversized ones for the next run (deferred, bounded to 64x a step).
+Large multi-join plans run staged, join by join, under the JAX package's
+rule. Plans the JAX executor would stream or partition out of core raise
+NotImplementedError (ROADMAP queue 1 item 12); a device out-of-memory error
+propagates, since there is no out-of-core path to fall back to.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from ..kernels.chain import KERNELS as CHAIN_KERNELS
+from ..kernels.chain import ChainKernels
+from ..models.physical import (ExecContext, PhysicalPlan, PScan, find_adaptive,
+                               find_joins)
+from ..ops.join import KERNELS as JOIN_KERNELS
+from ..ops.join import JoinKernels
+from ..utils.catalog import Catalog
+from ..utils.columnar import DeviceTable, HostTable, round_capacity
+
+# don't shrink small overshoots: below this capacity the memory freed is
+# not worth a changed capacity
+_SHRINK_FLOOR = 1 << 20
+
+
+class ExecutorMetrics:
+    """Per-query metrics: runs (`launches`, one per plan or stage run),
+    grow retries, the settled capacities, seconds spent running, whether the
+    last run was staged."""
+
+    def __init__(self):
+        self.launches = 0
+        self.retries = 0
+        self.run_time_s = 0.0
+        self.join_caps: Dict[int, int] = {}
+        self.staged = False
+
+
+def _debug_retry(kind, key, node, cap, total, fit):
+    """DFP_DEBUG_RETRIES=1: print each capacity correction (which node, how
+    far off the estimate was)."""
+    if os.environ.get("DFP_DEBUG_RETRIES"):
+        desc = node.describe() if node is not None else "?"
+        print(f"[retry:{kind}] cap[{key}] {cap} -> {fit} (true total {total})"
+              f" at {desc}", flush=True)
+
+
+def _read_totals(totals: List[Optional[torch.Tensor]]) -> List[int]:
+    """Every adaptive total in ONE device-to-host copy (one sync); None (a
+    node under a materialized stage, which did not run) reads 0."""
+    ran = [t.reshape(()).to(torch.int64) for t in totals if t is not None]
+    values = iter(torch.stack(ran).tolist() if ran else [])
+    return [0 if t is None else int(next(values)) for t in totals]
+
+
+class QueryHandle:
+    """A planned, re-runnable query."""
+
+    def __init__(self, plan: PhysicalPlan, catalog: Catalog,
+                 scalar_subqueries=(), config=None, *,
+                 kernels: JoinKernels = JOIN_KERNELS, chain: ChainKernels = CHAIN_KERNELS):
+        self.plan = plan
+        self.catalog = catalog
+        self.scalar_subqueries = list(scalar_subqueries)
+        self.config = config
+        self.kernels = kernels
+        self.chain = chain
+        self.metrics = ExecutorMetrics()
+        self._caps: Dict[int, int] = {}
+        self._caps_loaded = False
+        self._sub_handles = None   # cached scalar-subquery QueryHandles
+
+    # -- learned-capacity persistence ----------------------------------------
+    # the settled capacities per (plan, input sizes), so that later processes
+    # run the final capacities at once instead of paying grow retries
+    def _caps_store_path(self):
+        return os.path.join(os.path.expanduser("~"), ".cache", "dfp_torch",
+                            "learned_caps.json")
+
+    def _caps_signature(self):
+        leaf = sorted((n.label, self.catalog.get(n.table_name).host.num_rows)
+                      for n in self.plan.walk() if isinstance(n, PScan))
+        raw = self.plan.tree() + repr(leaf)
+        return hashlib.sha1(raw.encode()).hexdigest()
+
+    def _load_caps(self, adaptive):
+        self._caps_loaded = True
+        if os.environ.get("DFP_NO_CAP_STORE"):
+            return
+        try:
+            with open(self._caps_store_path()) as f:
+                stored = json.load(f).get(self._caps_signature())
+            if stored and len(stored) == len(adaptive):
+                for (k, _), cap in zip(adaptive, stored):
+                    if cap is not None:  # None = node was fused away
+                        self._caps[k] = cap
+        except (OSError, ValueError):
+            pass
+
+    def _save_caps(self, adaptive):
+        if os.environ.get("DFP_NO_CAP_STORE"):
+            return
+        path = self._caps_store_path()
+        try:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            try:
+                with open(path) as f:
+                    data = json.load(f)
+            except (OSError, ValueError):
+                data = {}
+            data[self._caps_signature()] = [self._caps.get(k) for k, _ in adaptive]
+            with open(path, "w") as f:
+                json.dump(data, f)
+        except OSError:
+            pass
+
+    # -- inputs ---------------------------------------------------------------
+    def _live_columns(self) -> Dict[str, set]:
+        """Plan-live column set per TABLE (union over its scan labels)."""
+        from ..models.optimizer import required_leaf_columns
+        live = required_leaf_columns(self.plan)
+        per_table: Dict[str, set] = {}
+        for node in self.plan.walk():
+            if isinstance(node, PScan):
+                per_table.setdefault(node.table_name, set()).update(
+                    live.get(node.label) or set())
+        return per_table
+
+    def _leaf_tables(self) -> Dict[str, DeviceTable]:
+        """Upload each scan's LIVE columns only, one upload per table (the
+        union over its labels), cached on the registration."""
+        per_table = self._live_columns()
+        tables = {}
+        for node in self.plan.walk():
+            if isinstance(node, PScan) and node.label not in tables:
+                reg = self.catalog.get(node.table_name)
+                cols = per_table[node.table_name] & set(reg.host.schema.names)
+                if not cols:
+                    cols = {reg.host.schema.names[0]}
+                dev = reg.device_subset(frozenset(cols))
+                tables[node.label] = dev.rename(
+                    {c: f"{node.label}.{c}" for c in dev.schema.names})
+        return tables
+
+    def _check_resident(self):
+        """Raise where the JAX executor would stream the biggest scan or
+        partition the plan out of core (its thresholds,
+        runtime/executor.py:245-307): not ported."""
+        if os.environ.get("DFP_NO_STREAM"):
+            return
+        scans = [n for n in self.plan.walk() if isinstance(n, PScan)]
+        if not scans:
+            return
+        big = max(scans, key=lambda s: self.catalog.get(s.table_name).host.num_rows)
+        reg = self.catalog.get(big.table_name)
+        live = self._live_columns().get(big.table_name) or set(reg.host.schema.names)
+        upload = sum(v.nbytes + valid.nbytes
+                     for n, (v, valid) in reg.host.columns.items() if n in live)
+        threshold = int(os.environ.get("DFP_STREAM_THRESHOLD_BYTES", 6 << 30))
+        row_threshold = int(os.environ.get("DFP_STREAM_ROW_THRESHOLD", 1 << 26))
+        if upload > threshold or reg.host.num_rows > row_threshold:
+            raise NotImplementedError(
+                f"{big.table_name} ({reg.host.num_rows} rows, {upload} bytes live) needs "
+                "streamed or out-of-core execution, not ported (ROADMAP queue 1 item 12)")
+
+    # -- execution --------------------------------------------------------------
+    def run(self) -> DeviceTable:
+        # uncorrelated scalar subqueries run first; their values are baked
+        # in, once per handle (registered tables are immutable)
+        if self._sub_handles is None:
+            self._sub_handles = [
+                QueryHandle(sub.plan, self.catalog, sub.scalar_subqueries, self.config,
+                            kernels=self.kernels, chain=self.chain)
+                for _, sub in self.scalar_subqueries]
+        for (sv, _), handle in zip(self.scalar_subqueries, self._sub_handles):
+            if getattr(sv, "_settled", False):
+                continue
+            result = handle.run().to_host()
+            rows = result.to_pylist()
+            if len(rows) != 1:
+                raise ValueError(f"scalar subquery returned {len(rows)} rows")
+            sv.holder[0] = rows[0][result.schema.fields[0].name]
+            sv._settled = True
+
+        adaptive = find_adaptive(self.plan)
+        if not self._caps_loaded:
+            self._load_caps(adaptive)
+        self._check_resident()
+        return self._run_resident(adaptive)
+
+    def _settle(self, pairs, totals) -> bool:
+        """Grow every capacity whose total overflowed (True if any did);
+        shrink oversized ones for the next run."""
+        overflow = False
+        for (k, n), total in zip(pairs, totals):
+            # nodes fused away report 0 and never own a capacity
+            cap = self._caps.get(k, total)
+            fit = round_capacity(max(total, 1), minimum=1024)
+            if total > cap:
+                self._caps[k] = fit
+                overflow = True
+                _debug_retry("grow", k, n, cap, total, fit)
+            elif total > 0 and cap > 4 * fit and cap > _SHRINK_FLOOR:
+                # deferred, bounded to 64x a step: capacities couple (a
+                # smaller build shrinks its bucket table, raising downstream
+                # false-hit candidates), so a full collapse can ping-pong
+                self._caps[k] = max(fit, cap >> 6)
+                _debug_retry("shrink", k, n, cap, total, self._caps[k])
+        self.metrics.join_caps = dict(self._caps)
+        return overflow
+
+    def _execute(self, node, tables, pairs, materialized=None):
+        """One run of `node`: (output, the totals of `pairs`' nodes)."""
+        ctx = ExecContext(self._caps, materialized, self.kernels, self.chain)
+        t0 = time.perf_counter()
+        self.metrics.launches += 1
+        out = node.execute(tables, ctx)
+        totals = _read_totals([ctx.join_totals.get(k) for k, _ in pairs])
+        self.metrics.run_time_s += time.perf_counter() - t0
+        return out, totals
+
+    def _run_resident(self, adaptive) -> DeviceTable:
+        tables = self._leaf_tables()
+        # staged execution for large plans: materializing at join
+        # boundaries bounds each stage's working set and makes overflow
+        # retries per stage (threshold: big inputs and more than one join)
+        total_cap = sum(t.capacity * len(t.schema.fields) for t in tables.values())
+        threshold = int(os.environ.get("DFP_STAGE_THRESHOLD_BYTES", 1 << 30))
+        joins = find_joins(self.plan)
+        self.metrics.staged = total_cap * 8 > threshold and len(joins) > 1
+        if self.metrics.staged:
+            return self._run_staged(tables, adaptive, joins)
+        while True:
+            out, totals = self._execute(self.plan, tables, adaptive)
+            if not self._settle(adaptive, totals):
+                self._save_caps(adaptive)
+                return out
+            self.metrics.retries += 1
+            del out
+
+    def _run_staged(self, tables, adaptive, joins) -> DeviceTable:
+        """Run join subtrees bottom-up, each to a materialized result that
+        later stages read (ctx.materialized); overflow retries per stage."""
+        order: List = []
+        seen = set()
+        join_ids = {id(j) for j in joins}
+
+        def post(n):
+            for c in n.children():
+                post(c)
+            if id(n) in join_ids and id(n) not in seen:
+                seen.add(id(n))
+                order.append(n)
+
+        post(self.plan)
+        mats: Dict[int, DeviceTable] = {}
+        stages = [(True, j) for j in order if j is not self.plan]
+        stages.append((False, self.plan))
+        for materialize, node in stages:
+            sub_adaptive = [(k, n) for k, n in adaptive if any(m is n for m in node.walk())]
+            while True:
+                out, totals = self._execute(node, tables, sub_adaptive, dict(mats))
+                if not self._settle(sub_adaptive, totals):
+                    break
+                self.metrics.retries += 1
+                del out
+            if materialize:
+                mats[node.join_id] = out
+        self._save_caps(adaptive)
+        return out
+
+    def collect(self) -> HostTable:
+        return self.run().to_host()
+
+    def explain(self) -> str:
+        return self.plan.tree()
+
+    def analyze(self) -> str:
+        """EXPLAIN ANALYZE: per-operator output rows and time, each subtree
+        run on its own (cumulative, like postgres EXPLAIN ANALYZE), timed
+        from a synchronize to a synchronize when the tables are on a CUDA
+        device."""
+        self.run()  # settle capacities / fill scalar subqueries
+        tables = self._leaf_tables()
+        dev = next(iter(tables.values())).device if tables else torch.device("cpu")
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        lines = []
+
+        def visit(node, depth):
+            ctx = ExecContext(dict(self._caps), None, self.kernels, self.chain)
+            sync()
+            t0 = time.perf_counter()
+            out = node.execute(tables, ctx)
+            sync()
+            dt = time.perf_counter() - t0
+            lines.append("  " * depth + f"{node.describe()}  [rows={int(out.num_rows)} "
+                         f"cumulative={dt * 1e3:.2f}ms]")
+            for c in node.children():
+                visit(c, depth + 1)
+
+        visit(self.plan, 0)
+        return "\n".join(lines)

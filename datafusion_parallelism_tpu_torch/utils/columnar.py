@@ -353,6 +353,11 @@ class DeviceTable:
         return (torch.arange(self.capacity, dtype=torch.int32, device=self.device)
                 < self.num_rows)
 
+    def rename(self, mapping: Dict[str, str]) -> "DeviceTable":
+        fields = [f.with_name(mapping.get(f.name, f.name)) for f in self.schema.fields]
+        cols = {mapping.get(n, n): c for n, c in self.columns.items()}
+        return DeviceTable(Schema(fields), cols, self.num_rows)
+
     def to_host(self) -> HostTable:
         """Copy the valid rows (never the padding) to the host."""
         n = int(self.num_rows)
@@ -487,6 +492,21 @@ def filter_rows(t: "DeviceTable", mask: torch.Tensor, kernels=None) -> "DeviceTa
     """Compact rows where mask is True to the front (stable order)."""
     (pt,), n = compact_rows([pack_table(t)], mask, t.capacity, kernels)
     return unpack_table(pt, t.schema, n)
+
+
+def concat_tables(parts: Sequence[DeviceTable], concat_rows=None) -> DeviceTable:
+    """Stack tables with identical schemas: each part's valid rows, in
+    order, at the front of a table of capacity sum(cap); the rest read
+    NULL. Each part is packed and all go through ONE K11 launch
+    (`concat_rows`, kernels/concat_rows.py's wrapper by default)."""
+    if concat_rows is None:
+        from ..kernels.concat_rows import concat_rows
+    pts = [pack_table(p) for p in parts]
+    words, f64, n = concat_rows([(pt.packed, f64_matrix(pt), p.num_rows)
+                                 for pt, p in zip(pts, parts)])
+    layout = pts[0].layout
+    return unpack_table(PackedTable(words, dict(zip(layout.f64_fields, f64)), layout),
+                        parts[0].schema, n)
 
 
 def gather_table(t: "DeviceTable", indices: torch.Tensor, new_num_rows,

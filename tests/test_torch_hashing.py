@@ -136,14 +136,16 @@ def test_join_hashes_packed_rows_like_jax_hash_rows(kinds):
 
 
 def test_hash_slot_spec_layout_and_checks():
-    """The HashSpec the CUDA launcher receives: n_cols, kind[4], lo[4],
-    hi[4], vrow[4], vbit[4]; malformed key columns raise before a launch."""
+    """The HashSpec the CUDA launcher receives: n_cols, then kind, lo, hi,
+    vrow and vbit, each padded to 16 columns; malformed key columns raise
+    before a launch."""
     spec = k1._spec([(th.KIND_I64, (0, 1), (4, 3)), (th.KIND_I32, (2,), (4, 31))], 5)
-    assert list(spec) == [2, th.KIND_I64, th.KIND_I32, 0, 0, 0, 2, 0, 0, 1, 2, 0, 0,
-                          4, 4, 0, 0, 3, 31, 0, 0]
+    pad = [0] * 14
+    assert list(spec) == [2, th.KIND_I64, th.KIND_I32, *pad, 0, 2, *pad, 1, 2, *pad,
+                          4, 4, *pad, 3, 31, *pad]
     with pytest.raises(ValueError, match="outside"):
         k1._spec([(th.KIND_I32, (5,), (0, 0))], 5)
     with pytest.raises(ValueError, match="word rows"):
         k1._spec([(th.KIND_I64, (0,), (1, 0))], 5)
-    with pytest.raises(ValueError, match="1-4 key columns"):
-        k1._spec([(th.KIND_I32, (0,), (1, 0))] * 5, 5)
+    with pytest.raises(ValueError, match="1-16 key columns"):
+        k1._spec([(th.KIND_I32, (0,), (1, 0))] * 17, 5)

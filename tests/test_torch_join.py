@@ -3,6 +3,7 @@ against the JAX package's `hash_join`: the same seeded tables go through
 both; outputs are compared word for word and against the brute-force
 oracle."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -150,39 +151,75 @@ def test_entry_twin_matches_graft_entry():
     np.testing.assert_allclose(float(ts), float(js), rtol=1e-5)
 
 
-def _tables():
-    b = tcol.HostTable.from_numpy({"bk": np.arange(8, dtype=np.int32),
-                                   "bf": np.arange(8.0),
-                                   "bw": np.arange(8, dtype=np.int64)}).to_device(device="cpu")
-    p = tcol.HostTable.from_numpy({"pk": np.arange(8, dtype=np.int32),
-                                   "pf": np.arange(8.0)}).to_device(device="cpu")
-    return b, p
+def _tables(pkg):
+    b = pkg.HostTable.from_numpy({"bk": np.arange(8, dtype=np.int32),
+                                  "bf": np.arange(8.0),
+                                  "bw": np.arange(8, dtype=np.int64)})
+    p = pkg.HostTable.from_numpy({"pk": np.arange(8, dtype=np.int32) * 2,
+                                  "pf": np.arange(8.0) * 2})
+    if pkg is jcol:
+        return b.to_device(), p.to_device()
+    return b.to_device(device="cpu"), p.to_device(device="cpu")
 
 
+def _residual(t):
+    (bf, bv), (pf, pv) = t.column("bf"), t.column("pf")
+    return bf <= pf, bv & pv
+
+
+# the inputs that lay outside the INNER-only slice of the join; the
+# strategies and prepared builds still do (ROADMAP queue 1 items 11-12)
 OUT_OF_SLICE = {
-    "left_join": dict(join_type=tjoin.JoinType.LEFT),
-    "semi_join": dict(join_type=tjoin.JoinType.RIGHT_SEMI),
-    "sort_strategy": dict(strategy=JoinStrategy.SORT),
-    "oa_strategy": dict(strategy=JoinStrategy.OA),
-    "residual": dict(residual=lambda t: None),
+    "left_join": dict(join_type="LEFT"),
+    "semi_join": dict(join_type="RIGHT_SEMI"),
+    "sort_strategy": dict(strategy="SORT"),
+    "oa_strategy": dict(strategy="OA"),
+    "residual": dict(residual=_residual),
     "prepared": dict(prepared=object()),
     "expanded": dict(expanded=True),
-    "build_valid": dict(build_valid=torch.ones(128, dtype=torch.bool)),
-    "probe_valid": dict(probe_valid=torch.ones(128, dtype=torch.bool)),
+    "build_valid": dict(build_valid=np.arange(128) % 3 != 0),
+    "probe_valid": dict(probe_valid=np.arange(128) % 2 == 0),
     "return_visited": dict(return_visited=True),
     "float_key": dict(keys=(["bf"], ["pf"])),
     "mixed_width_key": dict(keys=(["bw"], ["pk"])),
 }
+STILL_OUT = {"sort_strategy", "oa_strategy", "prepared"}
 
 
 @pytest.mark.parametrize("case", list(OUT_OF_SLICE))
 def test_out_of_slice_inputs_raise(case):
-    b, p = _tables()
+    """The strategies and prepared builds raise naming their ROADMAP item;
+    every other input of the former slice boundary now runs and gives the
+    JAX package's rows (and mask or visited flags)."""
     kw = dict(OUT_OF_SLICE[case])
-    jt = kw.pop("join_type", tjoin.JoinType.INNER)
+    jt = kw.pop("join_type", "INNER")
     bk, pk = kw.pop("keys", (["bk"], ["pk"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        tjoin.hash_join(b, p, bk, pk, jt, 128, **kw)
+    b, p = _tables(tcol)
+    if case in STILL_OUT:
+        if "strategy" in kw:
+            kw["strategy"] = JoinStrategy[kw["strategy"]]
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+            tjoin.hash_join(b, p, bk, pk, tjoin.JoinType[jt], 128, **kw)
+        return
+    jkw = dict(kw)
+    for name in ("build_valid", "probe_valid"):
+        if name in kw:
+            kw[name], jkw[name] = torch.from_numpy(kw[name]), jnp.asarray(jkw[name])
+    got = tjoin.hash_join(b, p, bk, pk, tjoin.JoinType[jt], 128, **kw)
+    want = jjoin.hash_join(*_tables(jcol), bk, pk, jjoin.JoinType[jt], 128, **jkw)
+    if case == "expanded":
+        (tt, tm, ttotal), (jt_, jm, jtotal) = got, want
+        m = tm.numpy()
+        np.testing.assert_array_equal(m, np.asarray(jm))
+        for name in tt.schema.names:
+            np.testing.assert_array_equal(tt.column(name)[0].numpy()[m],
+                                          np.asarray(jt_.column(name)[0])[m])
+    else:
+        assert_rows_equal(got[0].to_host().to_pylist(), want[0].to_host().to_pylist())
+        if case == "return_visited":
+            np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert int(got[-1 if case != "return_visited" else 1]) == int(
+        want[-1 if case != "return_visited" else 1])
 
 
 def test_jax_strategy_enum_mirrors_the_port():

@@ -1,0 +1,252 @@
+"""All eight join types of the port's CSR hash join against the JAX
+package's `hash_join` (and the brute-force oracle): the same seeded rows go
+through both; row multisets and candidate totals must be equal. The port
+runs its kernels' plain versions here (CPU tensors): K1-K5 and K9-K11."""
+
+import random
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from datafusion_parallelism_tpu.ops import join as jjoin
+from datafusion_parallelism_tpu.utils import columnar as jcol
+from datafusion_parallelism_tpu_torch.ops import join as tjoin
+from datafusion_parallelism_tpu_torch.utils import columnar as tcol
+
+from oracle import assert_rows_equal, oracle_join
+
+TYPES = [t.name for t in tjoin.JoinType]
+EXPANDABLE = ["INNER", "LEFT_SEMI", "LEFT_ANTI", "RIGHT_SEMI", "RIGHT_ANTI"]
+
+
+def _host(pkg, rows, dtypes=None):
+    names = sorted({k for r in rows for k in r})
+    return pkg.HostTable.from_pydict({n: [r.get(n) for r in rows] for n in names}, dtypes)
+
+
+def _both(build, probe, bkeys, pkeys, jt, out_cap=None, bdtypes=None, pdtypes=None,
+          bcap=None, pcap=None, **kw):
+    """(port result tuple, JAX result tuple) of one join on the same rows."""
+    cap = out_cap or max(128, 4 * (len(build) + 1) * (len(probe) + 1))
+    jb, jp = _host(jcol, build, bdtypes), _host(jcol, probe, pdtypes)
+    tb, tp = _host(tcol, build, bdtypes), _host(tcol, probe, pdtypes)
+    jkw, tkw = dict(kw), dict(kw)
+    for name in ("build_valid", "probe_valid"):
+        if name in kw:
+            jkw[name], tkw[name] = jnp.asarray(kw[name]), torch.from_numpy(kw[name])
+    for name in ("residual",):
+        if name in kw:
+            jkw[name], tkw[name] = kw[name](jnp), kw[name](torch)
+    want = jjoin.hash_join(jb.to_device(bcap), jp.to_device(pcap), bkeys, pkeys,
+                           jjoin.JoinType[jt], cap, **jkw)
+    got = tjoin.hash_join(tb.to_device(bcap, device="cpu"), tp.to_device(pcap, device="cpu"),
+                          bkeys, pkeys, tjoin.JoinType[jt], cap, **tkw)
+    return got, want
+
+
+def _check(build, probe, bkeys, pkeys, jt, residual_rows=None, **kw):
+    got, want = _both(build, probe, bkeys, pkeys, jt, **kw)
+    assert int(got[1]) == int(want[1])
+    rows = got[0].to_host().to_pylist()
+    assert_rows_equal(rows, want[0].to_host().to_pylist())
+    expected = oracle_join(build, probe, bkeys, pkeys, jt.lower(), residual=residual_rows)
+    assert_rows_equal(rows, expected)
+    return got, want
+
+
+def make_rows(n, key_space, seed, nulls=False, extra="v"):
+    rng = random.Random(seed)
+    rows = []
+    for i in range(n):
+        k = rng.randrange(key_space)
+        key = None if (nulls and rng.random() < 0.15) else k
+        rows.append({"k": key, extra: i})
+    return rows
+
+
+@pytest.mark.parametrize("jt", TYPES)
+def test_join_types_random(jt):
+    build = [{"bk": r["k"], "bv": r["v"]} for r in make_rows(57, 20, 1, nulls=True)]
+    probe = [{"pk": r["k"], "pv": r["v"]} for r in make_rows(91, 20, 2, nulls=True)]
+    _check(build, probe, ["bk"], ["pk"], jt)
+
+
+@pytest.mark.parametrize("jt", TYPES)
+def test_join_no_matches(jt):
+    build = [{"bk": i, "bv": i} for i in range(10)]
+    probe = [{"pk": i + 100, "pv": i} for i in range(14)]
+    _check(build, probe, ["bk"], ["pk"], jt)
+
+
+@pytest.mark.parametrize("jt", TYPES)
+def test_join_heavy_duplicates(jt):
+    build = [{"bk": 7 if i % 3 else i, "bv": i} for i in range(40)]
+    probe = [{"pk": 7 if i % 4 else i, "pv": i} for i in range(60)]
+    _check(build, probe, ["bk"], ["pk"], jt)
+
+
+@pytest.mark.parametrize("jt", ["INNER", "LEFT", "FULL", "RIGHT_ANTI"])
+def test_multi_key_join(jt):
+    rng = random.Random(3)
+    build = [{"a": rng.randrange(4), "b": rng.randrange(4), "bv": i} for i in range(30)]
+    probe = [{"c": rng.randrange(4), "d": rng.randrange(4), "pv": i} for i in range(30)]
+    _check(build, probe, ["a", "b"], ["c", "d"], jt)
+
+
+def _parity_residual(xp):
+    def residual(pair):
+        bv, bvalid = pair.column("bv")
+        pv, pvalid = pair.column("pv")
+        return (bv + pv) % 2 == 0, bvalid & pvalid
+    return residual
+
+
+@pytest.mark.parametrize("jt", ["INNER", "FULL", "LEFT", "RIGHT", "LEFT_SEMI", "RIGHT_ANTI"])
+def test_join_with_residual_filter(jt):
+    build = [{"bk": i % 5, "bv": i} for i in range(20)]
+    probe = [{"pk": i % 5, "pv": i} for i in range(20)]
+    _check(build, probe, ["bk"], ["pk"], jt, residual=_parity_residual,
+           residual_rows=lambda r: (r["bv"] + r["pv"]) % 2 == 0)
+
+
+@pytest.mark.parametrize("jt", ["INNER", "LEFT", "RIGHT_SEMI"])
+def test_string_key_join(jt):
+    """String keys share one dictionary; a probe string absent from it is
+    NULL and never matches."""
+    build = [{"bk": k, "bv": i} for i, k in enumerate(["a", "b", "c", None, "a"])]
+    probe = [{"pk": k, "pv": i} for i, k in enumerate(["a", "c", "c", None, "x"])]
+    results = []
+    for pkg in (jcol, tcol):
+        bt = _host(pkg, build)
+        d = bt.schema.field("bk").dictionary
+        codes = np.array([d.code_of(r["pk"]) if r["pk"] is not None else 0 for r in probe],
+                         dtype=np.int32)
+        valid = np.array([r["pk"] is not None and d.code_of(r["pk"]) >= 0 for r in probe])
+        pt = pkg.HostTable.from_numpy({"pk": codes, "pv": np.arange(5, dtype=np.int32)},
+                                      dtypes={"pk": pkg.STRING}, dictionaries={"pk": d},
+                                      validity={"pk": valid})
+        if pkg is jcol:
+            res = jjoin.hash_join(bt.to_device(), pt.to_device(), ["bk"], ["pk"],
+                                  jjoin.JoinType[jt], 256)
+        else:
+            res = tjoin.hash_join(bt.to_device(device="cpu"), pt.to_device(device="cpu"),
+                                  ["bk"], ["pk"], tjoin.JoinType[jt], 256)
+        results.append((res[0].to_host().to_pylist(), int(res[1])))
+    assert results[0][1] == results[1][1]
+    assert_rows_equal(results[1][0], results[0][0])
+
+
+@pytest.mark.parametrize("jt", ["INNER", "LEFT", "RIGHT_SEMI", "FULL", "LEFT_ANTI"])
+def test_float_keys_signed_zero_and_nan(jt):
+    """float64 keys take the full-fetch path (K9): -0.0 meets 0.0, NaN
+    meets nothing (not even NaN), NULL meets nothing."""
+    vals = [0.0, -0.0, float("nan"), 1.5, None, 2.25, 1.5, -3.0]
+    build = [{"bk": v, "bv": i} for i, v in enumerate(vals)]
+    probe = [{"pk": v, "pv": i} for i, v in enumerate([-0.0, float("nan"), 1.5, 7.0, None,
+                                                       0.0, -3.0, 2.25, 1.5])]
+    got, want = _both(build, probe, ["bk"], ["pk"], jt)
+    assert int(got[1]) == int(want[1])
+
+    def rows(t):   # NaN as a string, so that equal rows compare equal
+        return [{k: "NaN" if isinstance(v, float) and v != v else v for k, v in r.items()}
+                for r in t.to_host().to_pylist()]
+
+    assert sorted(map(repr, rows(got[0]))) == sorted(map(repr, rows(want[0])))
+
+
+@pytest.mark.parametrize("jt", ["INNER", "LEFT", "LEFT_ANTI", "RIGHT"])
+@pytest.mark.parametrize("widths", ["int32_int64", "int64_int32", "float32_int32"])
+def test_mixed_width_keys(jt, widths):
+    """Keys of different types compare in their promoted type (K9)."""
+    rng = np.random.default_rng(5)
+    a, b = widths.split("_")
+    dt = {"int32": jcol.INT32, "int64": jcol.INT64, "float32": jcol.FLOAT32}
+    tdt = {"int32": tcol.INT32, "int64": tcol.INT64, "float32": tcol.FLOAT32}
+    bk = [int(x) if x >= 0 else None for x in rng.integers(-3, 30, 60)]
+    pk = [int(x) if x >= 0 else None for x in rng.integers(-3, 30, 80)]
+    if a == "float32":
+        bk = [None if x is None else float(x) / 2 for x in bk]
+    build = [{"bk": k, "bv": i} for i, k in enumerate(bk)]
+    probe = [{"pk": k, "pv": i} for i, k in enumerate(pk)]
+    results = []
+    for pkg, d, run in ((jcol, dt, jjoin), (tcol, tdt, tjoin)):
+        bt = _host(pkg, build, {"bk": d[a]})
+        pt = _host(pkg, probe, {"pk": d[b]})
+        kw = {} if pkg is jcol else {"device": "cpu"}
+        res = run.hash_join(bt.to_device(**kw), pt.to_device(**kw), ["bk"], ["pk"],
+                            run.JoinType[jt], 8192)
+        results.append((res[0].to_host().to_pylist(), int(res[1])))
+    assert results[0][1] == results[1][1]
+    assert_rows_equal(results[1][0], results[0][0])
+
+
+def _masked_rows(t, mask):
+    """The rows where `mask` is True, as dicts (None for NULL)."""
+    m = np.asarray(mask)
+    cols = {}
+    for name in t.schema.names:
+        v, valid = t.column(name)
+        cols[name] = (np.asarray(v)[m], np.asarray(valid)[m])
+    return [{n: (None if not cols[n][1][i] else cols[n][0][i].item()) for n in cols}
+            for i in range(int(m.sum()))]
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("jt", EXPANDABLE)
+def test_expanded(jt, residual):
+    """Late materialization: INNER gives the uncompacted candidate slots
+    (full fetch, K9) with the match mask, semi/anti the input side with its
+    flag, with or without a residual filter; the masked rows equal the JAX
+    package's."""
+    build = [{"bk": r["k"], "bv": r["v"]} for r in make_rows(40, 12, 7, nulls=True)]
+    probe = [{"pk": r["k"], "pv": float(r["v"])} for r in make_rows(50, 12, 8, nulls=True)]
+    kw = {"residual": _parity_residual} if residual else {}
+    (tt, tm, ttotal), (jt_, jm, jtotal) = _both(build, probe, ["bk"], ["pk"], jt,
+                                                expanded=True, **kw)
+    assert int(ttotal) == int(jtotal)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    assert tt.capacity == jt_.capacity
+    assert _masked_rows(tt, tm.numpy()) == _masked_rows(jt_, np.asarray(jm))
+
+
+@pytest.mark.parametrize("jt", TYPES)
+def test_build_and_probe_valid(jt):
+    """Chain fusion: masked rows take no part (K1's row mask on the build
+    side, the candidate mask on the probe side) and are never unmatched."""
+    build = [{"bk": r["k"], "bv": r["v"]} for r in make_rows(45, 15, 11, nulls=True)]
+    probe = [{"pk": r["k"], "pv": r["v"]} for r in make_rows(60, 15, 12, nulls=True)]
+    rng = np.random.default_rng(13)
+    bvalid, pvalid = rng.random(128) < 0.7, rng.random(128) < 0.6
+    got, want = _both(build, probe, ["bk"], ["pk"], jt, build_valid=bvalid,
+                      probe_valid=pvalid)
+    assert int(got[1]) == int(want[1])
+    assert_rows_equal(got[0].to_host().to_pylist(), want[0].to_host().to_pylist())
+    expected = oracle_join([r for i, r in enumerate(build) if bvalid[i]],
+                           [r for i, r in enumerate(probe) if pvalid[i]],
+                           ["bk"], ["pk"], jt.lower())
+    assert_rows_equal(got[0].to_host().to_pylist(), expected)
+
+
+@pytest.mark.parametrize("jt", ["INNER", "LEFT", "LEFT_SEMI", "LEFT_ANTI"])
+def test_return_visited(jt):
+    """The raw build-side visited mask (K10) comes back after the result."""
+    build = [{"bk": r["k"], "bv": r["v"]} for r in make_rows(30, 10, 21, nulls=True)]
+    probe = [{"pk": r["k"], "pv": r["v"]} for r in make_rows(25, 10, 22)]
+    got, want = _both(build, probe, ["bk"], ["pk"], jt, return_visited=True)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert int(got[1]) == int(want[1])
+    assert_rows_equal(got[0].to_host().to_pylist(), want[0].to_host().to_pylist())
+
+
+def test_padding_and_overflow_like_jax():
+    """Inputs padded past their rows, and an out_cap below the candidate
+    total: the totals agree and the kept rows are a subset of the JAX
+    package's own truncated LEFT result's pair rows."""
+    build = [{"bk": i % 6, "bv": i} for i in range(50)]
+    probe = [{"pk": i % 6, "pv": i} for i in range(70)]
+    got, want = _both(build, probe, ["bk"], ["pk"], "LEFT", out_cap=256, bcap=256, pcap=512)
+    assert int(got[1]) == int(want[1]) > 256
+    assert int(got[0].num_rows) == int(want[0].num_rows)
+    assert_rows_equal(got[0].to_host().to_pylist(), want[0].to_host().to_pylist())

@@ -104,3 +104,22 @@ def test_profile_ops_stages_wrap_and_restore_every_entry_point():
     f64 = torch.zeros((0, 3), dtype=torch.float64)
     got = staged.gather_rows(words, f64, idx)
     assert torch.equal(got[0], KERNELS.gather_rows(words, f64, idx)[0])
+
+
+def test_profile_sql_stages_cover_every_kernel_and_run_a_query():
+    """tools/profile_sql.py's staged tables name a stage for each of the
+    eleven kernels, and a query run through them on the CPU gives the same
+    rows as through the default tables."""
+    import profile_sql
+
+    import datafusion_parallelism_tpu_torch as tdfp
+    from datafusion_parallelism_tpu_torch.kernels.chain import KERNEL_OF as CHAIN_OF
+    from datafusion_parallelism_tpu_torch.ops.join import KERNEL_OF as JOIN_OF
+    assert set(profile_sql.STAGES) == set(CHAIN_OF.values()) | set(JOIN_OF.values())
+    join, chain = profile_sql.staged()
+    ctx = tdfp.SessionContext(device="cpu")
+    ctx.register_pydict("a", {"k": [1, 2, 2, 3], "x": [1.0, 2.0, 3.0, 4.0]})
+    ctx.register_pydict("b", {"j": [2, 3, 5], "y": [10, 20, 30]})
+    sql = "SELECT j, sum(x) AS s FROM a LEFT JOIN b ON k = j GROUP BY j ORDER BY j"
+    assert (ctx.sql(sql, kernels=join, chain=chain).collect().to_pylist()
+            == ctx.sql(sql).collect().to_pylist())

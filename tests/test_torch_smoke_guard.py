@@ -32,6 +32,23 @@ def test_chip_smoke_fails_without_a_gpu(where, tmp_path):
     assert '"kernels"' not in proc.stdout
 
 
+def test_session_without_a_gpu_raises():
+    """SessionContext() defaults to the card: with none visible it raises,
+    and no query runs on the CPU in its place."""
+    code = ("import datafusion_parallelism_tpu_torch as p\n"
+            "try:\n"
+            "    ctx = p.SessionContext()\n"
+            "except RuntimeError as e:\n"
+            "    print('raised:', e)\n"
+            "else:\n"
+            "    ctx.register_pydict('t', {'x': [1, 2, 3]})\n"
+            "    print('collected:', ctx.sql('SELECT sum(x) AS s FROM t').collect().to_pylist())\n")
+    proc = _run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("raised:") and "no CUDA device" in proc.stdout
+    assert "collected" not in proc.stdout
+
+
 def test_port_imports_no_jax():
     code = ("import sys, importlib, pkgutil, datafusion_parallelism_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
