@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives `datafusion_parallelism_tpu_torch`'s three main paths through its
-eleven hand-written CUDA kernels and holds every result against the plain
+Drives `datafusion_parallelism_tpu_torch`'s four main paths through its
+thirteen hand-written CUDA kernels and holds every result against the plain
 torch versions: the single-device INNER CSR hash join (K1-K4), the
 single-table chain filter -> project -> hash aggregate -> sort -> limit
-(K5-K8, with K1 for multi-column group keys), and SQL through
+(K5-K8, with K1 for multi-column group keys), SQL through
 `SessionContext`: the planner, the eager executor and all eight join types
-(K9-K11 beside K1-K8). Phases, one line each:
+(K9-K11 beside K1-K8), and out-of-core execution: morsel streaming and
+grace partitioning (K12 pack_rows packing and unpacking every table and
+chunk, K13 append_rows, K10's accumulate mode). Phases, one line each:
 
   1. build the kernels with nvcc, one process per source, all at once;
      print the card's name and power limit
@@ -55,11 +57,23 @@ single-table chain filter -> project -> hash aggregate -> sort -> limit
      capacities, then the median of 3 timed collect()s; each result ==
      the numpy oracle under tpch/diff_results.py's rule; per query ms,
      retries, staged or not, peak bytes and launches per kernel; every
-     kernel K1-K11 launched during the phase
- 15. the largest call of every kernel entry point recorded in phase 14
-     replayed through the kernel and its plain version: equal, and timed
-     beside its bound (bytes moved at 3.35 TB/s) and, where one PyTorch
-     call computes the same function, that call
+     kernel K1-K12 launched during the phase
+ 16. all 22 TPC-H queries again on the same tables with the out-of-core
+     thresholds scaled by SF10/SF100 (lineitem, orders and partsupp out of
+     core, as at SF100 under the defaults): one collect() settles, one is
+     timed; each result == phase 14's oracle answer; per query the route
+     (resident / streamed / streamed after a side-swap / grace agg, union
+     or mask), chunks, ms, host pack and upload seconds, peak bytes beside
+     phase 14's; then Q20 once more under DFP_FORCE_GRACE (the mask
+     merge, which no query takes at these thresholds); K12 and K13
+     launched, and at least one query streamed, one grace agg, one grace
+     union and one grace mask
+ 15. (run after 16) the largest call of every kernel entry point recorded
+     in phase 14, and the largest K12 pack and unpack, K13 and K10
+     accumulate calls of phase 16, replayed through the kernel and its
+     plain version: equal, and timed beside its bound (bytes moved at
+     3.35 TB/s) and, where one PyTorch call computes the same function,
+     that call
 
 Exact means bit for bit, except float64 sums (and the averages built on
 them), which K7 and K8 add in another order than the plain versions:
@@ -67,8 +81,9 @@ those agree within rtol 1e-9 + 1e-12 * sum|x| (a chain's outputs within
 rtol 1e-9).
 
 The last line is {"ok": true, "device": {...}}, printed only when every
-phase passed; the line before it lists the kernels with their launches in
-phase 14 and phase 15's errors, times and bounds. Without a CUDA device
+phase passed; the line before it lists the kernels with their launches
+(in phase 14, K12 and K13 in phase 16) and phase 15's errors, times and
+bounds. Without a CUDA device
 the script exits non-zero and prints no result.
 """
 
@@ -115,10 +130,26 @@ KERNEL_INFO = {
                     "datafusion_parallelism_tpu/ops/join.py:363"),
     "concat_rows": ("datafusion_parallelism_tpu_torch/csrc/concat_rows.cu",
                     "datafusion_parallelism_tpu/utils/columnar.py:818"),
+    "pack_rows": ("datafusion_parallelism_tpu_torch/csrc/pack_rows.cu",
+                  "datafusion_parallelism_tpu/utils/columnar.py:753"),
+    "append_rows": ("datafusion_parallelism_tpu_torch/csrc/append_rows.cu",
+                    "datafusion_parallelism_tpu/runtime/grace.py:544"),
 }
+# the kernels only the out-of-core path (phase 16) launches
+OOC_KERNELS = ("append_rows",)
+# the entry points whose largest calls phase 15 takes from phase 16
+OOC_ENTRIES = {("chain", "pack_rows"), ("chain", "unpack_rows"), ("chain", "append_rows"),
+               ("join", "match_flags_acc")}
+# the out-of-core thresholds at SF10 that the JAX package's defaults are at
+# SF100 (x 10/100): lineitem, orders and partsupp out of core, customer and
+# part resident
+OOC_ENV = {"DFP_STREAM_ROW_THRESHOLD": str((1 << 26) // 10),
+           "DFP_STREAM_THRESHOLD_BYTES": str((6 << 30) // 10),
+           "DFP_GRACE_RESIDENT_CEILING": str((96 << 20) // 10)}
 ROOFLINE_N = 4_194_304                # benches/roofline.py's N
 K7_ROWS = 16_777_216
 TPCH_SF = 10
+ORACLE_WORKERS = 3                    # processes computing the numpy oracle in phase 14
 LINEITEM_CAP = 67_108_864
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM device memory rate
 PEAK_OPS_PER_S = 67e12                # H100 SXM float32 outside the tensor cores
@@ -328,7 +359,7 @@ def phase_kernels_vs_plain(device, n: int = 1 << 18) -> None:
     variants = join_variants(rng, n, device)
     log(f"phase 2a ok: K1-K4 == plain, exact, on {n}-row inputs: " + "; ".join(names)
         + "; float32/float64 keys with -0.0; non-pow2 T; K1's row mask; and every stage "
-        f"(K1-K5, K9-K11) == plain in {len(variants)} joins: " + "; ".join(variants))
+        f"(K1-K5, K9-K12) == plain in {len(variants)} joins: " + "; ".join(variants))
 
 
 def join_variants(rng, n, device):
@@ -433,6 +464,7 @@ def phase_entry(device) -> None:
 
 def phase_size512(device) -> dict:
     from datafusion_parallelism_tpu_torch.entry import make_tables
+    from datafusion_parallelism_tpu_torch.kernels.chain import PLAIN as CHAIN_PLAIN
     from datafusion_parallelism_tpu_torch.ops.join import (PLAIN, JoinType, hash_join,
                                                            inner_csr_join)
     rng = np.random.default_rng(0)
@@ -445,7 +477,8 @@ def phase_size512(device) -> dict:
         return hash_join(build, probe, ["b_key"], ["p_key"], JoinType.INNER, SIZE512_OUT_CAP)
 
     def plain_path():
-        return inner_csr_join(build, probe, ["b_key"], ["p_key"], SIZE512_OUT_CAP, PLAIN)
+        return inner_csr_join(build, probe, ["b_key"], ["p_key"], SIZE512_OUT_CAP, PLAIN,
+                              CHAIN_PLAIN)
 
     out, total = kernel_path()
     ref, ref_total = plain_path()
@@ -493,6 +526,7 @@ def sf10_tables(rng, device):
 
 def phase_sf10(device):
     import torch
+    from datafusion_parallelism_tpu_torch.kernels.chain import PLAIN as CHAIN_PLAIN
     from datafusion_parallelism_tpu_torch.ops.join import (PLAIN, JoinType, hash_join,
                                                            inner_csr_join)
     from datafusion_parallelism_tpu_torch.utils.columnar import round_capacity
@@ -525,14 +559,14 @@ def phase_sf10(device):
     t_kernel = wall_s(kernel_path, 3)
     peak = torch.cuda.max_memory_allocated(device)
     out, _ = kernel_path()
-    ref, ref_total = inner_csr_join(orders, lineitem, *keys, out_cap, PLAIN)
+    ref, ref_total = inner_csr_join(orders, lineitem, *keys, out_cap, PLAIN, CHAIN_PLAIN)
     if int(ref_total) != total:
         raise AssertionError(f"plain total {int(ref_total)} vs {total}")
     tables_equal(out, ref)
     del out, ref
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    inner_csr_join(orders, lineitem, *keys, out_cap, PLAIN)
+    inner_csr_join(orders, lineitem, *keys, out_cap, PLAIN, CHAIN_PLAIN)
     torch.cuda.synchronize()
     t_plain = time.perf_counter() - t0
     rows = orders.num_rows.item() + lineitem.num_rows.item()
@@ -603,8 +637,7 @@ def kernel_of(key) -> str:
     """The kernel (KERNEL_INFO's name) a (table, entry point) launches."""
     from datafusion_parallelism_tpu_torch.kernels.chain import KERNEL_OF as CHAIN_OF
     from datafusion_parallelism_tpu_torch.ops.join import KERNEL_OF as JOIN_OF
-    table, entry = key
-    return (JOIN_OF if table == "join" else CHAIN_OF)[entry]
+    return (JOIN_OF if key[0] == "join" else CHAIN_OF)[entry_of(key)]
 
 
 @contextlib.contextmanager
@@ -1170,33 +1203,68 @@ def _bytes(x) -> int:
     return sum(t.nbytes for t in _unique_tensors(x))
 
 
+def call_key(key, args):
+    """The entry point a call is noted under: K10's accumulate mode (a
+    visited buffer given) apart from its fresh-flags calls."""
+    if key == ("join", "match_flags") and len(args) == 6:
+        return ("join", "match_flags_acc")
+    return key
+
+
+def entry_of(key) -> str:
+    """The kernel table's entry point of a noted key."""
+    return "match_flags" if key[1] == "match_flags_acc" else key[1]
+
+
+def fresh_args(key, args):
+    """`args` with the buffers the call updates in place (K10's visited
+    buffer, K13's accumulator) cloned, so that a replay starts from the
+    state the call saw."""
+    if key[1] == "match_flags_acc":
+        return args[:5] + (args[5].clone(),)
+    if key[1] == "append_rows":
+        return (args[0].clone(), args[1].clone()) + tuple(args[2:])
+    return args
+
+
+def run_call(key, fn, args):
+    """fn on fresh copies of the in-place buffers: its result and, for
+    K13, the accumulator it wrote."""
+    args = fresh_args(key, args)
+    out = fn(*args)
+    return (out, args[0], args[1]) if key[1] == "append_rows" else out
+
+
 class LargestCalls:
     """Kernel tables that pass every call through to the wrappers and,
-    while `on`, note each entry point's largest call (by the bytes of its
-    tensor arguments): `sizes` keeps (bytes, query) of the largest so far,
-    `calls` the arguments of the running query's largest where `capture`
-    is set. Phase 14 notes sizes only; phase 15 reruns a query to capture
-    the calls it owns, so no argument is held between queries."""
+    while `on`, note the largest call (by the bytes of its tensor
+    arguments) of each entry point `keep` accepts: `sizes` keeps (bytes,
+    query) of the largest so far, `calls` the arguments of the running
+    query's largest where `capture` is set (in-place buffers as the call
+    saw them). Phases 14 and 16 note sizes only; phase 15 reruns a query
+    to capture the calls it owns, so no argument is held between
+    queries."""
 
-    def __init__(self, capture: bool = False):
+    def __init__(self, capture: bool = False, keep=lambda key: True):
         from datafusion_parallelism_tpu_torch.kernels.chain import KERNELS as CHAIN
         from datafusion_parallelism_tpu_torch.kernels.chain import ChainKernels
         from datafusion_parallelism_tpu_torch.ops.join import KERNELS as JOIN
         from datafusion_parallelism_tpu_torch.ops.join import JoinKernels
-        self.on, self.capture, self.query = False, capture, None
+        self.on, self.capture, self.query, self.keep = False, capture, None, keep
         self.sizes, self.calls = {}, {}
         self.join = JoinKernels(*(self._wrap(("join", e), fn) for e, fn in JOIN._asdict().items()))
         self.chain = ChainKernels(*(self._wrap(("chain", e), fn)
                                     for e, fn in CHAIN._asdict().items()))
 
-    def _wrap(self, key, fn):
+    def _wrap(self, entry, fn):
         def run(*args):
-            if self.on:
+            key = call_key(entry, args)
+            if self.on and self.keep(key):
                 size = _bytes(args)
                 if size > self.sizes.get(key, (-1,))[0]:
                     self.sizes[key] = (size, self.query)
                     if self.capture:
-                        self.calls[key] = args
+                        self.calls[key] = fresh_args(key, args)
             return fn(*args)
         return run
 
@@ -1238,27 +1306,75 @@ def diff_rule_match(got, want) -> None:
                 raise AssertionError(f"{ka}: {va!r} vs oracle {vb!r}")
 
 
+def _oracle_answers(sf: float, queries):
+    """In a spawned process: TPC-H at `sf` from the generator's fixed seed
+    (the tables the card runs on) and the numpy oracle's answers to
+    `queries`. It touches no CUDA."""
+    from datafusion_parallelism_tpu_torch.tpch.datagen import generate_tables
+    from datafusion_parallelism_tpu_torch.tpch.oracle import oracle_query
+    tables = generate_tables(sf=sf)
+    return {q: oracle_query(q, tables) for q in queries}
+
+
 def phase_tpch_sql(device, tables):
     """All 22 TPC-H queries through SessionContext.sql at SF10. Counters
     are zeroed before the first query and read after the last; the size
     and the query of every kernel entry point's largest call are noted for
-    phase 15."""
+    phase 15 (those of the out-of-core kernels come from phase 16). The
+    numpy oracle's answers, computed meanwhile by ORACLE_WORKERS spawned
+    processes, are checked after the last query and kept for phase 16."""
+    import concurrent.futures
+    import multiprocessing
+
+    from datafusion_parallelism_tpu_torch.tpch import QUERIES
+
+    queries = sorted(QUERIES)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = [pool.submit(_oracle_answers, TPCH_SF, queries[i::ORACLE_WORKERS])
+                   for i in range(ORACLE_WORKERS)]
+        res, lines, got, ctx, sizes = _run_tpch_sql(device, tables, queries)
+        t0 = time.perf_counter()
+        oracle = {}
+        for f in futures:
+            oracle.update(f.result())
+        oracle_wait_s = time.perf_counter() - t0
+    finally:
+        pool.shutdown(cancel_futures=True)
+    for q in queries:
+        try:
+            diff_rule_match(got[q], oracle[q])
+        except AssertionError as e:
+            raise AssertionError(f"Q{q}: {e}") from None
+    launches = kernel_launches()
+    missing = [k for k in KERNEL_INFO if k not in OOC_KERNELS and launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the SQL path: {missing}")
+    log(f"phase 14 ok: TPC-H SF{TPCH_SF}, 22 queries through SessionContext.sql, each == the "
+        "numpy oracle (diff_results rule); median of 3 collect()s after a settling one: "
+        + " | ".join(lines) + f"; launches over the phase: {launches}; after the last query "
+        f"the oracle's {ORACLE_WORKERS} processes took {oracle_wait_s:.1f} s more")
+    return res, launches, ctx, sizes, oracle
+
+
+def _run_tpch_sql(device, tables, queries):
+    """Phase 14's runs: (per-query results, their log lines, each query's
+    rows, the session, the largest calls' sizes)."""
     import torch
     from datafusion_parallelism_tpu_torch import SessionContext
     from datafusion_parallelism_tpu_torch.tpch import QUERIES
-    from datafusion_parallelism_tpu_torch.tpch.oracle import oracle_query
 
     ctx = SessionContext(device=device)
     for name, t in tables.items():
         ctx.register_table(name, t)
-    rec = LargestCalls()
+    rec = LargestCalls(keep=lambda key: key not in OOC_ENTRIES)
     for fn in set(all_counters().values()):
         fn.launches = 0
-    res, lines = {}, []
-    oracle_s = 0.0
-    for q in sorted(QUERIES):
+    res, lines, got = {}, [], {}
+    for q in queries:
         before = kernel_launches()
-        rec.on, rec.query = True, q
+        rec.on, rec.query = True, (14, q, ())
         handle = ctx.sql(QUERIES[q], kernels=rec.join, chain=rec.chain)
         t0 = time.perf_counter()
         rows = handle.collect().to_pylist()
@@ -1267,9 +1383,7 @@ def phase_tpch_sql(device, tables):
         after = kernel_launches()
         launched = {k: after[k] - before.get(k, 0) for k in after if after[k] > before.get(k, 0)}
         retries = handle.metrics.retries
-        t0 = time.perf_counter()
-        diff_rule_match(rows, oracle_query(q, tables))
-        oracle_s += time.perf_counter() - t0
+        got[q] = rows
         torch.cuda.reset_peak_memory_stats(device)
         times = []
         for _ in range(3):
@@ -1286,15 +1400,7 @@ def phase_tpch_sql(device, tables):
                      f"{retries} retries, {'staged' if handle.metrics.staged else 'one run'}, "
                      f"peak {peak} bytes, launches {launched}")
         del handle
-    launches = kernel_launches()
-    missing = [k for k in KERNEL_INFO if launches.get(k, 0) < 1]
-    if missing:
-        raise AssertionError(f"kernels never launched on the SQL path: {missing}")
-    log(f"phase 14 ok: TPC-H SF{TPCH_SF}, 22 queries through SessionContext.sql, each == the "
-        "numpy oracle (diff_results rule); median of 3 collect()s after a settling one: "
-        + " | ".join(lines) + f"; launches over the phase: {launches}; the oracle took "
-        f"{oracle_s:.1f} s of host time")
-    return res, launches, ctx, rec.sizes
+    return res, lines, got, ctx, rec.sizes
 
 
 def _row_bytes(words, f64) -> int:
@@ -1306,7 +1412,8 @@ def work(key, args, out):
     once (a gathered input only at the rows it gathers), each output byte
     written once; operations only where they could bound it (K8's
     requests x groups per row)."""
-    entry = key[1]
+    import torch
+    entry = entry_of(key)
     if entry == "probe_expand":
         slot, ok, start_count, pwords, bwords, _, out_cap = args
         k = min(int(out[-4]), out_cap)
@@ -1334,6 +1441,28 @@ def work(key, args, out):
                  + min(bwords.nbytes, k * bwords.shape[0] * 4))
     elif entry == "concat_rows":
         reads = sum(min(w.nbytes + f.nbytes, int(n) * _row_bytes(w, f)) for w, f, n in args[0])
+    elif entry == "pack_rows":
+        # a float64 column stays beside the words: only its validity is read
+        layout, cols = args
+        reads = sum(valid.nbytes + (0 if kind.value == "float64" else v.nbytes)
+                    for (_, kind, _, _), (v, valid) in zip(layout.fields, cols))
+    elif entry == "unpack_rows":
+        # int32-wide values are views of their word row: nothing moves;
+        # int64/bool values and every validity are read and written
+        layout, packed = args
+        rows = {layout.valid_base + j // 32 for j in range(len(layout.fields))}
+        moved = [v for v, _ in out if v is not None and v.dtype in (torch.int64, torch.bool)]
+        rows |= {slot + i for (_, _, slot, n), (v, _) in zip(layout.fields, out)
+                 if v is not None and v.dtype in (torch.int64, torch.bool) for i in range(n)}
+        return (len(rows) * packed.shape[1] * 4 + _bytes(moved)
+                + sum(valid.nbytes for _, valid in out)), 0
+    elif entry == "append_rows":
+        # the appended rows' words are read and written once
+        acc, acc_f64, acc_rows, words, f64, num_rows = args
+        k = max(0, min(int(num_rows), words.shape[1], acc.shape[1] - int(acc_rows)))
+        return 2 * k * _row_bytes(words, f64) + 12, 0
+    elif entry == "match_flags":
+        reads = _bytes(args[:3])
     else:
         reads = _bytes(args)
     ops = 0
@@ -1357,31 +1486,36 @@ def library_call(key, args):
 
 
 def phase_replay(device, ctx, sizes):
-    """For each query that made an entry point's largest call in phase
-    14, its first run again, capturing those calls; each captured call
-    then goes through the kernel and its plain version (equal), timed,
-    beside its bound and its library call."""
+    """For each query that made an entry point's largest call in phase 14
+    or 16 (`sizes`: key -> (bytes, (phase, query, extra env))), its first
+    run again in that phase's session (`ctx`: phase -> SessionContext)
+    and environment, capturing
+    those calls; each captured call then goes through the kernel and its
+    plain version (equal), timed, beside its bound and its library
+    call."""
     from datafusion_parallelism_tpu_torch.kernels.chain import KERNELS as CHAIN
     from datafusion_parallelism_tpu_torch.kernels.chain import PLAIN as CHAIN_PLAIN
     from datafusion_parallelism_tpu_torch.ops.join import KERNELS as JOIN
     from datafusion_parallelism_tpu_torch.ops.join import PLAIN as JOIN_PLAIN
     from datafusion_parallelism_tpu_torch.tpch import QUERIES
     per_kernel, lines = {}, []
-    for q in sorted({q for _, q in sizes.values()}):
+    for owner in sorted({owner for _, owner in sizes.values()}):
+        phase, q, extra = owner
         rec = LargestCalls(capture=True)
-        rec.on, rec.query = True, q
-        ctx.sql(QUERIES[q], kernels=rec.join, chain=rec.chain).collect()
+        rec.on, rec.query = True, owner
+        with ooc_env(phase == 16, **dict(extra)):
+            ctx[phase].sql(QUERIES[q], kernels=rec.join, chain=rec.chain).collect()
         rec.on = False
-        for key in sorted(k for k, (_, owner) in sizes.items() if owner == q):
+        for key in sorted(k for k, (_, o) in sizes.items() if o == owner):
             args = rec.calls.pop(key)
             if _bytes(args) != sizes[key][0]:
-                raise AssertionError(f"Q{q} {key}: rerun call of {_bytes(args)} bytes, phase 14 "
-                                     f"noted {sizes[key][0]}")
+                raise AssertionError(f"Q{q} {key}: rerun call of {_bytes(args)} bytes, phase "
+                                     f"{phase} noted {sizes[key][0]}")
             kernel, plain = (JOIN, JOIN_PLAIN) if key[0] == "join" else (CHAIN, CHAIN_PLAIN)
-            kernel, plain = getattr(kernel, key[1]), getattr(plain, key[1])
+            kernel, plain = getattr(kernel, entry_of(key)), getattr(plain, entry_of(key))
             with no_launches():
-                want = plain(*args)
-            got = kernel(*args)
+                want = run_call(key, plain, args)
+            got = run_call(key, kernel, args)
             err = entry_err(key[1], args, got, want)
             nbytes, ops = work(key, args, got)
             del got, want
@@ -1403,15 +1537,100 @@ def phase_replay(device, ctx, sizes):
             acc["bound_ms"] += max(b_ms, o_ms)
             acc["library_ms"] = (None if lib_ms is None or acc["library_ms"] is None
                                  else acc["library_ms"] + lib_ms)
-            acc["calls"].append(f"{key[0]}.{key[1]}@Q{q}")
-            lines.append(f"{key[0]}.{key[1]} (Q{q}, {nbytes} bytes moved) {ms:.3f}/{plain_ms:.3f}"
+            acc["calls"].append(f"{key[0]}.{key[1]}@Q{q}" + ("(ooc)" if phase == 16 else ""))
+            lines.append(f"{key[0]}.{key[1]} (phase {phase} Q{q}, {nbytes} bytes moved) "
+                         f"{ms:.3f}/{plain_ms:.3f}"
                          + (f"/{lib_ms:.3f}" if lib_ms is not None else "")
                          + f" bound {max(b_ms, o_ms):.3f}")
         del rec
-    log("phase 15 ok: the largest phase-14 call of every entry point, captured by rerunning "
-        "its query, == its plain version (K9-K11 bit for bit); ms kernel/plain[/library] "
-        "(median of 3 / one run / median of 3) and bound: " + "; ".join(lines))
+    log("phase 15 ok: the largest phase-14 call of every entry point and phase 16's largest "
+        "K12, K13 and K10 accumulate calls, captured by rerunning their queries, == their "
+        "plain versions (K9-K13 bit for bit); ms kernel/plain[/library] (median of 3 / one "
+        "run / median of 3) and bound: " + "; ".join(lines))
     return per_kernel
+
+
+@contextlib.contextmanager
+def ooc_env(on: bool = True, **extra):
+    """OOC_ENV and `extra` set inside (when `on`), the environment as it
+    was after."""
+    env = {**OOC_ENV, **extra}
+    saved = {k: os.environ.get(k) for k in env}
+    if on:
+        os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_out_of_core(device, tables, oracle, resident):
+    """All 22 TPC-H queries under OOC_ENV on phase 14's tables, and Q20
+    under DFP_FORCE_GRACE. Counters are zeroed before the first query and
+    read after the last; the largest K12, K13 and K10 accumulate calls are
+    noted for phase 15."""
+    import torch
+    from datafusion_parallelism_tpu_torch import SessionContext
+    from datafusion_parallelism_tpu_torch.tpch import QUERIES
+
+    ctx = SessionContext(device=device)
+    for name, t in tables.items():
+        ctx.register_table(name, t)
+    rec = LargestCalls(keep=lambda key: key in OOC_ENTRIES)
+    for fn in set(all_counters().values()):
+        fn.launches = 0
+    res, lines = {}, []
+    # the 22, then Q20 under DFP_FORCE_GRACE: the mask merge, which no
+    # query takes at these thresholds (the JAX grace tests force it so)
+    runs = [(q, q, {}) for q in sorted(QUERIES)] + [("20 forced grace", 20,
+                                                      {"DFP_FORCE_GRACE": "1"})]
+    for label, q, extra in runs:
+        with ooc_env(**extra):
+            rec.on, rec.query = True, (16, q, tuple(extra.items()))
+            handle = ctx.sql(QUERIES[q], kernels=rec.join, chain=rec.chain)
+            t0 = time.perf_counter()
+            rows = handle.collect().to_pylist()
+            first_s = time.perf_counter() - t0
+            rec.on = False
+            diff_rule_match(rows, oracle[q])
+            m = handle.metrics
+            pack0, up0 = m.host_pack_s, m.upload_s
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            handle.collect()
+            torch.cuda.synchronize(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(device)
+            res[label] = {"route": m.route, "chunks": m.streamed_chunks, "ms": ms,
+                      "first_ms": first_s * 1e3, "host_pack_s": m.host_pack_s - pack0,
+                      "upload_s": m.upload_s - up0, "retries": m.retries, "peak_bytes": peak,
+                      "resident_peak_bytes": resident[q]["peak_bytes"],
+                      "resident_ms": resident[q]["ms"]}
+            lines.append(f"Q{label} {m.route}, {m.streamed_chunks} chunks, {ms:.3f} ms (first "
+                         f"run {first_s * 1e3:.1f}; resident {resident[q]['ms']:.3f}), host pack "
+                         f"{res[label]['host_pack_s']:.3f} s, upload {res[label]['upload_s']:.3f} s, "
+                         f"{m.retries} retries, peak {peak} bytes (resident "
+                         f"{resident[q]['peak_bytes']})")
+            del handle
+    launches = kernel_launches()
+    routes = {r["route"] for r in res.values()}
+    missing = [k for k in ("pack_rows", "append_rows") if launches.get(k, 0) < 1]
+    if missing or ("join", "match_flags_acc") not in rec.sizes:
+        raise AssertionError(f"kernels never launched out of core: {missing}, K10 accumulate "
+                             f"{('join', 'match_flags_acc') in rec.sizes}")
+    untaken = [r for r in ("streamed", "grace agg", "grace union", "grace mask")
+               if not any(t.startswith(r) for t in routes)]
+    if untaken:
+        raise AssertionError(f"no query took the routes {untaken}; routes {sorted(routes)}")
+    log(f"phase 16 ok: TPC-H SF{TPCH_SF}, 22 queries out of core under {OOC_ENV} (and Q20 "
+        "with DFP_FORCE_GRACE), each == phase 14's oracle answer; one timed collect() after "
+        "a settling one: "
+        + " | ".join(lines) + f"; launches over the phase: {launches}")
+    return res, launches, ctx, rec.sizes
 
 
 def launch_counters():
@@ -1423,9 +1642,10 @@ def launch_counters():
 
 
 def agg_counters():
-    """The chain's launch counters: K5-K8's entry points and K1's."""
+    """The chain's launch counters: K5-K8's, K1's and K12's entry points
+    (K13 serves the out-of-core path only)."""
     from datafusion_parallelism_tpu_torch.kernels.chain import KERNELS
-    return KERNELS._asdict()
+    return {e: fn for e, fn in KERNELS._asdict().items() if e != "append_rows"}
 
 
 def main() -> int:
@@ -1466,15 +1686,17 @@ def main() -> int:
         "summed over their calls: " + _fmt_timing(chain_timing))
 
     phase_join_types(device)
-    _, sql_launches, ctx, sizes = phase_tpch_sql(device, tables)
-    replay = phase_replay(device, ctx, sizes)
-    del ctx, tables
+    sql_res, sql_launches, ctx, sizes, oracle = phase_tpch_sql(device, tables)
+    _, ooc_launches, ooc_ctx, ooc_sizes = phase_out_of_core(device, tables, oracle, sql_res)
+    replay = phase_replay(device, {14: ctx, 16: ooc_ctx}, {**sizes, **ooc_sizes})
+    del ctx, ooc_ctx, tables
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = replay[name]
+        launches = (ooc_launches if name in OOC_KERNELS + ("pack_rows",) else sql_launches)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": sql_launches[name], "max_abs_err": r["err"],
+                        "launches": launches[name], "max_abs_err": r["err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
                         "library_ms": r["library_ms"], "calls": r["calls"]})

@@ -5,9 +5,11 @@ join strategy, `target_partitions` and `replacement_required`, and a
 SessionContext that registers tables with optional Statistics and plans
 SQL with the copied parser, planner and optimizer. The session's tables
 live on one device, the card unless the caller names another
-(`device="cpu"` runs the plain versions of the kernels, as the tests do).
-Multi-device execution, parquet registration and the SORT and OA join
-strategies raise NotImplementedError naming their ROADMAP items.
+(`device="cpu"` runs the plain versions of the kernels, as the tests do);
+a query whose biggest scan passes the out-of-core thresholds streams or
+grace-partitions it (runtime/executor.py). Multi-device execution, parquet
+registration and the SORT and OA join strategies raise
+NotImplementedError naming their ROADMAP items.
 """
 
 from __future__ import annotations

@@ -11,6 +11,10 @@
 // concurrent writes to one flag (a build row matched by many probe rows)
 // are benign and need no atomics, and the result does not depend on the
 // order in which the blocks run.
+//
+// Accumulate mode (`keep_visited`): the visited flags are not zero-filled,
+// so the matches OR into the caller's buffer: the streamed visited fold
+// across probe chunks and grace's mask merge across partitions.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -36,12 +40,12 @@ __global__ void match_flags_kernel(const uint8_t* __restrict__ match,
 }  // namespace
 
 // match, build_id, probe_idx [n] -> visited [bcap], probe_matched [mcap]
-// (bytes 0/1).
+// (bytes 0/1); with keep_visited the visited flags already set stay set.
 extern "C" int dfp_match_flags(const void* match, const void* build_id, const void* probe_idx,
-                               long long n, void* visited, long long bcap, void* probe_matched,
-                               long long mcap, void* stream) {
+                               long long n, void* visited, long long bcap, int keep_visited,
+                               void* probe_matched, long long mcap, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(visited, 0, (size_t)bcap, st);
+  if (!keep_visited) cudaMemsetAsync(visited, 0, (size_t)bcap, st);
   cudaMemsetAsync(probe_matched, 0, (size_t)mcap, st);
   if (n > 0) {
     match_flags_kernel<<<dfp::grid_for(n, 256), 256, 0, st>>>(

@@ -8,10 +8,12 @@ join's JoinKernels) and `ctx.chain` (the single-table operators'
 ChainKernels), so one plan runs on the kernels or on their plain versions.
 Capacities, chain fusion and late materialization follow the JAX package
 rule for rule; every node's overflow total stays a device tensor for the
-executor to read once per run. The JAX package's streaming hooks (a
-prepared build side, a streamed probe's visited fold) belong to out-of-core
-execution, ROADMAP queue 1 item 12, and are not ported: the executor raises
-before it would run a plan that needs them.
+executor to read once per run. Out-of-core execution (runtime/streaming.py,
+runtime/grace.py) reaches the plan through the JAX package's hooks: a
+join's frozen build side (`ctx.prepared`), a streamed build-emitting
+join's visited fold across probe chunks (`ctx.stream_visited` /
+`ctx.visited_out`), and the merge point's finished result
+(`ctx.materialized`).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from ..ops.join import KERNELS as JOIN_KERNELS
 from ..ops.join import JoinKernels, JoinType, hash_join, join_output_schema
 from ..ops.project import project_table
 from ..ops.sort import SortKey, limit_table, sort_table
-from ..utils.columnar import DeviceTable, Field, Schema, round_capacity
+from ..utils.columnar import DeviceTable, Field, Schema, null_columns_like, round_capacity
 
 
 class PhysicalPlan:
@@ -64,16 +66,27 @@ class ExecContext:
     """Per-execution mutable state: adaptive output capacities (grown on
     overflow retry), the overflow totals reported by each node (device
     tensors), under staged execution the materialized join results of
-    earlier stages, and the kernel tables the operators reach."""
+    earlier stages, and the kernel tables the operators reach.
+
+    Out of core: `prepared` maps join_id -> PreparedBuild, the frozen
+    build sides probed by every chunk; `stream_visited` maps the join_id
+    of a build-emitting join whose probe side is streamed to its visited
+    buffer (bool over the frozen build's capacity), which the join ORs
+    this chunk's matches into in place (K10's accumulate mode) and
+    records in `visited_out` (the cross-chunk ConcurrentBitSet analog,
+    reference full.rs:77-201)."""
 
     def __init__(self, join_caps: Dict[int, int], materialized=None,
                  kernels: JoinKernels = JOIN_KERNELS,
-                 chain: ChainKernels = CHAIN_KERNELS):
+                 chain: ChainKernels = CHAIN_KERNELS, prepared=None):
         self.join_caps = join_caps
         self.join_totals: Dict[int, torch.Tensor] = {}
         self.materialized = materialized or {}
         self.kernels = kernels
         self.chain = chain
+        self.prepared = prepared or {}
+        self.stream_visited: Dict[int, torch.Tensor] = {}
+        self.visited_out: Dict[int, torch.Tensor] = {}
 
 
 def _zero(t: DeviceTable) -> torch.Tensor:
@@ -199,7 +212,12 @@ class PHashJoin(PhysicalPlan):
         late-materialized — (uncompacted table, mask) — and the mask rides
         into hash_join as build_valid/probe_valid, erasing the child's
         compaction."""
-        b, b_valid = _execute_maybe_expanded(self.build, tables, ctx)
+        prepared = ctx.prepared.get(self.join_id)
+        b_valid = None
+        if prepared is not None:
+            b = prepared.build
+        else:
+            b, b_valid = _execute_maybe_expanded(self.build, tables, ctx)
         p, p_valid = _execute_maybe_expanded(self.probe, tables, ctx)
         cap = ctx.join_caps.get(self.join_id)
         if cap is None:
@@ -221,21 +239,61 @@ class PHashJoin(PhysicalPlan):
         if self.residual is not None:
             res = self.residual
             residual_fn = lambda pair_tbl: res.eval(pair_tbl)[:2]   # noqa: E731
-        return b, p, cap, residual_fn, b_valid, p_valid
+        return b, p, cap, residual_fn, prepared, b_valid, p_valid
 
     def _join(self, tables, ctx, expanded: bool):
-        b, p, cap, residual_fn, b_valid, p_valid = self._inputs_and_cap(tables, ctx)
+        b, p, cap, residual_fn, prepared, b_valid, p_valid = self._inputs_and_cap(tables, ctx)
         out = hash_join(b, p, self.build_keys, self.probe_keys, self.join_type, cap,
-                        strategy=self.strategy, residual=residual_fn, expanded=expanded,
-                        build_valid=b_valid, probe_valid=p_valid, kernels=ctx.kernels,
-                        chain=ctx.chain)
+                        strategy=self.strategy, residual=residual_fn, prepared=prepared,
+                        expanded=expanded, build_valid=b_valid, probe_valid=p_valid,
+                        kernels=ctx.kernels, chain=ctx.chain)
         ctx.join_totals[self.join_id] = out[-1]
         return out[:-1]
 
     def execute(self, tables, ctx):
         if self.join_id in ctx.materialized:   # staged execution boundary
             return ctx.materialized[self.join_id]
+        if self.join_id in ctx.stream_visited:
+            return self._execute_stream_chunk(tables, ctx)
         return self._join(tables, ctx, False)[0]
+
+    # streamed-probe rewrites: per-chunk emission of a build-emitting join
+    # is its probe-linear part (pairs; plus the chunk's own unmatched probe
+    # rows for FULL); the build-side emission is deferred to the stream's
+    # flush pass via the folded visited mask
+    _STREAM_CHUNK_TYPE = {JoinType.LEFT: JoinType.INNER,
+                          JoinType.FULL: JoinType.RIGHT}
+
+    def _execute_stream_chunk(self, tables, ctx):
+        """One probe chunk of a build-emitting join under morsel streaming:
+        emit the chunk's probe-linear rows now and OR this chunk's build-row
+        matches into the visited buffer (ctx.visited_out). The deferred
+        build-side rows (unmatched for LEFT/FULL/LEFT_ANTI, matched for
+        LEFT_SEMI) are emitted once by runtime/streaming.py's flush pass
+        after the last chunk — the reference's last-stream finalizer
+        (full.rs:181-201) with the barrier replaced by the end of the chunk
+        loop."""
+        b, p, cap, residual_fn, prepared, b_valid, p_valid = self._inputs_and_cap(tables, ctx)
+        vis = ctx.stream_visited[self.join_id]
+        kw = dict(strategy=self.strategy, residual=residual_fn, prepared=prepared,
+                  build_valid=b_valid, probe_valid=p_valid, return_visited=True,
+                  kernels=ctx.kernels, chain=ctx.chain, visited_into=vis)
+        chunk_type = self._STREAM_CHUNK_TYPE.get(self.join_type)
+        if chunk_type is not None:            # LEFT / FULL: pairs this chunk
+            # output schemas line up: INNER's == LEFT's, RIGHT's == FULL's
+            out, total, _ = hash_join(b, p, self.build_keys, self.probe_keys, chunk_type,
+                                      cap, **kw)
+        else:                                 # LEFT_SEMI / LEFT_ANTI
+            # per-chunk emission is EMPTY (the output is build rows, all
+            # deferred); only the visited fold runs, gather-free (expanded)
+            _, _, total, _ = hash_join(b, p, self.build_keys, self.probe_keys,
+                                       self.join_type, cap, expanded=True, **kw)
+            out = DeviceTable(self.schema,
+                              null_columns_like(self.schema, 128, device=b.device),
+                              torch.zeros((), dtype=torch.int32, device=b.device))
+        ctx.visited_out[self.join_id] = vis
+        ctx.join_totals[self.join_id] = total
+        return out
 
     def execute_expanded(self, tables, ctx):
         """Late-materialized execution for aggregate fusion: (table, mask) —
@@ -253,7 +311,10 @@ def _expandable_join(n, ctx) -> bool:
         return False
     return (isinstance(n, PHashJoin)
             and n.join_type in PHashJoin.EXPANDABLE
-            and n.join_id not in ctx.materialized)
+            and n.join_id not in ctx.materialized
+            # streamed-probe joins must take execute()'s chunk-wise branch
+            # (visited fold + deferred emission), not late materialization
+            and n.join_id not in ctx.stream_visited)
 
 
 def _execute_maybe_expanded(node, tables, ctx):
@@ -350,6 +411,12 @@ class PAggregate(PhysicalPlan):
         return self.child.execute(tables, ctx), None
 
     def execute(self, tables, ctx):
+        if self.node_id in ctx.materialized:
+            # out-of-core execution materializes the merge-point
+            # aggregate's finished result and runs the rest of the plan
+            # above it (outer aggregates, joins, sorts: Q13's second
+            # aggregate) on it
+            return ctx.materialized[self.node_id]
         child, row_filter = self.fused_child(tables, ctx)
         cap = ctx.join_caps.get(self.node_id)
         if cap is None:

@@ -14,8 +14,9 @@ three paths and their outputs:
 Every kernel is reached through `kernels` (kernels/chain.py). Groups
 come out in the JAX package's order (code order on the direct
 path, sorted-key order on the sorted path). `decompose_for_partial` and
-`finish_partial` (two-phase aggregation) wait for multi-GPU (ROADMAP queue
-1 item 13).
+`finish_partial` split an aggregate into per-chunk partials, their merge
+and a finish (streamed and grace-partitioned execution fold chunks this
+way): host-side spec rewriting around the operators above.
 """
 
 from __future__ import annotations
@@ -279,8 +280,8 @@ def hash_aggregate_counted(t: DeviceTable, group_keys: List[str], aggs: List[Agg
     perm = _grouping_perm(t, group_keys, in_row, kernels)
     n_valid = in_row.sum(dtype=torch.int32)
     # the table in group order, by ONE packed row gather (K5)
-    g_ = pack_table(t).take_rows(perm, None, kernels)
-    st = unpack_table(g_, t.schema, t.num_rows)
+    g_ = pack_table(t, kernels).take_rows(perm, None, kernels)
+    st = unpack_table(g_, t.schema, t.num_rows, kernels)
     words, key_cols = key_words([st.column(k) for k in group_keys])
     reqs, plan = _requests(aggs, st.column)
     starts, sizes, results, n_groups = kernels.segment_agg(words, key_cols, n_valid, reqs,
@@ -288,7 +289,7 @@ def hash_aggregate_counted(t: DeviceTable, group_keys: List[str], aggs: List[Agg
     kept = torch.clamp(n_groups, max=out_cap)
     ok = torch.arange(out_cap, dtype=torch.int32, device=t.device) < kept
     # group key values: the first sorted row of each group, by ONE K5 gather
-    rep = unpack_table(g_.take_rows(starts, kept, kernels), t.schema, kept)
+    rep = unpack_table(g_.take_rows(starts, kept, kernels), t.schema, kept, kernels)
     cols = {k: (rep.columns[k][0], rep.columns[k][1] & ok) for k in group_keys}
     cols.update(_agg_columns(t.schema, out_schema, aggs, plan, results, sizes, ok))
     return DeviceTable(out_schema, cols, kept), n_groups
@@ -303,3 +304,54 @@ def _global_aggregate(t: DeviceTable, aggs: List[AggSpec], out_schema: Schema,
     always = torch.ones(1, dtype=torch.bool, device=t.device)
     cols = _agg_columns(t.schema, out_schema, aggs, plan, results, rowcount, always)
     return DeviceTable(out_schema, cols, torch.tensor(1, dtype=torch.int32, device=t.device))
+
+
+def decompose_for_partial(aggs: List[AggSpec]):
+    """Two-phase aggregation plan: AVG is not mergeable, so it decomposes
+    into SUM + COUNT partials merged by SUM and finished by a divide.
+    Returns (partial_specs, merge_specs, finishers) where finishers maps
+    each original output to how the merged columns finish it."""
+    partial: List[AggSpec] = []
+    merge: List[AggSpec] = []
+    finishers = []
+    for i, a in enumerate(aggs):
+        if a.func == "avg":
+            s, c = f"__ps{i}", f"__pc{i}"
+            partial += [AggSpec("sum", a.input, s), AggSpec("count", a.input, c)]
+            merge += [AggSpec("sum", s, s), AggSpec("sum", c, c)]
+            finishers.append((a, ("avg", s, c)))
+        elif a.func in ("count", "count_star"):
+            p = f"__p{i}"
+            partial.append(AggSpec(a.func, a.input, p))
+            merge.append(AggSpec("sum", p, p))
+            finishers.append((a, ("col", p)))
+        elif a.func in ("sum", "min", "max"):
+            p = f"__p{i}"
+            partial.append(AggSpec(a.func, a.input, p))
+            merge.append(AggSpec(a.func, p, p))
+            finishers.append((a, ("col", p)))
+        else:
+            raise ValueError(a.func)
+    return partial, merge, finishers
+
+
+def finish_partial(t: DeviceTable, group_keys: List[str], aggs: List[AggSpec],
+                   finishers, in_schema: Schema) -> DeviceTable:
+    """Apply finishers after the merge aggregate, restoring the exact
+    single-pass output schema."""
+    out_schema = agg_output_schema(in_schema, group_keys, aggs)
+    cols = {k: t.columns[k] for k in group_keys}
+    for a, fin in finishers:
+        out_dt = out_schema.field(a.output).dtype
+        if fin[0] == "col":
+            v, valid = t.columns[fin[1]]
+            cols[a.output] = (v.to(out_dt.device_dtype), valid)
+        else:  # avg = sum / count
+            _, s_name, c_name = fin
+            s, svalid = t.columns[s_name]
+            c, _ = t.columns[c_name]
+            v = s.to(torch.float64) / torch.clamp(c, min=1)
+            if a.input is not None and in_schema.field(a.input).dtype.kind is Kind.DECIMAL:
+                v = v / (10.0 ** in_schema.field(a.input).dtype.scale)
+            cols[a.output] = (v, svalid & (c > 0))
+    return DeviceTable(out_schema, cols, t.num_rows)

@@ -27,5 +27,5 @@ def filter_table(t: DeviceTable, predicate: Expr, out_cap: Optional[int] = None,
     if out_cap is None or out_cap >= t.capacity:
         out = filter_rows(t, mask, kernels)
         return out, out.num_rows
-    (pt,), n = compact_rows([pack_table(t)], mask, out_cap, kernels)
-    return unpack_table(pt, t.schema, torch.clamp(n, max=out_cap)), n
+    (pt,), n = compact_rows([pack_table(t, kernels)], mask, out_cap, kernels)
+    return unpack_table(pt, t.schema, torch.clamp(n, max=out_cap), kernels), n

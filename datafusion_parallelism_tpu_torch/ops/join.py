@@ -22,11 +22,14 @@ The kernels, each reached through a `JoinKernels` table:
   K10 match_flags     visited build rows / matched probe rows
   K11 concat_rows     pairs + unmatched rows of LEFT/RIGHT/FULL joins
 
-plus K5 (through the chain's `ChainKernels`) for the compactions of the
-full-fetch pairs and of semi, anti and unmatched rows. Each wrapper launches
-its CUDA kernel on CUDA tensors and runs its plain torch version on CPU
-tensors. `prepared=` and the other strategies raise NotImplementedError
-naming the ROADMAP item that will port them.
+plus K5 and K12 (through the chain's `ChainKernels`) for the compactions
+of the full-fetch pairs and of semi, anti and unmatched rows, and for
+packing and unpacking every table. Each wrapper launches its CUDA kernel on
+CUDA tensors and runs its plain torch version on CPU tensors.
+
+A frozen build side (`prepare_build`, JAX :85-162) is K1 and K2 run once:
+streamed and grace-partitioned execution probe it with every chunk. The
+SORT and OA strategies raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -158,6 +161,19 @@ def _fetch_keys(blayout, playout, build_keys, probe_keys):
     return keys
 
 
+class PreparedBuild(NamedTuple):
+    """A frozen build side: the table, its packed rows, its CSR descriptor
+    and its rows in bucket order, built once and probed by any number of
+    streamed probe chunks (JAX ops/join.py:85). `perm_rows` is K2's
+    output over the packed words with the float64 sidecars as word pairs
+    (`_with_f64_pairs`) and the row id last: the deferred path reads its
+    key rows, the full-fetch path (K9) all of them."""
+    build: DeviceTable
+    packed: PackedTable
+    start_count: torch.Tensor
+    perm_rows: torch.Tensor
+
+
 class JoinKernels(NamedTuple):
     """The join's stages, as functions with the kernels' contracts."""
     hash_slot: Callable        # K1
@@ -209,14 +225,32 @@ def _with_f64_pairs(pt: PackedTable) -> torch.Tensor:
     return torch.cat([pt.packed, torch.stack(pairs)])
 
 
+def prepare_build(build: DeviceTable, build_keys: List[str],
+                  strategy: JoinStrategy = JoinStrategy.CSR, kernels: JoinKernels = KERNELS,
+                  chain: Optional[ChainKernels] = None) -> PreparedBuild:
+    """Freeze `build` for repeated probing: K12 packs it, K1 hashes its key
+    values (null keys and padding to bucket T) and K2 builds the CSR
+    descriptor and puts every row in bucket order."""
+    if strategy is not JoinStrategy.CSR:
+        raise NotImplementedError(
+            f"the {strategy.name} strategy is not ported (ROADMAP queue 1 item 11)")
+    bp = pack_table(build, chain)
+    T = table_size_for(build.capacity)
+    words, cols = key_words([build.column(k) for k in build_keys])
+    _, slot = kernels.hash_slot(words, cols, T, build.num_rows)
+    _, _, _, start_count, perm_rows = kernels.csr_build(slot, T, _with_f64_pairs(bp))
+    return PreparedBuild(build, bp, start_count, perm_rows)
+
+
 def inner_csr_join(build: DeviceTable, probe: DeviceTable, build_keys: List[str],
                    probe_keys: List[str], out_cap: int,
-                   kernels: JoinKernels = KERNELS):
+                   kernels: JoinKernels = KERNELS, chain: Optional[ChainKernels] = None):
     """The INNER join's deferred chain K1 -> K2 -> K3 -> K4 through
-    `kernels`: hash_join(..., JoinType.INNER, out_cap) for keys the
-    deferred path takes. Returns (table, candidate_total)."""
+    `kernels` (packing through `chain`'s K12): hash_join(...,
+    JoinType.INNER, out_cap) for keys the deferred path takes. Returns
+    (table, candidate_total)."""
     return hash_join(build, probe, build_keys, probe_keys, JoinType.INNER, out_cap,
-                     kernels=kernels)
+                     kernels=kernels, chain=chain)
 
 
 def hash_join(build: DeviceTable, probe: DeviceTable,
@@ -227,7 +261,8 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
               build_valid: Optional[torch.Tensor] = None,
               probe_valid: Optional[torch.Tensor] = None,
               return_visited: bool = False,
-              kernels: JoinKernels = KERNELS, chain: Optional[ChainKernels] = None):
+              kernels: JoinKernels = KERNELS, chain: Optional[ChainKernels] = None,
+              visited_into: Optional[torch.Tensor] = None):
     """Join two device tables; the JAX package's signature and results.
 
     Returns (result, candidate_total); the caller checks candidate_total
@@ -239,16 +274,22 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
     side itself with its flag. build_valid / probe_valid: masks of an input
     side that is itself another join's or filter's uncompacted output.
     return_visited: the build-side visited mask is appended to the tuple.
-    `kernels` and `chain` (kernels/chain.py's table, its KERNELS when
-    None) are the kernels the join reaches."""
+    prepared: a frozen build side (`prepare_build`); `build` is ignored
+    then, and build_valid must be None. visited_into: a bool [build
+    capacity] buffer the matches are ORed into in place (K10's accumulate
+    mode) and returned as the visited mask: the cross-chunk fold of a
+    streamed build-emitting join. `kernels` and `chain`
+    (kernels/chain.py's table, its KERNELS when None) are the kernels the
+    join reaches."""
     if len(build_keys) != len(probe_keys) or not build_keys:
         raise ValueError("join needs the same number (>= 1) of keys on both sides")
     if strategy is not JoinStrategy.CSR:
         raise NotImplementedError(
             f"the {strategy.name} strategy is not ported (ROADMAP queue 1 item 11)")
     if prepared is not None:
-        raise NotImplementedError("prepared= (a frozen build side) serves streaming "
-                                  "execution, not ported (ROADMAP queue 1 item 12)")
+        if build_valid is not None:
+            raise ValueError("a prepared build side cannot carry a mask")
+        build = prepared.build
     if set(build.schema.names) & set(probe.schema.names):
         raise ValueError("join inputs must have disjoint column names")
     if expanded and join_type not in (JoinType.INNER, JoinType.LEFT_SEMI, JoinType.LEFT_ANTI,
@@ -257,7 +298,8 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
     if expanded and join_type is JoinType.INNER and return_visited:
         raise ValueError("an expanded INNER join returns no visited mask")
 
-    bp, pp = pack_table(build), pack_table(probe)
+    bp = prepared.packed if prepared is not None else pack_table(build, chain)
+    pp = pack_table(probe, chain)
     T = table_size_for(build.capacity)
     probe_ok = probe.row_mask() & _keys_valid(probe, probe_keys)
     if probe_valid is not None:
@@ -268,10 +310,14 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
 
     if plan is not None:
         brows, prows, compares = plan
-        bnarrow = _word_rows(bp, brows)
-        _, bslot = kernels.hash_slot(bnarrow, _hash_cols(compares, 0), T, build.num_rows,
-                                     build_valid)
-        _, _, _, start_count, bsorted = kernels.csr_build(bslot, T, bnarrow)
+        if prepared is not None:   # its key word rows and the row id, in perm order
+            start_count, rows = prepared.start_count, prepared.perm_rows
+            bsorted = torch.stack([rows[r] for r in brows] + [rows[-1]])
+        else:
+            bnarrow = _word_rows(bp, brows)
+            _, bslot = kernels.hash_slot(bnarrow, _hash_cols(compares, 0), T, build.num_rows,
+                                         build_valid)
+            _, _, _, start_count, bsorted = kernels.csr_build(bslot, T, bnarrow)
         pnarrow = _word_rows(pp, prows)
         _, pslot = kernels.hash_slot(pnarrow, _hash_cols(compares, 1), T)
         *_, total, match, probe_idx, build_id = kernels.probe_expand(
@@ -281,9 +327,12 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
         # full fetch: the build's whole rows (float64 sidecars as word pairs)
         # go into perm order with K2 (JAX `_perm_rows`), K9 fetches both
         # sides' rows at every candidate slot and rechecks the keys by value
-        bwords, bcols = key_words([build.column(k) for k in build_keys])
-        _, bslot = kernels.hash_slot(bwords, bcols, T, build.num_rows, build_valid)
-        _, _, _, start_count, bperm = kernels.csr_build(bslot, T, _with_f64_pairs(bp))
+        if prepared is not None:
+            start_count, bperm = prepared.start_count, prepared.perm_rows
+        else:
+            bwords, bcols = key_words([build.column(k) for k in build_keys])
+            _, bslot = kernels.hash_slot(bwords, bcols, T, build.num_rows, build_valid)
+            _, _, _, start_count, bperm = kernels.csr_build(bslot, T, _with_f64_pairs(bp))
         pwords, pcols = key_words([probe.column(k) for k in probe_keys])
         _, pslot = kernels.hash_slot(pwords, pcols, T)
         start, _, base, total = kernels.probe_ranges(pslot, probe_ok, start_count)
@@ -294,8 +343,8 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
         gp = PackedTable(out_p, dict(zip(pp.layout.f64_fields, out_pf)), pp.layout)
         inner_expanded = expanded and join_type is JoinType.INNER
         if residual is not None or inner_expanded:
-            pairs = hstack_tables(unpack_table(gb, build.schema, out_cap),
-                                  unpack_table(gp, probe.schema, out_cap), out_cap)
+            pairs = hstack_tables(unpack_table(gb, build.schema, out_cap, chain),
+                                  unpack_table(gp, probe.schema, out_cap, chain), out_cap)
             if residual is not None:
                 rvals, rvalid = residual(pairs)
                 match = match & rvalid & rvals.to(torch.bool)
@@ -304,8 +353,10 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
 
     visited = probe_matched = None
     if join_type in _READS_VISITED or join_type in _READS_PROBE_MATCHED or return_visited:
-        visited, probe_matched = kernels.match_flags(match, build_id, probe_idx,
-                                                     build.capacity, probe.capacity)
+        flag_args = (match, build_id, probe_idx, build.capacity, probe.capacity)
+        if visited_into is not None:
+            flag_args += (visited_into,)
+        visited, probe_matched = kernels.match_flags(*flag_args)
     # each side's live rows, made only where the join type reads them (an
     # INNER join reads neither: XLA drops them as dead code in JAX)
     def build_in() -> torch.Tensor:
@@ -335,8 +386,8 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
             n = n_match.to(torch.int32)
         else:            # full fetch: both sides compact in ONE K5 launch
             (cb, cp), n = compact_rows([gb, gp], match, out_cap, chain)
-        return hstack_tables(unpack_table(cb, build.schema, n),
-                             unpack_table(cp, probe.schema, n), n)
+        return hstack_tables(unpack_table(cb, build.schema, n, chain),
+                             unpack_table(cp, probe.schema, n, chain), n)
 
     def unmatched_build() -> DeviceTable:
         ub = filter_rows(build, build_in() & ~visited, chain)
@@ -349,7 +400,7 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
                              up.num_rows)
 
     def concat(parts):
-        return concat_tables(parts, kernels.concat_rows)
+        return concat_tables(parts, kernels.concat_rows, chain)
 
     if join_type is JoinType.INNER:
         result = pairs_table()

@@ -78,8 +78,8 @@ def sort_table(t: DeviceTable, keys: List[SortKey],
                kernels: ChainKernels = KERNELS) -> DeviceTable:
     perm = kernels.radix_sort(*sort_operands(t, keys))
     # rows past num_rows (the padding, sorted last) come back as zeros
-    return unpack_table(pack_table(t).take_rows(perm, t.num_rows, kernels), t.schema,
-                        t.num_rows)
+    return unpack_table(pack_table(t, kernels).take_rows(perm, t.num_rows, kernels), t.schema,
+                        t.num_rows, kernels)
 
 
 def limit_table(t: DeviceTable, n: int) -> DeviceTable:

@@ -10,9 +10,20 @@ device tensor, the executor reads them all in one host sync, grows the
 capacities that overflowed and runs again (run -> check -> grow), and
 shrinks oversized ones for the next run (deferred, bounded to 64x a step).
 Large multi-join plans run staged, join by join, under the JAX package's
-rule. Plans the JAX executor would stream or partition out of core raise
-NotImplementedError (ROADMAP queue 1 item 12); a device out-of-memory error
-propagates, since there is no out-of-core path to fall back to.
+rule.
+
+Out of core, under the JAX package's rules and env variables
+(runtime/executor.py:231-367 there): when the biggest scan's live upload
+passes DFP_STREAM_THRESHOLD_BYTES (6 GiB) or its rows
+DFP_STREAM_ROW_THRESHOLD (2^26), the plan streams that scan in chunks
+(runtime/streaming.py, after a build/probe side-swap where needed) or,
+where no row-range stream exists, partitions every big scan by join-key
+hash (runtime/grace.py; DFP_FORCE_GRACE tries it first). A device
+out-of-memory error (`torch.OutOfMemoryError`, and only that) on the
+resident path, or in the streamed one, retries out of core after the
+cached device tables are released and `torch.cuda.empty_cache()`; every
+other error propagates. DFP_NO_STREAM and DFP_NO_GRACE switch the two
+paths off.
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ from ..ops.join import KERNELS as JOIN_KERNELS
 from ..ops.join import JoinKernels
 from ..utils.catalog import Catalog
 from ..utils.columnar import DeviceTable, HostTable, round_capacity
+from .grace import plan_grace, run_grace
+from .streaming import ChunkUploader, plan_stream, run_streamed, stream_upload_bytes
 
 # don't shrink small overshoots: below this capacity the memory freed is
 # not worth a changed capacity
@@ -40,9 +53,13 @@ _SHRINK_FLOOR = 1 << 20
 
 
 class ExecutorMetrics:
-    """Per-query metrics: runs (`launches`, one per plan or stage run),
-    grow retries, the settled capacities, seconds spent running, whether the
-    last run was staged."""
+    """Per-query metrics: runs (`launches`, one per plan, stage, chunk or
+    partition run), grow retries, the settled capacities, seconds spent
+    running, whether the last run was staged, the route it took
+    ("resident", "streamed", "streamed after a side-swap", "grace agg",
+    "grace union", "grace mask"), and out of core the chunks or partitions
+    run (`streamed_chunks`), the seconds of host packing (`host_pack_s`)
+    and of issuing the uploads (`upload_s`)."""
 
     def __init__(self):
         self.launches = 0
@@ -50,6 +67,10 @@ class ExecutorMetrics:
         self.run_time_s = 0.0
         self.join_caps: Dict[int, int] = {}
         self.staged = False
+        self.route = "resident"
+        self.streamed_chunks = 0
+        self.host_pack_s = 0.0
+        self.upload_s = 0.0
 
 
 def _debug_retry(kind, key, node, cap, total, fit):
@@ -85,6 +106,8 @@ class QueryHandle:
         self._caps: Dict[int, int] = {}
         self._caps_loaded = False
         self._sub_handles = None   # cached scalar-subquery QueryHandles
+        self._uploader = None      # out-of-core host buffers, made at first use
+        self._swapped = False      # a side-swap made the plan streamable
 
     # -- learned-capacity persistence ----------------------------------------
     # the settled capacities per (plan, input sizes), so that later processes
@@ -142,13 +165,15 @@ class QueryHandle:
                     live.get(node.label) or set())
         return per_table
 
-    def _leaf_tables(self) -> Dict[str, DeviceTable]:
+    def _leaf_tables(self, skip_labels=()) -> Dict[str, DeviceTable]:
         """Upload each scan's LIVE columns only, one upload per table (the
-        union over its labels), cached on the registration."""
+        union over its labels), cached on the registration.
+        `skip_labels`: scans left out (streamed in chunks instead)."""
         per_table = self._live_columns()
         tables = {}
         for node in self.plan.walk():
-            if isinstance(node, PScan) and node.label not in tables:
+            if isinstance(node, PScan) and node.label not in tables \
+                    and node.label not in skip_labels:
                 reg = self.catalog.get(node.table_name)
                 cols = per_table[node.table_name] & set(reg.host.schema.names)
                 if not cols:
@@ -157,27 +182,6 @@ class QueryHandle:
                 tables[node.label] = dev.rename(
                     {c: f"{node.label}.{c}" for c in dev.schema.names})
         return tables
-
-    def _check_resident(self):
-        """Raise where the JAX executor would stream the biggest scan or
-        partition the plan out of core (its thresholds,
-        runtime/executor.py:245-307): not ported."""
-        if os.environ.get("DFP_NO_STREAM"):
-            return
-        scans = [n for n in self.plan.walk() if isinstance(n, PScan)]
-        if not scans:
-            return
-        big = max(scans, key=lambda s: self.catalog.get(s.table_name).host.num_rows)
-        reg = self.catalog.get(big.table_name)
-        live = self._live_columns().get(big.table_name) or set(reg.host.schema.names)
-        upload = sum(v.nbytes + valid.nbytes
-                     for n, (v, valid) in reg.host.columns.items() if n in live)
-        threshold = int(os.environ.get("DFP_STREAM_THRESHOLD_BYTES", 6 << 30))
-        row_threshold = int(os.environ.get("DFP_STREAM_ROW_THRESHOLD", 1 << 26))
-        if upload > threshold or reg.host.num_rows > row_threshold:
-            raise NotImplementedError(
-                f"{big.table_name} ({reg.host.num_rows} rows, {upload} bytes live) needs "
-                "streamed or out-of-core execution, not ported (ROADMAP queue 1 item 12)")
 
     # -- execution --------------------------------------------------------------
     def run(self) -> DeviceTable:
@@ -201,8 +205,116 @@ class QueryHandle:
         adaptive = find_adaptive(self.plan)
         if not self._caps_loaded:
             self._load_caps(adaptive)
-        self._check_resident()
-        return self._run_resident(adaptive)
+        self.metrics.route = "resident"
+
+        # Morsel streaming: when the biggest scan's upload alone breaks the
+        # device budget and it reaches the top aggregate row-linearly,
+        # chunk it through the plan instead of materializing it
+        sp = None
+        if not os.environ.get("DFP_NO_STREAM"):
+            need_stream = self._need_stream()
+            if need_stream and os.environ.get("DFP_FORCE_GRACE"):
+                # skip the streamed attempt outright (plans whose resident
+                # stream set is known to break the device)
+                gp = self._plan_grace()
+                if gp is not None:
+                    return self._run_grace(gp, adaptive)
+            sp = plan_stream(self.plan, self.catalog)
+            if sp is None and need_stream:
+                # side-swap rule: flip joins whose BUILD side carries the
+                # stream candidate so the big table probes
+                sp = plan_stream(self.plan, self.catalog, allow_swap=True)
+                self._swapped = self._swapped or sp is not None
+            if sp is not None and need_stream:
+                return self._stream_or_grace(sp, adaptive)
+            if sp is None and need_stream:
+                # self-joins of the big table (Q2/Q17/Q18/Q21): no row-range
+                # stream exists; grace-partition every big scan by join key
+                gp = self._plan_grace()
+                if gp is not None:
+                    return self._run_grace(gp, adaptive)
+
+        gp = None
+        try:
+            return self._run_resident(adaptive)
+        except torch.OutOfMemoryError:
+            # a device out-of-memory error downgrades to the out-of-core
+            # path when one exists
+            if sp is None and not os.environ.get("DFP_NO_STREAM"):
+                # resident ran out of memory: the side-swap is now justified
+                # even if the size trigger didn't fire
+                sp = plan_stream(self.plan, self.catalog, allow_swap=True)
+                self._swapped = self._swapped or sp is not None
+                if sp is None:
+                    gp = self._plan_grace()
+            if sp is None and gp is None:
+                raise
+        # out of the except block, so the failed run's tensors are freed
+        self._drop_device_caches()
+        if gp is not None:
+            return self._run_grace(gp, adaptive)
+        return self._stream_or_grace(sp, adaptive)
+
+    def _stream_or_grace(self, sp, adaptive) -> DeviceTable:
+        """The streamed run; if its RESIDENT set (the frozen builds) breaks
+        the device, key-hash partitioning, which bounds every side."""
+        try:
+            # the leaf upload itself can run out of memory, so it sits
+            # inside the fallback scope
+            return self._run_streamed(sp, adaptive)
+        except torch.OutOfMemoryError:
+            gp = self._plan_grace()
+            if gp is None:
+                raise
+        self._drop_device_caches()
+        return self._run_grace(gp, adaptive)
+
+    def _need_stream(self) -> bool:
+        """The stream trigger, decided from the biggest scan directly (the
+        candidate plan_stream picks): its live upload past
+        DFP_STREAM_THRESHOLD_BYTES or its rows past
+        DFP_STREAM_ROW_THRESHOLD."""
+        scans = [n for n in self.plan.walk() if isinstance(n, PScan)]
+        if not scans:
+            return False
+        big = max(scans, key=lambda s: self.catalog.get(s.table_name).host.num_rows)
+        live_big = self._live_columns().get(big.table_name)
+        threshold = int(os.environ.get("DFP_STREAM_THRESHOLD_BYTES", 6 << 30))
+        row_threshold = int(os.environ.get("DFP_STREAM_ROW_THRESHOLD", 1 << 26))
+        return (stream_upload_bytes(self.catalog, big.table_name, live_big) > threshold
+                or self.catalog.get(big.table_name).host.num_rows > row_threshold)
+
+    def uploader(self) -> ChunkUploader:
+        """The handle's out-of-core host buffers and copy stream."""
+        if self._uploader is None:
+            self._uploader = ChunkUploader(self.catalog.device)
+        return self._uploader
+
+    def _run_streamed(self, sp, adaptive) -> DeviceTable:
+        self.metrics.route = "streamed after a side-swap" if self._swapped else "streamed"
+        live = self._live_columns().get(sp.scan.table_name)
+        resident = self._leaf_tables(skip_labels=(sp.scan.label,))
+        return run_streamed(self, sp, resident, live, adaptive)
+
+    def _drop_device_caches(self):
+        """Release every registration's cached device tables so an
+        out-of-core retry starts with free device memory."""
+        for node in self.plan.walk():
+            if isinstance(node, PScan):
+                self.catalog.get(node.table_name).release_device()
+        if self.catalog.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _plan_grace(self):
+        if os.environ.get("DFP_NO_GRACE"):
+            return None
+        row_threshold = int(os.environ.get("DFP_STREAM_ROW_THRESHOLD", 1 << 26))
+        gp, _ = plan_grace(self.plan, self.catalog, row_threshold)
+        return gp
+
+    def _run_grace(self, gp, adaptive) -> DeviceTable:
+        self.metrics.route = f"grace {gp.kind}"
+        return run_grace(self, gp, adaptive)
 
     def _settle(self, pairs, totals) -> bool:
         """Grow every capacity whose total overflowed (True if any did);

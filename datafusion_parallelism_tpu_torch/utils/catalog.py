@@ -2,9 +2,12 @@
 
 Copied from the JAX package's `utils/catalog.py` (analog of reference
 StaticTable, which carries exact synthetic Statistics to steer the
-optimizer — reference src/utils/static_table.rs:45-140). The one change:
-a `Catalog` is given the device its tables live on, and
-`RegisteredTable.device()` / `device_subset()` upload there."""
+optimizer — reference src/utils/static_table.rs:45-140). The changes: a
+`Catalog` is given the device its tables live on, and
+`RegisteredTable.device()` / `device_subset()` upload there;
+`release_device()` drops the cached device tables (the out-of-core
+fallback frees the device before it retries); `grace_parts` is the grace
+host partition pass's cache, per (column, K)."""
 
 from __future__ import annotations
 
@@ -28,6 +31,10 @@ class RegisteredTable:
         self.target_device = device
         self.statistics = statistics or Statistics(row_count=host.num_rows)
         self._device: Optional[DeviceTable] = None
+        self._device_subsets: Dict[frozenset, DeviceTable] = {}
+        # (partition column, K) -> (row order, partition bounds, largest
+        # partition) of runtime/grace.py's host partition pass
+        self.grace_parts: Dict[tuple, tuple] = {}
 
     def distinct_of(self, col) -> int:
         """Distinct count for a column or a TUPLE of columns (composite join
@@ -91,8 +98,6 @@ class RegisteredTable:
         if frozenset(self.host.schema.names) <= cols or \
                 self._device is not None:
             return self.device()
-        if not hasattr(self, "_device_subsets"):
-            self._device_subsets: Dict[frozenset, DeviceTable] = {}
         cached = self._device_subsets.get(cols)
         if cached is None:
             # evict other layouts: stale subsets from earlier queries would
@@ -106,6 +111,12 @@ class RegisteredTable:
             cached = sub.to_device(device=self.target_device)
             self._device_subsets[cols] = cached
         return cached
+
+    def release_device(self):
+        """Drop the cached device tables (the whole table and the column
+        subsets); the next use uploads again."""
+        self._device = None
+        self._device_subsets.clear()
 
 
 class Catalog:

@@ -27,9 +27,6 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-_M32 = 0xFFFFFFFF
-
-
 def round_capacity(n: int, minimum: int = 128) -> int:
     """Round a row count up to the next power of two; above 64M rows, to the
     next multiple of 4M (a power of two would waste up to 2x of device
@@ -490,23 +487,25 @@ def compact_rows(pts: Sequence[PackedTable], mask: torch.Tensor, out_cap: int,
 
 def filter_rows(t: "DeviceTable", mask: torch.Tensor, kernels=None) -> "DeviceTable":
     """Compact rows where mask is True to the front (stable order)."""
-    (pt,), n = compact_rows([pack_table(t)], mask, t.capacity, kernels)
-    return unpack_table(pt, t.schema, n)
+    (pt,), n = compact_rows([pack_table(t, kernels)], mask, t.capacity, kernels)
+    return unpack_table(pt, t.schema, n, kernels)
 
 
-def concat_tables(parts: Sequence[DeviceTable], concat_rows=None) -> DeviceTable:
+def concat_tables(parts: Sequence[DeviceTable], concat_rows=None,
+                  kernels=None) -> DeviceTable:
     """Stack tables with identical schemas: each part's valid rows, in
     order, at the front of a table of capacity sum(cap); the rest read
-    NULL. Each part is packed and all go through ONE K11 launch
-    (`concat_rows`, kernels/concat_rows.py's wrapper by default)."""
+    NULL. Each part is packed (K12 through `kernels`) and all go through
+    ONE K11 launch (`concat_rows`, kernels/concat_rows.py's wrapper by
+    default)."""
     if concat_rows is None:
         from ..kernels.concat_rows import concat_rows
-    pts = [pack_table(p) for p in parts]
+    pts = [pack_table(p, kernels) for p in parts]
     words, f64, n = concat_rows([(pt.packed, f64_matrix(pt), p.num_rows)
                                  for pt, p in zip(pts, parts)])
     layout = pts[0].layout
     return unpack_table(PackedTable(words, dict(zip(layout.f64_fields, f64)), layout),
-                        parts[0].schema, n)
+                        parts[0].schema, n, kernels)
 
 
 def gather_table(t: "DeviceTable", indices: torch.Tensor, new_num_rows,
@@ -514,8 +513,8 @@ def gather_table(t: "DeviceTable", indices: torch.Tensor, new_num_rows,
     """New table of capacity len(indices): row j = t[indices[j]], as pack ->
     ONE K5 row gather -> unpack. (The JAX package's `row_valid` argument,
     for outer-join padding, is not ported: ROADMAP queue 1 item 6.)"""
-    return unpack_table(pack_table(t).take_rows(indices, None, kernels), t.schema,
-                        new_num_rows)
+    return unpack_table(pack_table(t, kernels).take_rows(indices, None, kernels), t.schema,
+                        new_num_rows, kernels)
 
 
 def packed_layout(schema: Schema) -> PackedLayout:
@@ -541,52 +540,88 @@ def int64_words(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return v.to(torch.int32), (v >> 32).to(torch.int32)
 
 
-def pack_table(t: DeviceTable) -> PackedTable:
-    """All columns + validity bitmask in one [W, cap] int32 matrix (float64
-    columns ride alongside)."""
-    layout = packed_layout(t.schema)
-    cap = t.capacity
-    cols = []
+def pack_host_slice(t: HostTable, names, lo: int, n: int, cap: int,
+                    rename_prefix: str = "", rows=None, out=None):
+    """Numpy mirror of pack_table over host rows [lo, lo+n), padded to `cap`:
+    ONE [W, cap] int32 matrix (+ separate f64 columns) so a streamed chunk
+    crosses the host->device link as a single transfer instead of one
+    padded upload per column.
+
+    `rows` (optional int array, len n): select THESE rows instead of the
+    contiguous [lo, lo+n) range — grace-partitioned streaming packs a
+    key-hash partition, whose row set is scattered across the table.
+
+    `out` (optional (words [W, cap] int32, f64 [F, cap] float64) numpy
+    arrays, e.g. views of pinned host buffers that are used again): pack
+    into them instead of new arrays; the f64s returned are their rows.
+
+    Returns (schema, layout, packed, f64s); the device side reconstructs the
+    chunk with unpack_table."""
+    fields = [f.with_name(rename_prefix + f.name)
+              for f in t.schema.fields if f.name in names]
+    schema = Schema(fields)
+    layout = packed_layout(schema)
+    strip = len(rename_prefix)
+
+    def take(arr):
+        if rows is not None:
+            return np.asarray(arr)[rows]
+        return np.asarray(arr[lo:lo + n])
+
+    if out is None:
+        packed = np.zeros((layout.width, cap), np.int32)
+        f64_rows = np.zeros((len(layout.f64_fields), cap), np.float64)
+    else:
+        packed, f64_rows = out
+        packed[:, n:] = 0
+        f64_rows[:, n:] = 0
     f64s = {}
-    for name, kind, _, _ in layout.fields:
-        v, _ = t.columns[name]
+    for name, kind, slot, nw in layout.fields:
+        v, _ = t.columns[name[strip:]]
+        v = take(v)
         if kind is Kind.FLOAT64:
-            f64s[name] = v
-        elif kind in (Kind.INT64, Kind.DECIMAL):
-            cols += list(int64_words(v))
+            out_row = f64_rows[len(f64s)]
+            out_row[:n] = v
+            f64s[name] = out_row
+        elif nw == 2:
+            vv = v.astype(np.int64, copy=False)
+            packed[slot, :n] = (vv & np.int64(0xFFFFFFFF)).astype(
+                np.uint32).view(np.int32)
+            packed[slot + 1, :n] = (vv >> np.int64(32)).astype(np.int32)
         elif kind is Kind.FLOAT32:
-            cols.append(v.view(torch.int32))
-        else:  # int32/date32/string codes/bool
-            cols.append(v.to(torch.int32))
+            packed[slot, :n] = v.view(np.int32)
+        else:
+            packed[slot, :n] = v.astype(np.int32, copy=False)
     n_fields = len(layout.fields)
     for w in range((n_fields + 31) // 32):
-        word = torch.zeros(cap, dtype=torch.int64, device=t.device)
+        word = np.zeros(n, np.uint32)
         for j in range(w * 32, min((w + 1) * 32, n_fields)):
-            _, valid = t.columns[layout.fields[j][0]]
-            word |= valid.to(torch.int64) << (j - w * 32)
-        cols.append(word.to(torch.int32))
-    return PackedTable(torch.stack(cols, dim=0), f64s, layout)
+            _, valid = t.columns[layout.fields[j][0][strip:]]
+            word |= (take(valid).astype(np.uint32)
+                     << np.uint32(j - w * 32))
+        packed[layout.valid_base + w, :n] = word.view(np.int32)
+        packed[layout.valid_base + w, n:] = 0
+    return schema, layout, packed, f64s
 
 
-def unpack_table(pt: PackedTable, schema: Schema, num_rows) -> DeviceTable:
-    """Inverse of pack_table over (possibly gathered) packed rows."""
-    packed, layout = pt.packed, pt.layout
+def pack_table(t: DeviceTable, kernels=None) -> PackedTable:
+    """All columns + validity bitmask in one [W, cap] int32 matrix (float64
+    columns ride alongside), through K12's pack (`kernels`, a
+    kernels/chain.py ChainKernels, its KERNELS when None)."""
+    layout = packed_layout(t.schema)
+    cols = [t.columns[name] for name, _, _, _ in layout.fields]
+    packed = _chain(kernels).pack_rows(layout, cols)
+    f64s = {name: t.columns[name][0] for name in layout.f64_fields}
+    return PackedTable(packed, f64s, layout)
+
+
+def unpack_table(pt: PackedTable, schema: Schema, num_rows, kernels=None) -> DeviceTable:
+    """Inverse of pack_table over (possibly gathered) packed rows, through
+    K12's unpack."""
+    layout = pt.layout
     cols = {}
-    for j, (name, kind, slot, n) in enumerate(layout.fields):
-        if kind is Kind.FLOAT64:
-            v = pt.f64s[name]
-        elif n == 2:
-            lo = packed[slot].long() & _M32
-            hi = packed[slot + 1].long()
-            v = (hi << 32) | lo
-        elif kind is Kind.FLOAT32:
-            v = packed[slot].contiguous().view(torch.float32)
-        elif kind is Kind.BOOL:
-            v = packed[slot] != 0
-        else:
-            v = packed[slot]
-        word = packed[layout.valid_base + j // 32]
-        valid = ((word >> (j % 32)) & 1).to(torch.bool)
-        cols[name] = (v, valid)
+    for (name, _, _, _), (v, valid) in zip(layout.fields,
+                                          _chain(kernels).unpack_rows(layout, pt.packed)):
+        cols[name] = (pt.f64s[name] if v is None else v, valid)
     return DeviceTable(schema, cols,
-                       torch.as_tensor(num_rows, dtype=torch.int32, device=packed.device))
+                       torch.as_tensor(num_rows, dtype=torch.int32, device=pt.packed.device))

@@ -168,14 +168,14 @@ def _residual(t):
 
 
 # the inputs that lay outside the INNER-only slice of the join; the
-# strategies and prepared builds still do (ROADMAP queue 1 items 11-12)
+# strategies still do (ROADMAP queue 1 item 11)
 OUT_OF_SLICE = {
     "left_join": dict(join_type="LEFT"),
     "semi_join": dict(join_type="RIGHT_SEMI"),
     "sort_strategy": dict(strategy="SORT"),
     "oa_strategy": dict(strategy="OA"),
     "residual": dict(residual=_residual),
-    "prepared": dict(prepared=object()),
+    "prepared": dict(prepared=True),
     "expanded": dict(expanded=True),
     "build_valid": dict(build_valid=np.arange(128) % 3 != 0),
     "probe_valid": dict(probe_valid=np.arange(128) % 2 == 0),
@@ -183,14 +183,15 @@ OUT_OF_SLICE = {
     "float_key": dict(keys=(["bf"], ["pf"])),
     "mixed_width_key": dict(keys=(["bw"], ["pk"])),
 }
-STILL_OUT = {"sort_strategy", "oa_strategy", "prepared"}
+STILL_OUT = {"sort_strategy", "oa_strategy"}
 
 
 @pytest.mark.parametrize("case", list(OUT_OF_SLICE))
 def test_out_of_slice_inputs_raise(case):
-    """The strategies and prepared builds raise naming their ROADMAP item;
-    every other input of the former slice boundary now runs and gives the
-    JAX package's rows (and mask or visited flags)."""
+    """The strategies raise naming their ROADMAP item; every other input
+    of the former slice boundary now runs and gives the JAX package's rows
+    (and mask or visited flags); a prepared build is each package's
+    prepare_build of the same table."""
     kw = dict(OUT_OF_SLICE[case])
     jt = kw.pop("join_type", "INNER")
     bk, pk = kw.pop("keys", (["bk"], ["pk"]))
@@ -202,6 +203,9 @@ def test_out_of_slice_inputs_raise(case):
             tjoin.hash_join(b, p, bk, pk, tjoin.JoinType[jt], 128, **kw)
         return
     jkw = dict(kw)
+    if kw.get("prepared"):
+        kw["prepared"] = tjoin.prepare_build(b, bk)
+        jkw["prepared"] = jjoin.prepare_build(_tables(jcol)[0], bk)
     for name in ("build_valid", "probe_valid"):
         if name in kw:
             kw[name], jkw[name] = torch.from_numpy(kw[name]), jnp.asarray(jkw[name])

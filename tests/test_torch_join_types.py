@@ -33,16 +33,21 @@ def _both(build, probe, bkeys, pkeys, jt, out_cap=None, bdtypes=None, pdtypes=No
     jb, jp = _host(jcol, build, bdtypes), _host(jcol, probe, pdtypes)
     tb, tp = _host(tcol, build, bdtypes), _host(tcol, probe, pdtypes)
     jkw, tkw = dict(kw), dict(kw)
+    jkw.pop("visited_into", None)   # the port's accumulate mode; JAX ORs outside
     for name in ("build_valid", "probe_valid"):
         if name in kw:
             jkw[name], tkw[name] = jnp.asarray(kw[name]), torch.from_numpy(kw[name])
     for name in ("residual",):
         if name in kw:
             jkw[name], tkw[name] = kw[name](jnp), kw[name](torch)
-    want = jjoin.hash_join(jb.to_device(bcap), jp.to_device(pcap), bkeys, pkeys,
-                           jjoin.JoinType[jt], cap, **jkw)
-    got = tjoin.hash_join(tb.to_device(bcap, device="cpu"), tp.to_device(pcap, device="cpu"),
-                          bkeys, pkeys, tjoin.JoinType[jt], cap, **tkw)
+    jbd, tbd = jb.to_device(bcap), tb.to_device(bcap, device="cpu")
+    if kw.get("prepared"):   # each package's frozen build of the same rows
+        jkw["prepared"] = jjoin.prepare_build(jbd, bkeys)
+        tkw["prepared"] = tjoin.prepare_build(tbd, bkeys)
+    want = jjoin.hash_join(jbd, jp.to_device(pcap), bkeys, pkeys, jjoin.JoinType[jt], cap,
+                           **jkw)
+    got = tjoin.hash_join(tbd, tp.to_device(pcap, device="cpu"), bkeys, pkeys,
+                          tjoin.JoinType[jt], cap, **tkw)
     return got, want
 
 
@@ -250,3 +255,39 @@ def test_padding_and_overflow_like_jax():
     assert int(got[1]) == int(want[1]) > 256
     assert int(got[0].num_rows) == int(want[0].num_rows)
     assert_rows_equal(got[0].to_host().to_pylist(), want[0].to_host().to_pylist())
+
+
+@pytest.mark.parametrize("keys", ["int", "float", "residual"])
+@pytest.mark.parametrize("jt", TYPES)
+def test_prepared_build_matches_jax(jt, keys):
+    """hash_join(prepared=prepare_build(...)): the frozen build of the
+    streamed and grace paths (K1 + K2 once, its rows in perm order kept),
+    on the deferred path (int keys), the full-fetch path (float keys) and
+    with a residual, equal to the JAX package's and the oracle's rows."""
+    build = [{"bk": r["k"], "bv": r["v"]} for r in make_rows(57, 20, 11, nulls=True)]
+    probe = [{"pk": r["k"], "pv": r["v"]} for r in make_rows(91, 20, 12, nulls=True)]
+    kw, residual_rows = {}, None
+    if keys == "float":
+        for r in build:
+            r["bk"] = None if r["bk"] is None else r["bk"] * 0.5
+        for r in probe:
+            r["pk"] = None if r["pk"] is None else r["pk"] * 0.5
+    elif keys == "residual":
+        kw["residual"] = _parity_residual
+        residual_rows = lambda r: (r["bv"] + r["pv"]) % 2 == 0   # noqa: E731
+    _check(build, probe, ["bk"], ["pk"], jt, residual_rows, prepared=True, bcap=64, **kw)
+
+
+@pytest.mark.parametrize("jt", ["LEFT", "FULL", "LEFT_SEMI", "LEFT_ANTI"])
+def test_visited_into_is_incoming_or_visited(jt):
+    """visited_into (K10's accumulate mode): the matches ORed into the
+    caller's buffer, as the JAX package's streamed fold `incoming | vis`."""
+    build = [{"bk": r["k"], "bv": r["v"]} for r in make_rows(57, 20, 21)]
+    probe = [{"pk": r["k"], "pv": r["v"]} for r in make_rows(31, 40, 22)]
+    incoming = np.random.default_rng(3).random(64) < 0.3
+    expanded = jt in ("LEFT_SEMI", "LEFT_ANTI")
+    buf = torch.from_numpy(incoming.copy())
+    got, want = _both(build, probe, ["bk"], ["pk"], jt, bcap=64, return_visited=True,
+                      expanded=expanded, visited_into=buf)
+    assert got[-1] is buf
+    np.testing.assert_array_equal(buf.numpy(), incoming | np.asarray(want[-1]))

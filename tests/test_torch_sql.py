@@ -233,13 +233,22 @@ def test_session_refuses_what_is_not_ported():
 
 
 def test_streamed_scale_raises(monkeypatch):
-    """Where the JAX executor would stream or partition out of core, the
-    port raises, naming ROADMAP item 12."""
+    """Where the JAX executor streams a scan out of core, the port does
+    too (it raised before runtime/streaming.py was ported): the 20-row
+    table past a 10-row threshold runs streamed and gives the JAX
+    package's answer."""
     monkeypatch.setenv("DFP_STREAM_ROW_THRESHOLD", "10")
+    data = {"x": list(range(20))}
     ctx = tdfp.SessionContext(device="cpu")
-    ctx.register_pydict("t", {"x": list(range(20))})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ctx.sql("SELECT sum(x) AS s FROM t").collect()
+    ctx.register_pydict("t", data)
+    handle = ctx.sql("SELECT sum(x) AS s FROM t")
+    got = handle.collect().to_pylist()
+    jctx = jdfp.SessionContext()
+    jctx.register_pydict("t", data)
+    jhandle = jctx.sql("SELECT sum(x) AS s FROM t")
+    assert got == jhandle.collect().to_pylist() == [{"s": 190}]
+    assert handle.metrics.route == "streamed"
+    assert handle.metrics.streamed_chunks == jhandle.metrics.streamed_chunks == 1
 
 
 def test_analyze_reports_rows_per_operator():
