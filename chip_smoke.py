@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives `datafusion_parallelism_tpu_torch`'s four main paths through its
-thirteen hand-written CUDA kernels and holds every result against the plain
-torch versions: the single-device INNER CSR hash join (K1-K4), the
+Drives `datafusion_parallelism_tpu_torch`'s five main paths through its
+seventeen hand-written CUDA kernels and holds every result against the
+plain torch versions: the single-device INNER CSR hash join (K1-K4), the
 single-table chain filter -> project -> hash aggregate -> sort -> limit
 (K5-K8, with K1 for multi-column group keys), SQL through
 `SessionContext`: the planner, the eager executor and all eight join types
-(K9-K11 beside K1-K8), and out-of-core execution: morsel streaming and
-grace partitioning (K12 pack_rows packing and unpacking every table and
-chunk, K13 append_rows, K10's accumulate mode). Phases, one line each:
+(K9-K11 beside K1-K8), out-of-core execution: morsel streaming and grace
+partitioning (K12 pack_rows packing and unpacking every table and chunk,
+K13 append_rows, K10's accumulate mode), and the SORT and OA join
+strategies (K14 sorted_probe, K15 oa_place, K16 oa_probe, K6 and K5 in
+their builds, K3's second pass expand_ranges over their ranges); every
+expression of every path is K17 expr_eval. Phases, one line each:
 
   1. build the kernels with nvcc, one process per source, all at once;
      print the card's name and power limit
@@ -21,7 +24,12 @@ chunk, K13 append_rows, K10's accumulate mode). Phases, one line each:
      table size, K1's row mask), every join type, residual, late
      materialized and chain-fused variant through K1-K5 and K9-K11 (2a),
      and at the Size512 join's shapes (2b),
-     where each kernel is also timed against its plain version
+     where each kernel is also timed against its plain version; K14, K15,
+     K16 and K3's expand_ranges on seeded hashes (repeats, null keys,
+     padding, a one-home cluster displaced by thousands of slots) at a
+     power-of-two and a Lemire table size, SORT and OA joins with every
+     stage checked, and K17 on every expression class x dtype with NULLs,
+     division by zero and negative operands (2c)
   3. the `entry()` twin on the card against the same step on the CPU
   4. Size512 (4,194,304 build and probe rows): kernel path == plain path
      word for word, match count == a numpy count, rows/s of both paths
@@ -68,9 +76,16 @@ chunk, K13 append_rows, K10's accumulate mode). Phases, one line each:
      merge, which no query takes at these thresholds); K12 and K13
      launched, and at least one query streamed, one grace agg, one grace
      union and one grace mask
- 15. (run after 16) the largest call of every kernel entry point recorded
-     in phase 14, and the largest K12 pack and unpack, K13 and K10
-     accumulate calls of phase 16, replayed through the kernel and its
+ 17. the 22 TPC-H queries through SQL at SF10 under the SORT strategy,
+     then under OA, run on the card while phase 14's oracle computes: one
+     collect() settles, the median of 3 timed ones and the peak over the
+     tables already held, beside phase 14's CSR numbers; each result == the oracle's answer; then Q3
+     (streamed) and Q18 (grace agg) under OOC_ENV, each == the oracle; K14
+     launched under SORT, K15 and K16 under OA, K17 under both
+ 15. (run after 17) the largest call of every kernel entry point recorded
+     in phase 14, the largest K12 pack and unpack, K13 and K10 accumulate
+     calls of phase 16 and the largest K14-K16 and SORT/OA build-sort
+     calls of phase 17, replayed through the kernel and its
      plain version: equal, and timed beside its bound (bytes moved at
      3.35 TB/s) and, where one PyTorch call computes the same function,
      that call
@@ -82,8 +97,8 @@ rtol 1e-9).
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels with their launches
-(in phase 14, K12 and K13 in phase 16) and phase 15's errors, times and
-bounds. Without a CUDA device
+(in phase 14, K12 and K13 in phase 16, K14-K16 in phase 17) and phase
+15's errors, times and bounds. Without a CUDA device
 the script exits non-zero and prints no result.
 """
 
@@ -134,9 +149,23 @@ KERNEL_INFO = {
                   "datafusion_parallelism_tpu/utils/columnar.py:753"),
     "append_rows": ("datafusion_parallelism_tpu_torch/csrc/append_rows.cu",
                     "datafusion_parallelism_tpu/runtime/grace.py:544"),
+    "sorted_probe": ("datafusion_parallelism_tpu_torch/csrc/sorted_probe.cu",
+                     "datafusion_parallelism_tpu/ops/hash_table.py:257"),
+    "oa_place": ("datafusion_parallelism_tpu_torch/csrc/oa_place.cu",
+                 "datafusion_parallelism_tpu/ops/hash_table.py:142"),
+    "oa_probe": ("datafusion_parallelism_tpu_torch/csrc/oa_probe.cu",
+                 "datafusion_parallelism_tpu/ops/hash_table.py:180"),
+    "expr_eval": ("datafusion_parallelism_tpu_torch/csrc/expr_eval.cu",
+                  "datafusion_parallelism_tpu/ops/expressions.py:84"),
 }
 # the kernels only the out-of-core path (phase 16) launches
 OOC_KERNELS = ("append_rows",)
+# the kernels only the SORT and OA strategies (phase 17) launch
+STRATEGY_KERNELS = ("sorted_probe", "oa_place", "oa_probe")
+# the entry points whose largest calls phase 15 takes from phase 17
+STRATEGY_ENTRIES = {("join", "sorted_probe"), ("join", "oa_place"), ("join", "oa_probe"),
+                    ("join", "table_sort"), ("join", "table_sort_oa")}
+STRATEGY_TIMED_RUNS = 3
 # the entry points whose largest calls phase 15 takes from phase 16
 OOC_ENTRIES = {("chain", "pack_rows"), ("chain", "unpack_rows"), ("chain", "append_rows"),
                ("join", "match_flags_acc")}
@@ -179,7 +208,11 @@ def max_abs_err(got, want) -> float:
     are equal bit for bit (floats compared as their bits)."""
     import torch
     worst = 0.0
-    for a, b in zip(_flat(got), _flat(want), strict=True):
+
+    def tensors(x):   # a JoinTable's strategy tag is no tensor
+        return [t for t in _flat(x) if isinstance(t, torch.Tensor)]
+
+    for a, b in zip(tensors(got), tensors(want), strict=True):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"shape/dtype {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
         if a.numel() == 0:
@@ -428,6 +461,265 @@ def join_variants(rng, n, device):
     return labels
 
 
+def _strategy_hashes(rng, cap, T, device):
+    """(hashes int32[cap], ok bool[cap]) for the SORT/OA builds: hashes
+    drawn from cap/2 values (repeats), a 6,000-row cluster of hashes that
+    share the home slot T // 3 (displaced by thousands of slots under OA),
+    10% null keys and the last eighth past num_rows."""
+    import torch
+    h = rng.choice(rng.integers(0, 1 << 32, cap // 2, dtype=np.uint64), cap)
+    home = T // 3
+    if T & (T - 1) == 0:                          # the hashes whose slot_of is `home`
+        cluster = home + T * rng.integers(0, (1 << 32) // T, 6000, dtype=np.uint64)
+    else:
+        cluster = rng.integers(-(-home * (1 << 32) // T), -(-(home + 1) * (1 << 32) // T),
+                               6000, dtype=np.uint64)
+    h[rng.choice(cap, 6000, replace=False)] = cluster
+    ok = rng.random(cap) >= 0.10
+    ok[cap - cap // 8:] = False
+    as_i32 = h.astype(np.uint32).view(np.int32)
+    return (torch.from_numpy(as_i32.copy()).to(device), torch.from_numpy(ok).to(device),
+            as_i32)
+
+
+def phase_strategy_kernels_vs_plain(device, n: int = 1 << 18) -> None:
+    """Phase 2c: K14-K16 and K3's ranges entry against their plain versions
+    on seeded hashes (repeats, null keys, padding, a one-home cluster), at
+    a power-of-two and a Lemire table size; the SORT and OA joins with
+    every stage checked; K17 on every expression class x dtype."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import filter_compact as k5
+    from datafusion_parallelism_tpu_torch.kernels import oa_place as k15
+    from datafusion_parallelism_tpu_torch.kernels import oa_probe as k16
+    from datafusion_parallelism_tpu_torch.kernels import probe_expand as k3
+    from datafusion_parallelism_tpu_torch.kernels import radix_sort as k6
+    from datafusion_parallelism_tpu_torch.kernels import sorted_probe as k14
+    from datafusion_parallelism_tpu_torch.ops.hash_table import (oa_table_rows, slot_of,
+                                                                 sort_table_rows, table_size_for)
+    rng = np.random.default_rng(14)
+    lines = []
+    for cap in (n, 3 * (n // 4)):                 # T = 4 cap: a power of two, then not
+        T = table_size_for(cap)
+        h, ok, h_np = _strategy_hashes(rng, cap, T, device)
+        rows = torch.stack([h, ok.to(torch.int32)])          # key word, validity word
+        home = slot_of(h, T)
+        sort_k = sort_table_rows(h, ok, rows, k6.radix_sort, k5.gather_rows)
+        with no_launches():
+            sort_p = sort_table_rows(h, ok, rows, k6.radix_sort_plain, k5.gather_rows_plain)
+        max_abs_err(sort_k, sort_p)
+        oa_k = oa_table_rows(h, home, ok, T, rows, k6.radix_sort, k15.oa_place, k5.gather_rows)
+        with no_launches():
+            oa_p = oa_table_rows(h, home, ok, T, rows, k6.radix_sort_plain, k15.oa_place_plain,
+                                 k5.gather_rows_plain)
+        max_abs_err(oa_k, oa_p)
+        # the cluster's displacement: its farthest row's slot past the home slot
+        pos = torch.nonzero(oa_k[0].sorted_hash != 0).flatten()
+        in_cluster = home[oa_k[0].perm[pos].long()] == T // 3
+        displaced = int((pos[in_cluster] - T // 3).max())
+        if displaced < 1000:
+            raise AssertionError(f"the one-home cluster reached only {displaced} slots past home")
+        # probe rows: build hashes, cluster hashes, unknown hashes; nulls
+        m = cap // 2
+        ph_np = np.where(rng.random(m) < 0.7, rng.choice(h_np, m),
+                         rng.integers(-(1 << 31), 1 << 31, m).astype(np.int32))
+        ph = torch.from_numpy(ph_np.astype(np.int32)).to(device)
+        pok = torch.from_numpy(rng.random(m) >= 0.05).to(device)
+        pwords = torch.stack([ph, pok.to(torch.int32)])
+        compares = [([0], [0], (1, 0), (1, 0))]
+        sh, slots = sort_k[0].sorted_hash, oa_k[0].sorted_hash
+        for label, trows, probe, plain in (
+                ("SORT", sort_k[1], lambda: k14.sorted_probe(ph, pok, sh),
+                 lambda: k14.sorted_probe_plain(ph, pok, sh)),
+                ("OA", oa_k[1], lambda: k16.oa_probe(slot_of(ph, T), ph, pok, slots),
+                 lambda: k16.oa_probe_plain(slot_of(ph, T), ph, pok, slots))):
+            ranges = probe()
+            with no_launches():
+                max_abs_err(ranges, plain())
+            out_cap = int(ranges[3]) + 17
+            got = k3.expand_ranges(*ranges, pwords, trows, compares, out_cap)
+            with no_launches():
+                max_abs_err(got, k3.expand_ranges_plain(*ranges, pwords, trows, compares,
+                                                        out_cap))
+            lines.append(f"{label} T={T}: {int(ranges[3])} candidates, "
+                         f"{int(got[0].sum())} matches")
+        lines.append(f"OA T={T}: cluster displaced {displaced} slots")
+    lines += strategy_join_variants(rng, n // 4, device)
+    lines.append(expr_kernel_vs_plain(rng, device))
+    log("phase 2c ok: K14 sorted_probe, K15 oa_place, K16 oa_probe, K3's expand_ranges and "
+        "the SORT/OA builds (K6, K5) == plain, exact; " + "; ".join(lines))
+
+
+def strategy_join_variants(rng, n, device):
+    """Joins under SORT and OA, every stage run through the kernel and its
+    plain version (Checked), equal to the plain path word for word."""
+    from datafusion_parallelism_tpu_torch.kernels.chain import KERNELS as CHAIN
+    from datafusion_parallelism_tpu_torch.kernels.chain import PLAIN as CHAIN_PLAIN
+    from datafusion_parallelism_tpu_torch.kernels.chain import ChainKernels
+    from datafusion_parallelism_tpu_torch.ops.expressions import BinOp, Col, evaluate
+    from datafusion_parallelism_tpu_torch.ops.hash_table import JoinStrategy
+    from datafusion_parallelism_tpu_torch.ops.join import (PLAIN, JoinType, hash_join,
+                                                           prepare_build)
+    from datafusion_parallelism_tpu_torch.utils.columnar import HostTable
+
+    def checked_chain():
+        def stage(kernel, plain):
+            def run(*args):
+                got = kernel(*args)
+                entry_err(kernel.__name__, args, got, plain(*args))
+                return got
+            return run
+        return ChainKernels(*(stage(k, p) for k, p in zip(CHAIN, CHAIN_PLAIN)))
+
+    keys = rng.integers(0, n // 4, n)
+    b = HostTable.from_numpy({"bk": keys.astype(np.int32), "bf": keys * 0.5,
+                              "bv": rng.random(n)}, validity={"bk": rng.random(n) >= 0.1})
+    pkeys = rng.integers(0, n // 4, n)
+    p = HostTable.from_numpy({"pk": pkeys.astype(np.int32), "pf": pkeys * 0.5,
+                              "pv": rng.random(n)}, validity={"pk": rng.random(n) >= 0.1})
+    build, probe = b.to_device(n + n // 3, device=device), p.to_device(device=device)
+    below = BinOp("<", Col("bv"), Col("pv"))
+    labels = []
+    for strategy in (JoinStrategy.SORT, JoinStrategy.OA):
+        chain = checked_chain()
+        residual = lambda pair, c=chain: evaluate([below], pair, c)[0][:2]   # noqa: E731
+        cases = [("INNER", ["bk"], ["pk"], {}), ("FULL", ["bk"], ["pk"], {}),
+                 ("LEFT residual", ["bk"], ["pk"], {"residual": residual}),
+                 ("RIGHT_SEMI float64 keys", ["bf"], ["pf"], {}),
+                 ("LEFT_ANTI expanded", ["bk"], ["pk"], {"expanded": True}),
+                 ("INNER prepared", ["bk"], ["pk"], {"prepared": True})]
+        for label, bk, pk, kw in cases:
+            jt = JoinType[label.split()[0]]
+            kw_k, kw_p = dict(kw), dict(kw)
+            if kw.get("prepared"):
+                kw_k["prepared"] = prepare_build(build, bk, strategy, Checked().stages, chain)
+                with no_launches():
+                    kw_p["prepared"] = prepare_build(build, bk, strategy, PLAIN, CHAIN_PLAIN)
+            if "residual" in kw:
+                kw_p["residual"] = lambda pair: evaluate([below], pair, CHAIN_PLAIN)[0][:2]
+            got = hash_join(build, probe, bk, pk, jt, 4 * n, strategy, kernels=Checked().stages,
+                            chain=chain, **kw_k)
+            with no_launches():
+                want = hash_join(build, probe, bk, pk, jt, 4 * n, strategy, kernels=PLAIN,
+                                 chain=CHAIN_PLAIN, **kw_p)
+            tables_equal(got[0], want[0])
+            max_abs_err(got[1:], want[1:])
+            rows = int(got[1].sum()) if kw.get("expanded") else int(got[0].num_rows)
+            labels.append(f"{strategy.name} {label} {rows} rows")
+    return labels
+
+
+def _expr_table(rng, n, device):
+    """A table of every column type with NULLs, zeros, negative values and
+    dates before 1970: i32, i64, date, d0-d4 (DECIMAL(0)-(4)), f32, f64,
+    b (bool), s (string codes)."""
+    from datafusion_parallelism_tpu_torch.utils.columnar import (BOOL, DATE32, DECIMAL, FLOAT32,
+                                                                 FLOAT64, INT32, INT64, STRING,
+                                                                 Dictionary, HostTable)
+    cols = {"i32": rng.integers(-50, 50, n).astype(np.int32),
+            "i64": rng.integers(-(1 << 40), 1 << 40, n) // rng.integers(1, 1 << 30, n),
+            "date": rng.integers(-40000, 40000, n).astype(np.int32),
+            "f32": (rng.normal(size=n) * 100).astype(np.float32),
+            "f64": rng.normal(size=n) * 1e3,
+            "b": rng.random(n) < 0.5,
+            "s": rng.integers(0, 6, n).astype(np.int32)}
+    dtypes = {"i32": INT32, "i64": INT64, "date": DATE32, "f32": FLOAT32, "f64": FLOAT64,
+              "b": BOOL, "s": STRING}
+    for s in range(5):
+        cols[f"d{s}"] = rng.integers(-100_000, 100_000, n)
+        dtypes[f"d{s}"] = DECIMAL(s)
+    for name in ("i32", "i64", "f32", "f64", "d2"):
+        cols[name][rng.random(n) < 0.1] = 0           # division by zero
+    cols["f64"][:4] = [-0.0, np.inf, -np.inf, np.nan]
+    validity = {name: rng.random(n) >= 0.15 for name in cols}
+    t = HostTable.from_numpy(cols, dtypes=dtypes, validity=validity,
+                             dictionaries={"s": Dictionary(np.array(list("abcdef"),
+                                                                    dtype=object))})
+    return t.to_device(device=device)
+
+
+def expr_suite():
+    """Every expression class over every column type: (label, Expr)."""
+    from datafusion_parallelism_tpu_torch.models.planner import DictMap, ScalarValue
+    from datafusion_parallelism_tpu_torch.ops.expressions import (BinOp, Case, Cast, Coalesce,
+                                                                  Col, ExtractDatePart,
+                                                                  InCodes, IsNull, Lit, Not)
+    from datafusion_parallelism_tpu_torch.utils.columnar import (BOOL, DATE32, DECIMAL,
+                                                                 FLOAT32, FLOAT64, INT32,
+                                                                 INT64, STRING, Dictionary)
+    num = ["i32", "i64", "date", "d0", "d2", "d4", "f32", "f64"]
+    out = [(f"{a} {op} {b}", BinOp(op, Col(a), Col(b)))
+           for a in num for b in num for op in ("+", "-", "*", "/", "%", "<", "=", ">=")]
+    out += [(f"{a} {op} lit", BinOp(op, Col(a), Lit(3, INT32)))
+            for a in num for op in ("*", "/", "%", "<>")]
+    out += [("d2 > 1.5", BinOp(">", Col("d2"), Lit(1.5, DECIMAL(2)))),
+            ("f32 + f32 lit", BinOp("+", Col("f32"), Lit(0.1, FLOAT32))),
+            ("s = s", BinOp("=", Col("s"), Col("s"))),
+            ("b and (i32 < 0)", BinOp("and", Col("b"), BinOp("<", Col("i32"), Lit(0, INT32)))),
+            ("b or (f64 > 0)", BinOp("or", Col("b"), BinOp(">", Col("f64"), Lit(0.0, FLOAT64)))),
+            ("not b", Not(Col("b"))), ("not i32", Not(Col("i32"))),
+            ("i64 is null", IsNull(Col("i64"))), ("f64 is not null", IsNull(Col("f64"), True)),
+            ("null lit + i32", BinOp("+", Lit(None, INT32), Col("i32")))]
+    out += [(f"cast {a} {dt}", Cast(Col(a), dt)) for a in num + ["b"]
+            for dt in (INT32, INT64, FLOAT32, FLOAT64, BOOL, DATE32, DECIMAL(0), DECIMAL(2),
+                       DECIMAL(4))]
+    out += [("i32 in", InCodes(Col("i32"), np.array([-7, 0, 3, 11, 40]))),
+            ("f64 in", InCodes(Col("f64"), np.array([0.0, 1.5, np.nan]))),
+            ("s not in", InCodes(Col("s"), np.array([1, 4], dtype=np.int32), True)),
+            ("d2 in empty", InCodes(Col("d2"), np.array([], dtype=np.int32))),
+            ("case", Case([(BinOp("<", Col("i32"), Lit(0, INT32)), Col("i32")),
+                           (Col("b"), Col("i64"))], Col("d0"))),
+            ("case no else", Case([(BinOp(">", Col("f64"), Lit(1.0, FLOAT64)), Col("f32"))])),
+            ("coalesce", Coalesce([Col("i32"), Col("i64"), Lit(5, INT64)])),
+            ("coalesce f", Coalesce([Col("f32"), Col("d2")]))]
+    out += [(f"extract {p}", ExtractDatePart(p, Col("date"))) for p in ("year", "month", "day")]
+    out += [("dictmap", DictMap(Col("s"), np.array([5, 4, 3, 2, 1, 0]),
+                                Dictionary(np.array(list("fedcba"), dtype=object)))),
+            ("dictmap of i32", DictMap(Col("i32"), np.arange(6)[::-1].copy(),
+                                       Dictionary(np.array(list("fedcba"), dtype=object)))),
+            ("scalar decimal", BinOp("<", Col("d2"), ScalarValue([12.5], [DECIMAL(2)]))),
+            ("scalar null", BinOp("+", Col("i64"), ScalarValue([None], [INT64]))),
+            ("string lit", BinOp("=", Col("s"), Lit(2, STRING)))]
+    return out
+
+
+def expr_kernel_vs_plain(rng, device, n: int = 1 << 16) -> str:
+    """K17 against its plain version on every expression of `expr_suite`,
+    one launch each, bit for bit over the whole capacity (values and
+    validity); all roots of a wide projection in one launch; the mask mode
+    with a row bound and an AND mask."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import expr_eval as k17
+    from datafusion_parallelism_tpu_torch.ops.expressions import compile_exprs
+    t = _expr_table(rng, n, device)
+    suite = expr_suite()
+    longest = 0
+
+    def run(exprs, mask=None):
+        program, _ = compile_exprs(exprs, t)
+        cols = [t.column(c) for c in program.cols]
+        scalars = tuple(node.literal().bits() for node in program.scalars)
+        got = k17.expr_eval(program, cols, t.capacity, scalars, mask, t.device)
+        with no_launches():
+            want = k17.expr_eval_plain(program, cols, t.capacity, scalars, mask, t.device)
+        max_abs_err(got, want)
+        return len(program.code)
+
+    for _, e in suite:
+        longest = max(longest, run([e]))
+    for i in range(0, len(suite), 16):              # a projection's roots, one launch
+        run([e for _, e in suite[i:i + 16]])
+    bools = [e for label, e in suite if any(s in label for s in ("<", "=", "and", "or", "in",
+                                                                 "null", "not"))]
+    and_mask = torch.from_numpy(rng.random(t.capacity) < 0.5).to(device)
+    bound = torch.tensor(n - 100, dtype=torch.int32, device=device)
+    for e in bools:
+        run([e], (bound, and_mask))
+        run([e], (None, None))
+    return (f"K17 == plain on {len(suite)} expressions (every class x dtype; NULLs, x/0, "
+            f"negative % and //, dates before 1970; up to {longest} instructions), "
+            f"{-(-len(suite) // 16)} 16-root projections and {2 * len(bools)} masks")
+
+
 def phase_size512_kernels(device):
     """K1-K4 vs plain at the Size512 join's shapes, exact, and timed."""
     from datafusion_parallelism_tpu_torch.entry import make_tables
@@ -438,6 +730,8 @@ def phase_size512_kernels(device):
     inner_csr_join(build, probe, ["b_key"], ["p_key"], SIZE512_OUT_CAP, checked.stages)
     timing = {}
     for i, name in enumerate(checked.calls):
+        if not checked.calls[name]:
+            continue
         ms = sum(cuda_ms(KERNELS[i], *args) for args in checked.calls[name])
         plain_ms = sum(cuda_ms(PLAIN[i], *args) for args in checked.calls[name])
         timing[name] = (ms, plain_ms)
@@ -591,6 +885,8 @@ def phase_sf10_kernels(orders, lineitem, keys, out_cap) -> None:
     inner_csr_join(orders, lineitem, *keys, out_cap, checked.stages)
     timing = {}
     for i, name in enumerate(checked.calls):
+        if not checked.calls[name]:
+            continue
         ms = sum(cuda_ms(KERNELS[i], *args, reps=3) for args in checked.calls[name])
         plain_ms = sum(cuda_ms(PLAIN[i], *args, reps=3) for args in checked.calls[name])
         timing[name] = (ms, plain_ms)
@@ -1208,12 +1504,14 @@ def call_key(key, args):
     visited buffer given) apart from its fresh-flags calls."""
     if key == ("join", "match_flags") and len(args) == 6:
         return ("join", "match_flags_acc")
+    if key == ("join", "table_sort") and args[0].shape[0] == 3:   # OA's (invalid, home, hash)
+        return ("join", "table_sort_oa")
     return key
 
 
 def entry_of(key) -> str:
     """The kernel table's entry point of a noted key."""
-    return "match_flags" if key[1] == "match_flags_acc" else key[1]
+    return {"match_flags_acc": "match_flags", "table_sort_oa": "table_sort"}.get(key[1], key[1])
 
 
 def fresh_args(key, args):
@@ -1316,13 +1614,16 @@ def _oracle_answers(sf: float, queries):
     return {q: oracle_query(q, tables) for q in queries}
 
 
-def phase_tpch_sql(device, tables):
+def phase_tpch_sql(device, tables, meanwhile=None):
     """All 22 TPC-H queries through SessionContext.sql at SF10. Counters
     are zeroed before the first query and read after the last; the size
     and the query of every kernel entry point's largest call are noted for
     phase 15 (those of the out-of-core kernels come from phase 16). The
     numpy oracle's answers, computed meanwhile by ORACLE_WORKERS spawned
-    processes, are checked after the last query and kept for phase 16."""
+    processes, are checked after the last query and kept for phases 16
+    and 17. `meanwhile(res)` (phase 17's runs, given this phase's results)
+    runs on the card while the oracle is still computing; what it returns
+    comes back last."""
     import concurrent.futures
     import multiprocessing
 
@@ -1335,6 +1636,8 @@ def phase_tpch_sql(device, tables):
         futures = [pool.submit(_oracle_answers, TPCH_SF, queries[i::ORACLE_WORKERS])
                    for i in range(ORACLE_WORKERS)]
         res, lines, got, ctx, sizes = _run_tpch_sql(device, tables, queries)
+        launches = kernel_launches()
+        extra = meanwhile(res) if meanwhile is not None else None
         t0 = time.perf_counter()
         oracle = {}
         for f in futures:
@@ -1347,15 +1650,15 @@ def phase_tpch_sql(device, tables):
             diff_rule_match(got[q], oracle[q])
         except AssertionError as e:
             raise AssertionError(f"Q{q}: {e}") from None
-    launches = kernel_launches()
-    missing = [k for k in KERNEL_INFO if k not in OOC_KERNELS and launches.get(k, 0) < 1]
+    missing = [k for k in KERNEL_INFO if k not in OOC_KERNELS + STRATEGY_KERNELS
+               and launches.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the SQL path: {missing}")
     log(f"phase 14 ok: TPC-H SF{TPCH_SF}, 22 queries through SessionContext.sql, each == the "
         "numpy oracle (diff_results rule); median of 3 collect()s after a settling one: "
         + " | ".join(lines) + f"; launches over the phase: {launches}; after the last query "
         f"the oracle's {ORACLE_WORKERS} processes took {oracle_wait_s:.1f} s more")
-    return res, launches, ctx, sizes, oracle
+    return res, launches, ctx, sizes, oracle, extra
 
 
 def _run_tpch_sql(device, tables, queries):
@@ -1368,7 +1671,7 @@ def _run_tpch_sql(device, tables, queries):
     ctx = SessionContext(device=device)
     for name, t in tables.items():
         ctx.register_table(name, t)
-    rec = LargestCalls(keep=lambda key: key not in OOC_ENTRIES)
+    rec = LargestCalls(keep=lambda key: key not in OOC_ENTRIES | STRATEGY_ENTRIES)
     for fn in set(all_counters().values()):
         fn.launches = 0
     res, lines, got = {}, [], {}
@@ -1385,6 +1688,7 @@ def _run_tpch_sql(device, tables, queries):
         retries = handle.metrics.retries
         got[q] = rows
         torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)   # the tables held before the query
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -1394,11 +1698,12 @@ def _run_tpch_sql(device, tables, queries):
         ms = statistics.median(times) * 1e3
         peak = torch.cuda.max_memory_allocated(device)
         res[q] = {"ms": ms, "first_ms": first_s * 1e3, "retries": retries,
-                  "staged": handle.metrics.staged, "peak_bytes": peak, "rows": len(rows),
-                  "launches": launched}
+                  "staged": handle.metrics.staged, "peak_bytes": peak,
+                  "query_peak_bytes": peak - base, "rows": len(rows), "launches": launched}
         lines.append(f"Q{q} {ms:.3f} ms (first run {first_s * 1e3:.1f}), {len(rows)} rows, "
                      f"{retries} retries, {'staged' if handle.metrics.staged else 'one run'}, "
-                     f"peak {peak} bytes, launches {launched}")
+                     f"peak {peak} bytes ({peak - base} over the {base} held before), "
+                     f"launches {launched}")
         del handle
     return res, lines, got, ctx, rec.sizes
 
@@ -1414,14 +1719,22 @@ def work(key, args, out):
     requests x groups per row)."""
     import torch
     entry = entry_of(key)
-    if entry == "probe_expand":
-        slot, ok, start_count, pwords, bwords, _, out_cap = args
-        k = min(int(out[-4]), out_cap)
-        reads = (_bytes([slot, ok, pwords]) + 8 * slot.numel()
-                 + min(bwords.nbytes, k * bwords.shape[0] * 4))
-    elif entry == "probe_ranges":
+    if entry == "probe_ranges":
         slot, ok, _ = args
         reads = _bytes([slot, ok]) + 8 * slot.numel()
+    elif entry == "expand_ranges":
+        start, _, base, total, pwords, bwords, _, out_cap = args
+        k = min(int(total), out_cap)
+        reads = _bytes([start, base, pwords]) + min(bwords.nbytes, k * bwords.shape[0] * 4)
+    elif entry == "sorted_probe":
+        # the two keys around each probe row's place at least
+        hashes, ok, sorted_hash = args
+        reads = _bytes([hashes, ok]) + min(sorted_hash.nbytes, 16 * hashes.numel())
+    elif entry == "oa_probe":
+        # each valid probe row reads its run and the slot that ends its walk
+        home, hashes, ok, slots = args
+        reads = _bytes([home, hashes, ok]) + min(slots.nbytes,
+                                                 8 * (int(ok.sum()) + int(out[3])))
     elif entry == "compact_gather":
         match, build_id, probe_idx, bw, bf, pw, pf = args
         k = int(out[-1])
@@ -1480,6 +1793,19 @@ def library_call(key, args):
     entry = key[1]
     if entry == "radix_sort" and args[0].shape[0] == 1 and args[1][0]:
         return lambda: torch.argsort(args[0][0], stable=True)
+    if entry in ("table_sort", "table_sort_oa"):
+        # the unsigned words packed into the one int64 key they order
+        # (invalid << 32 | hash; invalid << 62 | home << 32 | hash), packed
+        # before the timing
+        w = args[0].long() & 0xFFFFFFFF
+        key = ((w[0] << 32) | w[1] if w.shape[0] == 2
+               else (w[0] << 62) | (w[1] << 32) | w[2])
+        return lambda: torch.argsort(key, stable=True)
+    if entry == "sorted_probe":
+        hashes, _, sorted_hash = args
+        ph = hashes.long() & 0xFFFFFFFF
+        return lambda: (torch.searchsorted(sorted_hash, ph, side="left"),
+                        torch.searchsorted(sorted_hash, ph, side="right"))
     if entry == "gather_rows" and args[1].shape[0] == 0 and len(args) < 4:
         return lambda: args[0].index_select(1, args[2])
     return None
@@ -1501,10 +1827,13 @@ def phase_replay(device, ctx, sizes):
     per_kernel, lines = {}, []
     for owner in sorted({owner for _, owner in sizes.values()}):
         phase, q, extra = owner
+        env = dict(extra)
+        strategy = env.pop("strategy", None)
         rec = LargestCalls(capture=True)
         rec.on, rec.query = True, owner
-        with ooc_env(phase == 16, **dict(extra)):
-            ctx[phase].sql(QUERIES[q], kernels=rec.join, chain=rec.chain).collect()
+        with ooc_env(phase == 16, **env):
+            session = ctx[(phase, strategy)] if strategy else ctx[phase]
+            session.sql(QUERIES[q], kernels=rec.join, chain=rec.chain).collect()
         rec.on = False
         for key in sorted(k for k, (_, o) in sizes.items() if o == owner):
             args = rec.calls.pop(key)
@@ -1537,16 +1866,18 @@ def phase_replay(device, ctx, sizes):
             acc["bound_ms"] += max(b_ms, o_ms)
             acc["library_ms"] = (None if lib_ms is None or acc["library_ms"] is None
                                  else acc["library_ms"] + lib_ms)
-            acc["calls"].append(f"{key[0]}.{key[1]}@Q{q}" + ("(ooc)" if phase == 16 else ""))
-            lines.append(f"{key[0]}.{key[1]} (phase {phase} Q{q}, {nbytes} bytes moved) "
+            where = ("(ooc)" if phase == 16 else f"({strategy})" if strategy else "")
+            acc["calls"].append(f"{key[0]}.{key[1]}@Q{q}" + where)
+            lines.append(f"{key[0]}.{key[1]} (phase {phase} Q{q}{where}, {nbytes} bytes moved) "
                          f"{ms:.3f}/{plain_ms:.3f}"
                          + (f"/{lib_ms:.3f}" if lib_ms is not None else "")
                          + f" bound {max(b_ms, o_ms):.3f}")
         del rec
-    log("phase 15 ok: the largest phase-14 call of every entry point and phase 16's largest "
-        "K12, K13 and K10 accumulate calls, captured by rerunning their queries, == their "
-        "plain versions (K9-K13 bit for bit); ms kernel/plain[/library] (median of 3 / one "
-        "run / median of 3) and bound: " + "; ".join(lines))
+    log("phase 15 ok: the largest phase-14 call of every entry point, phase 16's largest "
+        "K12, K13 and K10 accumulate calls and phase 17's largest K14-K16 and SORT/OA "
+        "build sorts, captured by rerunning their queries, == their plain "
+        "versions (K9-K17 bit for bit); ms kernel/plain[/library] (median of 3 / one run / "
+        "median of 3) and bound: " + "; ".join(lines))
     return per_kernel
 
 
@@ -1633,11 +1964,113 @@ def phase_out_of_core(device, tables, oracle, resident):
     return res, launches, ctx, rec.sizes
 
 
+def run_strategies(device, tables, resident):
+    """Phase 17's runs on the card (while phase 14's oracle computes): the
+    22 TPC-H queries through SQL under the SORT strategy, then under OA, on
+    phase 14's tables: one settling collect() (its rows kept for the
+    check), then the median of the timed ones, and the peak memory.
+    Counters are zeroed before the first query and read per strategy; the
+    largest calls of the strategies' entry points are noted for phase 15."""
+    import torch
+    from datafusion_parallelism_tpu_torch import SessionConfig, SessionContext
+    from datafusion_parallelism_tpu_torch.ops.hash_table import JoinStrategy
+    from datafusion_parallelism_tpu_torch.tpch import QUERIES
+
+    rec = LargestCalls(keep=lambda key: key in STRATEGY_ENTRIES)
+    for fn in set(all_counters().values()):
+        fn.launches = 0
+    run = {"res": {}, "rows": {}, "ctxs": {}, "lines": [], "launches": {}}
+    for strategy in (JoinStrategy.SORT, JoinStrategy.OA):
+        ctx = SessionContext(SessionConfig(join_strategy=strategy), device=device)
+        for name, t in tables.items():
+            ctx.register_table(name, t)
+        run["ctxs"][(17, strategy.name)] = ctx
+        before = kernel_launches()
+        for q in sorted(QUERIES):
+            rec.on, rec.query = True, (17, q, (("strategy", strategy.name),))
+            handle = ctx.sql(QUERIES[q], kernels=rec.join, chain=rec.chain)
+            t0 = time.perf_counter()
+            run["rows"][(strategy.name, q)] = handle.collect().to_pylist()
+            first_s = time.perf_counter() - t0
+            rec.on = False
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)   # every session's tables
+            times = []
+            for _ in range(STRATEGY_TIMED_RUNS):
+                t0 = time.perf_counter()
+                handle.collect()
+                torch.cuda.synchronize(device)
+                times.append(time.perf_counter() - t0)
+            ms = statistics.median(times) * 1e3
+            peak = torch.cuda.max_memory_allocated(device)
+            csr_peak = resident[q]["query_peak_bytes"]
+            run["res"][(strategy.name, q)] = {
+                "ms": ms, "first_ms": first_s * 1e3, "peak_bytes": peak,
+                "query_peak_bytes": peak - base, "retries": handle.metrics.retries,
+                "csr_ms": resident[q]["ms"], "csr_query_peak_bytes": csr_peak}
+            run["lines"].append(f"{strategy.name} Q{q} {ms:.3f} ms (first run "
+                                f"{first_s * 1e3:.1f}; CSR {resident[q]['ms']:.3f}), peak "
+                                f"{peak - base} bytes over the tables held (CSR {csr_peak})")
+            del handle
+        after = kernel_launches()
+        run["launches"][strategy.name] = {k: after[k] - before.get(k, 0) for k in after
+                                          if after[k] > before.get(k, 0)}
+    run["sizes"] = rec.sizes
+    return run
+
+
+def phase_strategies(run, oracle):
+    """Phase 17: run_strategies' rows, each equal to phase 14's oracle
+    answer; the launch checks (K14 under SORT, K15 and K16 under OA, K17
+    under both); then Q3 (streamed) and Q18 (grace agg) out of core under
+    OOC_ENV in each strategy's session, each equal to the oracle."""
+    from datafusion_parallelism_tpu_torch.tpch import QUERIES
+    for (strategy, q), rows in run["rows"].items():
+        try:
+            diff_rule_match(rows, oracle[q])
+        except AssertionError as e:
+            raise AssertionError(f"{strategy} Q{q}: {e}") from None
+    launches, lines = run["launches"], list(run["lines"])
+    need = {"SORT": ("sorted_probe", "expr_eval"), "OA": ("oa_place", "oa_probe", "expr_eval")}
+    missing = [f"{s}: {k}" for s, ks in need.items() for k in ks
+               if launches[s].get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched under their strategy: {missing}")
+    for (_, strategy), ctx in run["ctxs"].items():
+        for label, q, route in (("Q3", 3, "streamed"), ("Q18", 18, "grace agg")):
+            with ooc_env():
+                handle = ctx.sql(QUERIES[q])
+                t0 = time.perf_counter()
+                rows = handle.collect().to_pylist()
+                s = time.perf_counter() - t0
+            try:
+                diff_rule_match(rows, oracle[q])
+            except AssertionError as e:
+                raise AssertionError(f"{strategy} {label} out of core: {e}") from None
+            if not handle.metrics.route.startswith(route):
+                raise AssertionError(f"{strategy} {label} out of core took the route "
+                                     f"{handle.metrics.route}, not {route}")
+            run["res"][(strategy, f"{label} ooc")] = {"route": handle.metrics.route,
+                                                     "chunks": handle.metrics.streamed_chunks,
+                                                     "first_ms": s * 1e3}
+            lines.append(f"{strategy} {label} out of core: {handle.metrics.route}, "
+                         f"{handle.metrics.streamed_chunks} chunks, {s * 1e3:.1f} ms")
+            del handle
+    total = {k: sum(launches[s].get(k, 0) for s in launches) for k in KERNEL_INFO}
+    log(f"phase 17 ok: TPC-H SF{TPCH_SF}, 22 queries through SessionContext.sql under SORT, "
+        f"then under OA (run while phase 14's oracle computed), each == the oracle's answer; "
+        f"median of {STRATEGY_TIMED_RUNS} collect()s after a settling one, beside CSR's "
+        "(phase 14): " + " | ".join(lines)
+        + f"; launches under SORT: {launches['SORT']}; under OA: {launches['OA']}")
+    return run["res"], total
+
+
 def launch_counters():
     from datafusion_parallelism_tpu_torch.kernels import (compact_gather, csr_build,
                                                           hash_slot, probe_expand)
     return {"hash_slot": hash_slot.hash_slot, "csr_build": csr_build.csr_build,
-            "probe_expand": probe_expand.probe_expand,
+            "probe_ranges": probe_expand.probe_ranges,
+            "expand_ranges": probe_expand.expand_ranges,
             "compact_gather": compact_gather.compact_gather}
 
 
@@ -1660,6 +2093,7 @@ def main() -> int:
     smi = phase_build()
     phase_kernels_vs_plain(device)
     phase_size512_kernels(device)
+    phase_strategy_kernels_vs_plain(device)
 
     wrappers = launch_counters()
     for w in wrappers.values():
@@ -1686,15 +2120,19 @@ def main() -> int:
         "summed over their calls: " + _fmt_timing(chain_timing))
 
     phase_join_types(device)
-    sql_res, sql_launches, ctx, sizes, oracle = phase_tpch_sql(device, tables)
+    sql_res, sql_launches, ctx, sizes, oracle, strategy_run = phase_tpch_sql(
+        device, tables, lambda res: run_strategies(device, tables, res))
     _, ooc_launches, ooc_ctx, ooc_sizes = phase_out_of_core(device, tables, oracle, sql_res)
-    replay = phase_replay(device, {14: ctx, 16: ooc_ctx}, {**sizes, **ooc_sizes})
-    del ctx, ooc_ctx, tables
+    _, strategy_launches = phase_strategies(strategy_run, oracle)
+    replay = phase_replay(device, {14: ctx, 16: ooc_ctx, **strategy_run["ctxs"]},
+                          {**sizes, **ooc_sizes, **strategy_run["sizes"]})
+    del ctx, ooc_ctx, strategy_run, tables
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = replay[name]
-        launches = (ooc_launches if name in OOC_KERNELS + ("pack_rows",) else sql_launches)
+        launches = (ooc_launches if name in OOC_KERNELS + ("pack_rows",) else
+                    strategy_launches if name in STRATEGY_KERNELS else sql_launches)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": r["err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

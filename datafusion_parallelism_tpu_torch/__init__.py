@@ -3,15 +3,17 @@
 
 Ported so far: the SQL path on one device — `SessionContext.sql(text)`
 (the copied parser, planner and optimizer), the eager single-device
-executor (`runtime/executor.py`), the hash join of all eight join types on
-the CSR strategy (`ops.join.hash_join`) and the single-table operators
-`filter_table`, `project_table`, `hash_aggregate_counted`, `sort_table` and
-`limit_table` with the expression classes, and out-of-core execution
-(morsel streaming and grace partitioning, `runtime/streaming.py`,
-`runtime/grace.py`) — through thirteen hand-written CUDA kernels for
-Hopper (`kernels/`, sources in `csrc/`: K1-K4 and K9-K11 the join, K5-K8
-the single-table operators, K12 packing and unpacking tables, K13 the
-grace union append) with a plain torch version beside each.
+executor (`runtime/executor.py`), the hash join of all eight join types
+under the CSR, SORT and OA strategies (`ops.join.hash_join`) and the
+single-table operators `filter_table`, `project_table`,
+`hash_aggregate_counted`, `sort_table` and `limit_table` with the
+expression classes, and out-of-core execution (morsel streaming and grace
+partitioning, `runtime/streaming.py`, `runtime/grace.py`) — through
+seventeen hand-written CUDA kernels for Hopper (`kernels/`, sources in
+`csrc/`: K1-K4 and K9-K11 the join, K5-K8 the single-table operators, K12
+packing and unpacking tables, K13 the grace union append, K14-K16 the
+SORT and OA strategies' probes and placement, K17 every expression) with a
+plain torch version beside each.
 The package imports torch and never jax; the kernels are built with nvcc
 at first CUDA use, never at import.
 """

@@ -7,9 +7,9 @@ SQL with the copied parser, planner and optimizer. The session's tables
 live on one device, the card unless the caller names another
 (`device="cpu"` runs the plain versions of the kernels, as the tests do);
 a query whose biggest scan passes the out-of-core thresholds streams or
-grace-partitions it (runtime/executor.py). Multi-device execution, parquet
-registration and the SORT and OA join strategies raise
-NotImplementedError naming their ROADMAP items.
+grace-partitions it (runtime/executor.py). Every join runs under the
+config's strategy (CSR, SORT or OA). Multi-device execution and parquet
+registration raise NotImplementedError naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -49,9 +49,6 @@ class SessionContext:
         if self.config.target_partitions > 1:
             raise NotImplementedError("target_partitions > 1 runs on several devices, not "
                                       "ported (ROADMAP queue 1 item 13)")
-        if self.config.join_strategy is not JoinStrategy.CSR:
-            raise NotImplementedError(f"the {self.config.join_strategy.name} join strategy "
-                                      "is not ported (ROADMAP queue 1 item 11)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SessionContext: no CUDA device; pass device='cpu' to run "

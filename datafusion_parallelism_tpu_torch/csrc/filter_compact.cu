@@ -23,6 +23,11 @@
 // H100, at the 13-word sort of 4 M rows: 0.69 ms this way, 1.89 ms with one
 // thread per row looping over its words, 1.87 ms with the words of a row
 // range in consecutive blocks, which spreads the reads over all words.)
+//
+// The float64 sidecars move as 8-byte integers, a bit copy with no
+// arithmetic and no canonicalisation: callers rely on it (the SORT build
+// carries its int64 keys, all denormal doubles, through this path as a
+// sidecar; ops/hash_table.py `sort_table_rows`), and so must any change.
 
 #include <cstdint>
 #include <cuda_runtime.h>

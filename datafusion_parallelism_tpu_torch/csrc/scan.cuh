@@ -151,5 +151,132 @@ void exclusive_scan(const In* in, i64 n, Out* out, i64* total, void* scratch,
 
 inline unsigned grid_for(i64 n, int block) { return (unsigned)((n + block - 1) / block); }
 
+// ---------------------------------------------------------------------------
+// Device-wide inclusive MAX-scan of int64, in place: the open-addressing
+// build's displacement prefix (JAX `lax.cummax`, hash_table.py:169). The
+// same three passes as the sum: per-tile maxima -> one block turns them
+// into exclusive tile prefixes -> each tile rescans itself from its prefix.
+// Templates, so that a source which does not use it compiles none of it.
+// ---------------------------------------------------------------------------
+
+constexpr i64 MAX_IDENTITY = (i64)(-0x7fffffffffffffffLL - 1);
+
+__device__ __forceinline__ i64 warp_inclusive_max(i64 v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    i64 u = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v = v > u ? v : u;
+  }
+  return v;
+}
+
+// Exclusive max of one value per thread over the block (MAX_IDENTITY for
+// thread 0); *total = the block's max. `smem` holds 33 int64.
+__device__ __forceinline__ i64 block_exclusive_max(i64 v, i64* smem, i64* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  i64 inc = warp_inclusive_max(v);
+  i64 ex = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 0) ex = MAX_IDENTITY;
+  if (lane == 31) smem[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    i64 w = lane < nwarps ? smem[lane] : MAX_IDENTITY;
+    i64 winc = warp_inclusive_max(w);
+    i64 wex = __shfl_up_sync(0xffffffffu, winc, 1);
+    if (lane == 0) wex = MAX_IDENTITY;
+    if (lane < nwarps) smem[lane] = wex;
+    if (lane == 31) smem[32] = winc;
+  }
+  __syncthreads();
+  const i64 before = smem[warp];
+  i64 res = before > ex ? before : ex;
+  *total = smem[32];
+  __syncthreads();
+  return res;
+}
+
+template <typename Unused = void>
+__global__ void max_reduce_kernel(const i64* __restrict__ in, i64 n, i64* __restrict__ tile_max) {
+  __shared__ i64 smem[33];
+  const i64 base = (i64)blockIdx.x * SCAN_TILE;
+  i64 s = MAX_IDENTITY;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const i64 i = base + (i64)k * SCAN_BLOCK + threadIdx.x;
+    if (i < n && in[i] > s) s = in[i];
+  }
+  i64 total;
+  block_exclusive_max(s, smem, &total);
+  if (threadIdx.x == 0) tile_max[blockIdx.x] = total;
+}
+
+// One block of 1024 threads: tile maxima -> exclusive tile prefixes, in place.
+template <typename Unused = void>
+__global__ void max_tiles_kernel(i64* __restrict__ tile_max, i64 n_tiles) {
+  __shared__ i64 smem[33];
+  i64 carry = MAX_IDENTITY;
+  for (i64 base = 0; base < n_tiles; base += blockDim.x) {
+    const i64 i = base + threadIdx.x;
+    const i64 v = i < n_tiles ? tile_max[i] : MAX_IDENTITY;
+    i64 chunk;
+    const i64 ex = block_exclusive_max(v, smem, &chunk);
+    if (i < n_tiles) tile_max[i] = carry > ex ? carry : ex;
+    if (chunk > carry) carry = chunk;
+  }
+}
+
+template <typename Unused = void>
+__global__ void max_downsweep_kernel(i64* data, i64 n, const i64* __restrict__ tile_prefix) {
+  __shared__ i64 tile[SCAN_TILE + SCAN_TILE / 16];
+  __shared__ i64 smem[33];
+  const i64 base = (i64)blockIdx.x * SCAN_TILE;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int j = k * SCAN_BLOCK + threadIdx.x;
+    const i64 i = base + j;
+    tile[scan_pad(j)] = i < n ? data[i] : MAX_IDENTITY;
+  }
+  __syncthreads();
+  i64 s = MAX_IDENTITY;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const i64 v = tile[scan_pad(threadIdx.x * SCAN_ITEMS + k)];
+    if (v > s) s = v;
+  }
+  i64 unused;
+  i64 run = block_exclusive_max(s, smem, &unused);
+  const i64 prefix = tile_prefix[blockIdx.x];
+  if (prefix > run) run = prefix;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int j = scan_pad(threadIdx.x * SCAN_ITEMS + k);
+    if (tile[j] > run) run = tile[j];
+    tile[j] = run;  // inclusive
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int j = k * SCAN_BLOCK + threadIdx.x;
+    const i64 i = base + j;
+    if (i < n) data[i] = tile[scan_pad(j)];
+  }
+}
+
+// Scratch bytes inclusive_max_scan needs for n elements.
+inline i64 max_scan_scratch_bytes(i64 n) { return (scan_tiles(n) + 1) * (i64)sizeof(i64); }
+
+// data[i] = max(data[0..i]) for i < n, in place. Launches only; the caller
+// checks cudaGetLastError.
+inline void inclusive_max_scan(i64* data, i64 n, void* scratch, cudaStream_t stream) {
+  i64* tile_max = static_cast<i64*>(scratch);
+  const i64 n_tiles = scan_tiles(n);
+  if (n_tiles == 0) return;
+  max_reduce_kernel<><<<(unsigned)n_tiles, SCAN_BLOCK, 0, stream>>>(data, n, tile_max);
+  max_tiles_kernel<><<<1, 1024, 0, stream>>>(tile_max, n_tiles);
+  max_downsweep_kernel<><<<(unsigned)n_tiles, SCAN_BLOCK, 0, stream>>>(data, n, tile_max);
+}
+
 }  // namespace
 }  // namespace dfp

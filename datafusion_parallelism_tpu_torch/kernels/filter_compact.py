@@ -16,6 +16,11 @@ Two entry points, each with its own launch counter:
   gather_rows(words, f64, idx, n=None)       row j = source row idx[j]
       (clipped into range, as JAX's mode="clip"); with n, rows at or past
       n are zeros
+
+Both move the float64 sidecars bit for bit (selections and copies, never
+arithmetic), NaN payloads and denormals included: the SORT build
+(ops/hash_table.py `sort_table_rows`) carries int64 keys through them as
+float64 bits.
 """
 
 from __future__ import annotations

@@ -1,6 +1,11 @@
 """K3 probe_expand: candidate ranges of the probe rows, then every
 candidate pair with its key recheck.
 
+Two entry points, each with its own launch counter: `probe_ranges` (the
+CSR ranges and their scan, its first pass) and `expand_ranges` (the
+candidate pairs of any strategy's ranges: K3's first pass, K14's or
+K16's; its second pass).
+
 Replaces the JAX package's `hash_table.probe_ranges` / `probe_candidates`
 (CSR branch), `columnar.replicate_rows_exact` and the deferred join body's
 candidate fetch and key recheck (ops/join.py:277-320). The CUDA kernel is
@@ -30,7 +35,9 @@ Ranges = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 Compare = Tuple[List[int], List[int], Tuple[int, int], Tuple[int, int]]
 
 
-def _check_total(total: torch.Tensor) -> torch.Tensor:
+def check_total(total: torch.Tensor) -> torch.Tensor:
+    """The int64 candidate total as int32; raises OverflowError at 2^31
+    (one synchronisation)."""
     if int(total) >= 2**31:
         raise OverflowError(f"join candidate total {int(total)} reaches 2^31")
     return total.to(torch.int32)
@@ -45,7 +52,7 @@ def probe_ranges_plain(slot: torch.Tensor, ok: torch.Tensor,
     start = start_count[0].index_select(0, sl)
     count = torch.where(ok, start_count[1].index_select(0, sl), 0).to(torch.int32)
     cum = torch.cumsum(count, 0, dtype=torch.int64)
-    total = _check_total(cum[-1])
+    total = check_total(cum[-1])
     return start, count, (cum - count).to(torch.int32), total
 
 
@@ -79,8 +86,7 @@ def probe_ranges(slot: torch.Tensor, ok: torch.Tensor, start_count: torch.Tensor
              scratch.data_ptr(), nbytes, _build.stream(dev))
     probe_ranges.launches += 1
     _build.check(err, "probe_ranges")
-    return start, count, base, _check_total(total64)
-
+    return start, count, base, check_total(total64)
 
 
 def _recheck(bn: torch.Tensor, pn: torch.Tensor, compares: Sequence[Compare]) -> torch.Tensor:
@@ -94,17 +100,17 @@ def _recheck(bn: torch.Tensor, pn: torch.Tensor, compares: Sequence[Compare]) ->
     return eq
 
 
-def probe_expand_plain(slot, ok, start_count, pwords, bwords, compares, out_cap):
-    """Ranges, then the candidate pairs of output slots j < out_cap:
-    (start, count, base, total, match, probe_idx, build_id).
+def expand_ranges_plain(start, count, base, total, pwords, bwords, compares, out_cap):
+    """K3's second pass, from candidate ranges of any strategy (`Ranges`:
+    K3's first pass, K14 or K16): (match, probe_idx, build_id) over the
+    out_cap output slots.
 
     Probe row i owns slots [base[i], base[i]+count[i]); slot j's candidate
-    is perm position pos = start[i] + j - base[i]. `pwords` [*, m] are the
-    probe's narrow word rows, `bwords` [*, cap] the build's in perm order
+    is table position pos = start[i] + j - base[i]. `pwords` [*, m] are the
+    probe's narrow word rows, `bwords` [*, cap] the build's in table order
     with the build row id last. match = keys equal and both valid; past
     min(total, out_cap) match is False and probe_idx = build_id = 0."""
-    start, count, base, total = probe_ranges_plain(slot, ok, start_count)
-    m, dev = slot.shape[0], slot.device
+    m, dev = start.shape[0], start.device
     j = torch.arange(out_cap, dtype=torch.int64, device=dev)
     # replicate_rows_exact: each non-empty segment's first slot gets its
     # row id (bases of non-empty rows are distinct), a cummax fills it on
@@ -117,7 +123,7 @@ def probe_expand_plain(slot, ok, start_count, pwords, bwords, compares, out_cap)
     bn = bwords.index_select(1, pos)
     match = cand & _recheck(bn, pwords.index_select(1, i), compares)
     build_id = torch.where(cand, bn[-1], 0)
-    return start, count, base, total, match, i.to(torch.int32), build_id
+    return match, i.to(torch.int32), build_id
 
 
 def _spec(compares: Sequence[Compare]):
@@ -126,7 +132,7 @@ def _spec(compares: Sequence[Compare]):
     eq_b = [w for bw, _, _, _ in compares for w in bw]
     eq_p = [w for _, pw, _, _ in compares for w in pw]
     if len(eq_b) > MAX_EQ_WORDS or len(compares) > MAX_KEYS:
-        raise ValueError(f"probe_expand takes at most {MAX_KEYS} keys of "
+        raise ValueError(f"expand_ranges takes at most {MAX_KEYS} keys of "
                          f"{MAX_EQ_WORDS} words in all")
 
     def pad(xs, k):
@@ -141,12 +147,8 @@ def _spec(compares: Sequence[Compare]):
     return (ctypes.c_int * len(fields))(*fields)
 
 
-def probe_expand(slot, ok, start_count, pwords, bwords, compares, out_cap):
-    """probe_expand_plain's contract; launches K3 for CUDA tensors."""
-    if not slot.is_cuda:
-        return probe_expand_plain(slot, ok, start_count, pwords, bwords, compares, out_cap)
-    dev = slot.device
-    m = slot.shape[0]
+def _check_expand(start, pwords, bwords, compares, out_cap):
+    dev, m = start.device, start.shape[0]
     if pwords.dim() != 2 or bwords.dim() != 2:
         raise ValueError("pwords and bwords are [rows, n] word matrices")
     _build.require(pwords, "pwords", torch.int32, (pwords.shape[0], m), dev)
@@ -156,8 +158,22 @@ def probe_expand(slot, ok, start_count, pwords, bwords, compares, out_cap):
             raise ValueError("recheck plan names a word row the matrices lack")
     if out_cap < 1:
         raise ValueError(f"out_cap {out_cap} < 1")
-    spec = _spec(compares)
-    start, count, base, total = probe_ranges(slot, ok, start_count)
+    return _spec(compares)
+
+
+def expand_ranges(start, count, base, total, pwords, bwords, compares, out_cap):
+    """expand_ranges_plain's contract; launches K3's second pass for CUDA
+    tensors (the SORT and OA strategies' ranges come from K14 / K16)."""
+    if not start.is_cuda:
+        return expand_ranges_plain(start, count, base, total, pwords, bwords, compares,
+                                   out_cap)
+    m = start.shape[0] if start.dim() == 1 else -1
+    _build.require(start, "start", torch.int32, (m,))
+    _build.require(base, "base", torch.int32, (m,), start.device)
+    if m < 1:
+        raise ValueError("probe side has no rows")
+    spec = _check_expand(start, pwords, bwords, compares, out_cap)
+    dev = start.device
     fn = _build.function("dfp_probe_expand", (
         _build.P, _build.P, _build.P, _build.I64, _build.P, _build.I64, _build.P,
         _build.I64, _build.I32, ctypes.POINTER(ctypes.c_int), _build.I64, _build.P,
@@ -169,10 +185,10 @@ def probe_expand(slot, ok, start_count, pwords, bwords, compares, out_cap):
     err = fn(start.data_ptr(), base.data_ptr(), total64.data_ptr(), m, pwords.data_ptr(), m,
              bwords.data_ptr(), bwords.shape[1], bwords.shape[0], spec, out_cap,
              match.data_ptr(), probe_idx.data_ptr(), build_id.data_ptr(), _build.stream(dev))
-    probe_expand.launches += 1
-    _build.check(err, "probe_expand")
-    return start, count, base, total, match, probe_idx, build_id
+    expand_ranges.launches += 1
+    _build.check(err, "expand_ranges")
+    return match, probe_idx, build_id
 
 
-probe_expand.launches = 0
+expand_ranges.launches = 0
 probe_ranges.launches = 0

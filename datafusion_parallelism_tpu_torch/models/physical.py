@@ -27,7 +27,7 @@ import torch
 from ..kernels.chain import KERNELS as CHAIN_KERNELS
 from ..kernels.chain import ChainKernels
 from ..ops.aggregate import AggSpec, agg_output_schema, hash_aggregate_counted
-from ..ops.expressions import Expr
+from ..ops.expressions import Expr, evaluate, predicate_mask
 from ..ops.filter import filter_table
 from ..ops.hash_table import JoinStrategy
 from ..ops.join import KERNELS as JOIN_KERNELS
@@ -163,7 +163,7 @@ class PProject(PhysicalPlan):
 
     def execute(self, tables, ctx):
         return project_table(self.child.execute(tables, ctx), self.exprs,
-                             self.out_fields)
+                             self.out_fields, ctx.chain)
 
 
 _JOIN_ID = [0]
@@ -238,7 +238,8 @@ class PHashJoin(PhysicalPlan):
         residual_fn = None
         if self.residual is not None:
             res = self.residual
-            residual_fn = lambda pair_tbl: res.eval(pair_tbl)[:2]   # noqa: E731
+            def residual_fn(pair_tbl):
+                return evaluate([res], pair_tbl, ctx.chain)[0][:2]
         return b, p, cap, residual_fn, prepared, b_valid, p_valid
 
     def _join(self, tables, ctx, expanded: bool):
@@ -334,8 +335,7 @@ def _execute_maybe_expanded(node, tables, ctx):
     elif isinstance(n, PFilter) and not isinstance(n.child, PFilter):
         if _expandable_join(n.child, ctx):
             t, match = n.child.execute_expanded(tables, ctx)
-            v, valid, _ = n.predicate.eval(t)
-            mask = match & valid & v.to(torch.bool)
+            mask = predicate_mask(n.predicate, t, ctx.chain, and_mask=match)
             ctx.join_totals[n.node_id] = _zero(t)
         else:
             # gate: only weakly-selective filters (est keeps >= 1/4 of the
@@ -348,12 +348,11 @@ def _execute_maybe_expanded(node, tables, ctx):
                 cap_c = tables[c.label].capacity
                 if cap_c > (1 << 22) and n.est_rows * 4 >= cap_c:
                     t = n.child.execute(tables, ctx)
-                    v, valid, _ = n.predicate.eval(t)
-                    mask = valid & v.to(torch.bool)
+                    mask = predicate_mask(n.predicate, t, ctx.chain)
                     ctx.join_totals[n.node_id] = _zero(t)
     if t is not None:
         for pr in reversed(projs):
-            t = project_table(t, pr.exprs, pr.out_fields)
+            t = project_table(t, pr.exprs, pr.out_fields, ctx.chain)
         return t, mask
     return node.execute(tables, ctx), None
 
@@ -397,16 +396,14 @@ class PAggregate(PhysicalPlan):
         elif isinstance(node, PFilter) and not isinstance(node.child, PFilter):
             if _expandable_join(node.child, ctx):
                 child, match = node.child.execute_expanded(tables, ctx)
-                v, valid, _ = node.predicate.eval(child)
-                row_filter = match & valid & v.to(torch.bool)
+                row_filter = predicate_mask(node.predicate, child, ctx.chain, and_mask=match)
             else:
                 child = node.child.execute(tables, ctx)
-                v, valid, _ = node.predicate.eval(child)
-                row_filter = valid & v.to(torch.bool)
+                row_filter = predicate_mask(node.predicate, child, ctx.chain)
             ctx.join_totals[node.node_id] = _zero(child)
         if child is not None:
             for p in reversed(projs):
-                child = project_table(child, p.exprs, p.out_fields)
+                child = project_table(child, p.exprs, p.out_fields, ctx.chain)
             return child, row_filter
         return self.child.execute(tables, ctx), None
 

@@ -80,6 +80,15 @@ class DictMap(Expr):
         lut = self._device_lut(v.device)
         return lut[v.long().clamp(0, lut.shape[0] - 1)], valid, STRING
 
+    def emit(self, c):
+        """K17's LUT op: the table rides in the program's tables, which
+        reach the card once per program."""
+        import torch
+        from ..kernels import expr_eval as k17
+        r, _ = self.child.emit(c)
+        lut = self.lut.astype(np.int32).astype(np.int64)
+        return c.op(k17.LUT, torch.int32, c.cast(r, torch.int64), imm=c.table(lut)), STRING
+
     def _device_lut(self, device):
         """The LUT as an int32 tensor on `device`, uploaded once per device.
         Codes outside it clamp to its ends, as jnp.take's mode="clip"."""
@@ -103,9 +112,18 @@ class ScalarValue(Expr):
     name: str = "scalar_subquery"
 
     def eval(self, t):
+        return self.literal().eval(t)
+
+    def literal(self) -> Lit:
         if self.holder[0] is _UNSET:
             raise PlanError("scalar subquery value not yet computed")
-        return Lit(self.holder[0], self.dtype_box[0]).eval(t)
+        return Lit(self.holder[0], self.dtype_box[0])
+
+    def emit(self, c):
+        """A register K17 fills at each launch from `literal()`: the value
+        is read when the program runs, not frozen into the cached program."""
+        dt = self.dtype_box[0]
+        return c.scalar(self, dt.device_dtype), dt
 
     def __repr__(self):
         return self.name

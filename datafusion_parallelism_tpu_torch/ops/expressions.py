@@ -7,18 +7,23 @@ scaled int64 up to scale 4, division by zero gives NULL, and strings are
 dictionary codes (string predicates arrive as `InCodes` code sets).
 
 Each `eval(t)` returns (values, validity, DType) as torch tensors on the
-table's device. These are plain elementwise torch ops; a fused expression
-kernel is still to port (ROADMAP queue 2).
+table's device, in plain elementwise torch ops: the reference. The engine
+evaluates through `evaluate` and `predicate_mask`, which compile the trees
+(each class's `emit`, the same type rules as its `eval`) into one typed
+program (`compile_exprs`, cached per tree) and run it through K17
+(kernels/expr_eval.py): the kernel on CUDA tables, its plain version, the
+program one torch op at a time, on CPU tables.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels import expr_eval as k17
 from ..utils.columnar import (BOOL, DATE32, DECIMAL, FLOAT64, INT32, INT64,
                               DeviceTable, DType, Kind)
 
@@ -75,6 +80,10 @@ class Expr:
     def eval(self, t: DeviceTable) -> EvalResult:
         raise NotImplementedError
 
+    def emit(self, c: "Compiler") -> Tuple[int, DType]:
+        """Append this node's instructions to `c`: (its register, DType)."""
+        raise NotImplementedError(f"{type(self).__name__} has no compiled form")
+
     def __repr__(self):
         return self.__class__.__name__
 
@@ -86,6 +95,9 @@ class Col(Expr):
     def eval(self, t):
         v, valid = t.column(self.name)
         return v, valid, t.schema.field(self.name).dtype
+
+    def emit(self, c):
+        return c.col(self.name), c.schema.field(self.name).dtype
 
     def __repr__(self):
         return self.name
@@ -102,11 +114,24 @@ class Lit(Expr):
         if self.value is None:
             return (torch.zeros(cap, dtype=self.dtype.device_dtype, device=dev),
                     torch.zeros(cap, dtype=torch.bool, device=dev), self.dtype)
-        raw = self.value
-        if self.dtype.kind is Kind.DECIMAL and not self.raw:
-            raw = int(round(float(raw) * 10 ** self.dtype.scale))
-        v = torch.full((cap,), raw, dtype=self.dtype.device_dtype, device=dev)
+        v = torch.full((cap,), self.raw_value(), dtype=self.dtype.device_dtype, device=dev)
         return v, torch.ones(cap, dtype=torch.bool, device=dev), self.dtype
+
+    def raw_value(self):
+        """The value as the column holds it (a DECIMAL scaled to int)."""
+        if self.dtype.kind is Kind.DECIMAL and not self.raw:
+            return int(round(float(self.value) * 10 ** self.dtype.scale))
+        return self.value
+
+    def bits(self) -> Tuple[int, bool]:
+        """(register bits, valid) of this literal's elements."""
+        if self.value is None:
+            return 0, False
+        return k17.literal_bits(self.raw_value(), self.dtype.device_dtype), True
+
+    def emit(self, c):
+        bits, ok = self.bits()
+        return c.const(bits, self.dtype.device_dtype, ok), self.dtype
 
     def __repr__(self):
         return f"lit({self.value})"
@@ -175,6 +200,52 @@ class BinOp(Expr):
             return v, valid, dt
         raise ValueError(f"unknown op {op}")
 
+    def emit(self, c):
+        lr, ldt = self.left.emit(c)
+        rr, rdt = self.right.emit(c)
+        op = self.op
+        if op in ("and", "or"):
+            return c.op(k17.AND if op == "and" else k17.OR, torch.bool, c.to_bool(lr),
+                        c.to_bool(rr)), BOOL
+        if op in _CMP:
+            ints = (Kind.INT32, Kind.INT64)
+            if ldt.kind is Kind.STRING or rdt.kind is Kind.STRING or (
+                    ldt.kind is Kind.DECIMAL and rdt.kind is Kind.DECIMAL
+                    and ldt.scale == rdt.scale):
+                a, b = lr, rr
+            elif ldt.kind is Kind.DECIMAL and rdt.kind in ints:
+                a, b = c.cast(lr, torch.int64), c.scale(c.cast(rr, torch.int64), ldt.scale)
+            elif rdt.kind is Kind.DECIMAL and ldt.kind in ints:
+                a, b = c.scale(c.cast(lr, torch.int64), rdt.scale), c.cast(rr, torch.int64)
+            else:
+                a, b, _ = c.promote(lr, ldt, rr, rdt)
+            a, b = c.common(a, b)
+            return c.op(_CMP_OP[op], torch.bool, a, b, k17.DT_OF[c.dtype[a]]), BOOL
+        if op in _ARITH:
+            d = c.decimal_arith(op, lr, ldt, rr, rdt)
+            if d is not None:
+                return d
+            a, b, dt = c.promote(lr, ldt, rr, rdt)
+            if op in ("+", "-", "*"):
+                a, b = c.common(a, b)
+                if c.dtype[a] == torch.bool and op == "-":
+                    raise TypeError("subtraction of two bool tensors")
+                return c.op(_ARITH_OP[op], c.dtype[a], a, b), dt
+            if op == "/" and dt.kind in (Kind.INT32, Kind.INT64):
+                a, b = c.common(a, b)
+                return c.op(k17.IDIV, c.dtype[a], a, b), dt
+            if op == "/":   # a / where(b != 0, b, 1.0): b's float type, else float32
+                bt = c.dtype[b] if c.dtype[b].is_floating_point else torch.float32
+                b = c.cast(b, bt)
+                a, b = c.common(a, b)
+                return c.op(k17.FDIV, c.dtype[a], a, b), dt
+            # %: remainder(a, where(b != 0, b, 1))
+            if c.dtype[b] == torch.bool:
+                b = c.cast(b, torch.int64)
+            a, b = c.common(a, b)
+            return c.op(k17.MOD, c.dtype[a], a, b), dt
+        raise ValueError(f"unknown op {op}")
+
     def __repr__(self):
         return f"({self.left} {self.op} {self.right})"
 
@@ -187,6 +258,10 @@ class Not(Expr):
         v, valid, _ = self.child.eval(t)
         return ~v.to(torch.bool), valid, BOOL
 
+    def emit(self, c):
+        r, _ = self.child.emit(c)
+        return c.op(k17.NOT, torch.bool, c.to_bool(r)), BOOL
+
 
 @dataclass(repr=False)
 class IsNull(Expr):
@@ -196,6 +271,10 @@ class IsNull(Expr):
     def eval(self, t):
         _, valid, _ = self.child.eval(t)
         return (valid if self.negated else ~valid), torch.ones_like(valid), BOOL
+
+    def emit(self, c):
+        r, _ = self.child.emit(c)
+        return c.op(k17.ISNULL, torch.bool, r, int(self.negated)), BOOL
 
 
 @dataclass(repr=False)
@@ -214,6 +293,20 @@ class Cast(Expr):
             return torch.round(f).to(torch.int64), valid, self.to
         return v.to(self.to.device_dtype), valid, self.to
 
+    def emit(self, c):
+        r, dt = self.child.emit(c)
+        if dt == self.to:
+            return r, dt
+        if self.to.kind in (Kind.FLOAT32, Kind.FLOAT64):
+            return c.cast(c.as_float(r, dt), self.to.device_dtype), self.to
+        if self.to.kind is Kind.DECIMAL:
+            f = c.as_float(r, dt)
+            f = c.op(k17.MUL, torch.float64, f,
+                     c.const(k17.literal_bits(10 ** self.to.scale, torch.float64),
+                             torch.float64))
+            return c.cast(c.op(k17.ROUND, torch.float64, f), torch.int64), self.to
+        return c.cast(r, self.to.device_dtype), self.to
+
 
 @dataclass(repr=False)
 class InCodes(Expr):
@@ -228,6 +321,18 @@ class InCodes(Expr):
         codes = torch.from_numpy(np.sort(np.asarray(self.codes))).to(v.device)
         member = torch.isin(v.to(codes.dtype), codes)
         return (~member if self.negated else member), valid, BOOL
+
+    def emit(self, c):
+        r, _ = self.child.emit(c)
+        codes = np.sort(np.asarray(self.codes))
+        cdt = torch.from_numpy(codes).dtype
+        if cdt not in k17.DT_OF:
+            raise TypeError(f"InCodes over {cdt} codes has no compiled form")
+        r = c.cast(r, cdt)
+        floating = cdt.is_floating_point
+        words = codes.astype(np.float64).view(np.int64) if floating else codes.astype(np.int64)
+        return c.op(k17.INSET, torch.bool, r, int(self.negated), k17.DT_OF[cdt],
+                    imm=c.table(words)), BOOL
 
 
 def _widen(a: torch.Tensor, b: torch.Tensor):
@@ -258,6 +363,19 @@ class Case(Expr):
             out_valid = torch.where(hit, vvalid, out_valid)
         return out_v, out_valid, vdt
 
+    def emit(self, c):
+        branches = [(cond.emit(c)[0], val.emit(c)) for cond, val in self.whens]
+        vdt = branches[0][1][1]
+        if self.otherwise is not None:
+            out = self.otherwise.emit(c)[0]
+        else:
+            out = c.const(0, vdt.device_dtype, False)
+        for cond, (val, _) in reversed(branches):
+            hit = c.to_bool(cond)
+            val, out = c.common(val, out)
+            out = c.op(k17.SELECT, c.dtype[val], hit, val, out)
+        return out, vdt
+
 
 @dataclass(repr=False)
 class ExtractDatePart(Expr):
@@ -285,6 +403,11 @@ class ExtractDatePart(Expr):
         out = {"year": y, "month": m, "day": d}[self.part]
         return out.to(torch.int32), valid, INT32
 
+    def emit(self, c):
+        r, _ = self.child.emit(c)
+        part = ("year", "month", "day").index(self.part)
+        return c.op(k17.DATEPART, torch.int32, c.cast(r, torch.int32), part), INT32
+
 
 @dataclass(repr=False)
 class Coalesce(Expr):
@@ -299,3 +422,241 @@ class Coalesce(Expr):
             out_valid = valid | out_valid
             dt = vdt
         return out_v, out_valid, dt
+
+    def emit(self, c):
+        rs = [ch.emit(c) for ch in self.children]
+        out, dt = rs[-1]
+        for r, vdt in reversed(rs[:-1]):
+            r, out = c.common(r, out)
+            out = c.op(k17.COALESCE, c.dtype[r], r, out)
+            dt = vdt
+        return out, dt
+
+
+_CMP_OP = {"=": k17.EQ, "<>": k17.NE, "<": k17.LT, "<=": k17.LE, ">": k17.GT, ">=": k17.GE}
+_ARITH_OP = {"+": k17.ADD, "-": k17.SUB, "*": k17.MUL}
+
+
+class Compiler:
+    """Builds a K17 program from expression trees over one table's schema
+    and column dtypes (`compile_exprs`). Registers are virtual while the
+    nodes emit (one per instruction); `finish` maps them onto the few
+    physical registers that are live at once. Type rules are those of the
+    trees' `eval`: a register's torch dtype is its tensor's dtype there."""
+
+    def __init__(self, t: DeviceTable):
+        self.schema = t.schema
+        self._col_dtype = {n: v.dtype for n, (v, _) in t.columns.items()}
+        self.code: List[List[int]] = []     # op, dt, dst, a, b, c, imm
+        self.dtype: List[torch.dtype] = []  # per virtual register
+        self.cols: List[str] = []
+        self._tables: List[np.ndarray] = []
+        self._table_len = 0
+        self.scalars: List[object] = []
+
+    def op(self, op: int, dtype: torch.dtype, a: int = 0, b: int = 0, c: int = 0,
+           imm: int = 0) -> int:
+        self.code.append([op, k17.DT_OF[dtype], len(self.dtype), a, b, c, imm])
+        self.dtype.append(dtype)
+        return len(self.dtype) - 1
+
+    def col(self, name: str) -> int:
+        if name not in self.cols:
+            self.cols.append(name)
+        return self.op(k17.COL, self._col_dtype[name], self.cols.index(name))
+
+    def const(self, bits: int, dtype: torch.dtype, valid: bool = True) -> int:
+        return self.op(k17.CONST, dtype, 0, int(valid), imm=bits if valid else 0)
+
+    def scalar(self, node, dtype: torch.dtype) -> int:
+        """A register filled at each launch from `node.literal()`."""
+        self.scalars.append(node)
+        return self.op(k17.SCALAR, dtype, len(self.scalars) - 1)
+
+    def table(self, words: np.ndarray) -> int:
+        """imm of an int64 table appended to the program: offset << 32 | length."""
+        off = self._table_len
+        self._tables.append(np.asarray(words, dtype=np.int64))
+        self._table_len += len(words)
+        return (off << 32) | len(words)
+
+    def cast(self, r: int, dtype: torch.dtype) -> int:
+        """torch's `.to(dtype)` (no instruction when the dtype is the same)."""
+        if self.dtype[r] == dtype:
+            return r
+        return self.op(k17.CAST, dtype, r, 0, k17.DT_OF[self.dtype[r]])
+
+    def to_bool(self, r: int) -> int:
+        return self.cast(r, torch.bool)
+
+    def common(self, a: int, b: int) -> Tuple[int, int]:
+        """Both operands in torch's promoted dtype (`_widen`, and the
+        implicit promotion of a binary torch op)."""
+        wide = torch.promote_types(self.dtype[a], self.dtype[b])
+        return self.cast(a, wide), self.cast(b, wide)
+
+    def scale(self, r: int, scale: int) -> int:
+        """int64 register times 10**scale (no instruction for scale 0)."""
+        if scale == 0:
+            return r
+        return self.op(k17.MUL, torch.int64, r, self.const(10 ** scale, torch.int64))
+
+    def as_float(self, r: int, dt: DType) -> int:
+        """`_as_float`: float64, a DECIMAL divided by 10.0 ** scale."""
+        f = self.cast(r, torch.float64)
+        if dt.kind is Kind.DECIMAL:
+            ten = self.const(k17.literal_bits(10.0 ** dt.scale, torch.float64), torch.float64)
+            f = self.op(k17.FDIV, torch.float64, f, ten)
+        return f
+
+    def promote(self, lr: int, ldt: DType, rr: int, rdt: DType):
+        """`_promote` over registers."""
+        if ldt == rdt and ldt.kind is not Kind.DECIMAL:
+            return lr, rr, ldt
+        num_f = (Kind.FLOAT32, Kind.FLOAT64, Kind.DECIMAL)
+        if ldt.kind in num_f or rdt.kind in num_f:
+            return self.as_float(lr, ldt), self.as_float(rr, rdt), FLOAT64
+        wide = torch.promote_types(self.dtype[lr], self.dtype[rr])
+        out = INT64 if wide == torch.int64 else (
+            DATE32 if Kind.DATE32 in (ldt.kind, rdt.kind) else INT32)
+        return self.cast(lr, wide), self.cast(rr, wide), out
+
+    def decimal_arith(self, op, lr, ldt: DType, rr, rdt: DType):
+        """`_decimal_arith` over registers: (register, DType) or None."""
+        kinds = (ldt.kind, rdt.kind)
+        ints = (Kind.INT32, Kind.INT64)
+        if Kind.DECIMAL not in kinds or op not in ("+", "-", "*"):
+            return None
+        if not all(k is Kind.DECIMAL or k in ints for k in kinds):
+            return None
+        ls = ldt.scale if ldt.kind is Kind.DECIMAL else 0
+        rs = rdt.scale if rdt.kind is Kind.DECIMAL else 0
+        a, b = self.cast(lr, torch.int64), self.cast(rr, torch.int64)
+        if op == "*":
+            if ls + rs > _MAX_DECIMAL_SCALE:
+                return None
+            return self.op(k17.MUL, torch.int64, a, b), DECIMAL(ls + rs)
+        s = max(ls, rs)
+        if s > _MAX_DECIMAL_SCALE:
+            return None
+        a, b = self.scale(a, s - ls), self.scale(b, s - rs)
+        return self.op(_ARITH_OP[op], torch.int64, a, b), DECIMAL(s)
+
+    def finish(self, roots: Sequence[int]) -> k17.Program:
+        """The program with its virtual registers mapped onto physical ones:
+        a register is free again after its last read (a root's never)."""
+        last = {}
+        for i, (op, *_rest) in enumerate(self.code):
+            for f in k17.READS[op]:
+                last[self.code[i][3 + "abc".index(f)]] = i
+        for r in roots:
+            last[r] = len(self.code)
+        phys, free, n_regs, code = {}, [], 0, []
+        for i, (op, dt, dst, a, b, c, imm) in enumerate(self.code):
+            ops = {"a": a, "b": b, "c": c}
+            for f in k17.READS[op]:
+                ops[f] = phys[ops[f]]
+            for f in set(k17.READS[op]):
+                v = (a, b, c)["abc".index(f)]
+                if last[v] == i and phys[v] not in free:
+                    free.append(phys[v])
+            if free:
+                free.sort()
+                phys[dst] = free.pop(0)
+            else:
+                phys[dst], n_regs = n_regs, n_regs + 1
+            if dst not in last:             # never read
+                free.append(phys[dst])
+            u = imm & 0xFFFFFFFFFFFFFFFF
+            code.append([op, dt, phys[dst], ops["a"], ops["b"], ops["c"],
+                         u & 0xFFFFFFFF, u >> 32])
+        arr = np.array(code, dtype=np.int64).reshape(-1, 8)
+        arr = ((arr + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+        tables = (np.concatenate(self._tables) if self._tables
+                  else np.zeros(1, dtype=np.int64))
+        return k17.Program(arr, n_regs, tuple(self.cols),
+                           tuple((phys[r], self.dtype[r]) for r in roots), tables,
+                           tuple(self.scalars))
+
+
+def compile_exprs(exprs: Sequence[Expr], t: DeviceTable) -> Tuple[k17.Program, List[DType]]:
+    """One K17 program computing every expression of `exprs` over tables of
+    t's schema and column dtypes, and their DTypes. Cached on the first
+    tree, by the identity of the trees and the schema's fields and dtypes."""
+    key = (tuple(id(e) for e in exprs),
+           tuple((f.name, f.dtype, t.columns[f.name][0].dtype) for f in t.schema.fields))
+    cache = exprs[0].__dict__.setdefault("_k17_programs", {})
+    hit = cache.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], exprs)):
+        return hit[1], hit[2]
+    c = Compiler(t)
+    emitted = [e.emit(c) for e in exprs]
+    program = c.finish([r for r, _ in emitted])
+    cache[key] = (tuple(exprs), program, [dt for _, dt in emitted])
+    return program, cache[key][2]
+
+
+def _launch(program: k17.Program, t: DeviceTable, kernels, mask=None):
+    scalars = tuple(node.literal().bits() for node in program.scalars)
+    columns = [t.column(n) for n in program.cols]
+    fn = kernels.expr_eval if kernels is not None else k17.expr_eval
+    return fn(program, columns, t.capacity, scalars, mask, t.device)
+
+
+def evaluate(exprs: Sequence[Expr], t: DeviceTable, kernels=None) -> List[EvalResult]:
+    """(values, validity, DType) of each expression over t, as its `eval`
+    gives them: one K17 launch (through `kernels`, a ChainKernels table)
+    computes all of them (one launch per 32); an expression that is a
+    column as it stands (a Col, or a Cast to its own type) is that
+    column's tensors."""
+    out: List[Optional[EvalResult]] = []
+    for e in exprs:
+        name = _passthrough(e, t)
+        out.append(None if name is None else (*t.column(name), t.schema.field(name).dtype))
+    computed = [e for e, o in zip(exprs, out) if o is None]
+    results = []
+    for group in _groups(computed, t):
+        program, dts = compile_exprs(group, t)
+        results += [_with_dtype(r, dt) for r, dt in zip(_launch(program, t, kernels), dts)]
+    results = iter(results)
+    return [o if o is not None else next(results) for o in out]
+
+
+def _fits(program: k17.Program) -> bool:
+    return (len(program.code) <= k17.MAX_CODE and program.n_regs <= k17.MAX_REGS
+            and len(program.cols) <= k17.MAX_COLS and len(program.scalars) <= k17.MAX_SCALARS)
+
+
+def _groups(exprs: List[Expr], t: DeviceTable) -> List[List[Expr]]:
+    """`exprs` cut into runs that one launch takes: at most MAX_OUTS roots,
+    halved until each program fits the kernel's instruction, register,
+    column and scalar limits (a single tree past them stays whole, and the
+    kernel refuses it)."""
+    if not exprs:
+        return []
+    if len(exprs) == 1 or (len(exprs) <= k17.MAX_OUTS and _fits(compile_exprs(exprs, t)[0])):
+        return [exprs]
+    half = min(len(exprs) // 2, k17.MAX_OUTS)
+    return _groups(exprs[:half], t) + _groups(exprs[half:], t)
+
+
+def _with_dtype(result, dt: DType) -> EvalResult:
+    return result[0], result[1], dt
+
+
+def _passthrough(e: Expr, t: DeviceTable) -> Optional[str]:
+    """The column an expression is as it stands, or None."""
+    while isinstance(e, Cast) and isinstance(e.child, Col) \
+            and t.schema.field(e.child.name).dtype == e.to:
+        e = e.child
+    return e.name if isinstance(e, Col) else None
+
+
+def predicate_mask(predicate: Expr, t: DeviceTable, kernels=None, in_rows: bool = False,
+                   and_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bool [capacity]: valid & value of `predicate` over t (a NULL rejects
+    the row), False past t.num_rows where `in_rows`, and ANDed with
+    `and_mask`: one K17 launch in mask mode."""
+    program, _ = compile_exprs([predicate], t)
+    num_rows = t.num_rows.to(torch.int32) if in_rows else None
+    return _launch(program, t, kernels, (num_rows, and_mask))

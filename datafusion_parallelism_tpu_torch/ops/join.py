@@ -1,4 +1,5 @@
-"""Vectorized hash join (torch): all eight join types on the CSR strategy.
+"""Vectorized hash join (torch): all eight join types on the CSR, SORT and
+OA strategies.
 
 Counterpart of `datafusion_parallelism_tpu/ops/join.py`. Two paths, as in
 the JAX package:
@@ -13,23 +14,29 @@ the JAX package:
 
 The kernels, each reached through a `JoinKernels` table:
 
-  K1  hash_slot       row hash and bucket of both sides (+ build_valid)
+  K1  hash_slot       row hash and bucket (OA: home slot) of both sides
   K2  csr_build       CSR table + build rows in bucket order
-  K3  probe_expand    candidate ranges (probe_ranges), candidate pairs and
-                      the bitwise key recheck of the deferred path
+  K3  probe_expand    CSR candidate ranges (probe_ranges); the candidate
+                      pairs of any strategy's ranges and the bitwise key
+                      recheck of the deferred path (expand_ranges)
   K4  compact_gather  stable compaction + full packed-row gather (deferred)
+  K6  table_sort      SORT / OA: the build rows' stable order by hash
   K9  pair_fetch      whole candidate rows + the value recheck (full fetch)
   K10 match_flags     visited build rows / matched probe rows
   K11 concat_rows     pairs + unmatched rows of LEFT/RIGHT/FULL joins
+  K14 sorted_probe    SORT: candidate ranges by binary search
+  K15 oa_place        OA: the rows parked into the open-addressing slots
+  K16 oa_probe        OA: candidate ranges by linear-probe walks
 
-plus K5 and K12 (through the chain's `ChainKernels`) for the compactions
-of the full-fetch pairs and of semi, anti and unmatched rows, and for
-packing and unpacking every table. Each wrapper launches its CUDA kernel on
-CUDA tensors and runs its plain torch version on CPU tensors.
+plus K5 and K12 (through the chain's `ChainKernels`) for the SORT and OA
+builds' rows in table order, the compactions of the full-fetch pairs and
+of semi, anti and unmatched rows, and for packing and unpacking every
+table. Each wrapper launches its CUDA kernel on CUDA tensors and runs its
+plain torch version on CPU tensors.
 
-A frozen build side (`prepare_build`, JAX :85-162) is K1 and K2 run once:
-streamed and grace-partitioned execution probe it with every chunk. The
-SORT and OA strategies raise NotImplementedError naming their ROADMAP item.
+A frozen build side (`prepare_build`, JAX :85-162) is K1 and the
+strategy's build run once: streamed and grace-partitioned execution probe
+it with every chunk.
 """
 
 from __future__ import annotations
@@ -44,13 +51,19 @@ from ..kernels import concat_rows as k11
 from ..kernels import csr_build as k2
 from ..kernels import hash_slot as k1
 from ..kernels import match_flags as k10
+from ..kernels import oa_place as k15
+from ..kernels import oa_probe as k16
 from ..kernels import pair_fetch as k9
 from ..kernels import probe_expand as k3
+from ..kernels import radix_sort as k6
+from ..kernels import sorted_probe as k14
+from ..kernels.chain import KERNELS as CHAIN_KERNELS
 from ..kernels.chain import ChainKernels
 from ..utils.columnar import (DeviceTable, Kind, PackedTable, Schema, compact_rows,
                               concat_tables, f64_matrix, filter_rows, hstack_tables,
                               int64_words, null_columns_like, pack_table, unpack_table)
-from .hash_table import JoinStrategy, table_size_for
+from .hash_table import (JoinStrategy, JoinTable, oa_table_rows, sort_table_rows,
+                         table_ranges, table_size_for)
 from .hashing import KIND_I32, KIND_I64, key_words
 
 
@@ -162,15 +175,16 @@ def _fetch_keys(blayout, playout, build_keys, probe_keys):
 
 
 class PreparedBuild(NamedTuple):
-    """A frozen build side: the table, its packed rows, its CSR descriptor
-    and its rows in bucket order, built once and probed by any number of
-    streamed probe chunks (JAX ops/join.py:85). `perm_rows` is K2's
-    output over the packed words with the float64 sidecars as word pairs
-    (`_with_f64_pairs`) and the row id last: the deferred path reads its
-    key rows, the full-fetch path (K9) all of them."""
+    """A frozen build side: the table, its packed rows, its strategy's
+    lookup table and its rows in that table's order, built once and probed
+    by any number of streamed probe chunks (JAX ops/join.py:85).
+    `perm_rows` is the packed words with the float64 sidecars as word pairs
+    (`_with_f64_pairs`) and the row id last, in table order (bucket order,
+    sorted order, or slot order with S columns under OA): the deferred path
+    reads its key rows, the full-fetch path (K9) all of them."""
     build: DeviceTable
     packed: PackedTable
-    start_count: torch.Tensor
+    table: JoinTable
     perm_rows: torch.Tensor
 
 
@@ -178,27 +192,35 @@ class JoinKernels(NamedTuple):
     """The join's stages, as functions with the kernels' contracts."""
     hash_slot: Callable        # K1
     csr_build: Callable        # K2
-    probe_expand: Callable     # K3 (ranges + candidates + bitwise recheck)
     compact_gather: Callable   # K4
-    probe_ranges: Callable     # K3's first pass alone (the full-fetch path)
+    probe_ranges: Callable     # K3's first pass: the CSR ranges and their scan
     pair_fetch: Callable       # K9
     match_flags: Callable      # K10
     concat_rows: Callable      # K11
+    expand_ranges: Callable    # K3's second pass: candidates + bitwise recheck
+    table_sort: Callable       # K6, the SORT and OA builds' order
+    sorted_probe: Callable     # K14
+    oa_place: Callable         # K15
+    oa_probe: Callable         # K16
 
 
 # the kernel each entry point belongs to
 KERNEL_OF = {"hash_slot": "hash_slot", "csr_build": "csr_build",
-             "probe_expand": "probe_expand", "compact_gather": "compact_gather",
-             "probe_ranges": "probe_expand", "pair_fetch": "pair_fetch",
-             "match_flags": "match_flags", "concat_rows": "concat_rows"}
+             "compact_gather": "compact_gather", "probe_ranges": "probe_expand",
+             "pair_fetch": "pair_fetch", "match_flags": "match_flags",
+             "concat_rows": "concat_rows", "expand_ranges": "probe_expand",
+             "table_sort": "radix_sort", "sorted_probe": "sorted_probe",
+             "oa_place": "oa_place", "oa_probe": "oa_probe"}
 
 # the wrappers: kernels on CUDA tensors, plain versions on CPU tensors
-KERNELS = JoinKernels(k1.hash_slot, k2.csr_build, k3.probe_expand, k4.compact_gather,
-                      k3.probe_ranges, k9.pair_fetch, k10.match_flags, k11.concat_rows)
+KERNELS = JoinKernels(k1.hash_slot, k2.csr_build, k4.compact_gather, k3.probe_ranges,
+                      k9.pair_fetch, k10.match_flags, k11.concat_rows, k3.expand_ranges,
+                      k6.radix_sort, k14.sorted_probe, k15.oa_place, k16.oa_probe)
 # the plain versions on any device: the reference the kernel path is held to
-PLAIN = JoinKernels(k1.hash_slot_plain, k2.csr_build_plain, k3.probe_expand_plain,
-                    k4.compact_gather_plain, k3.probe_ranges_plain, k9.pair_fetch_plain,
-                    k10.match_flags_plain, k11.concat_rows_plain)
+PLAIN = JoinKernels(k1.hash_slot_plain, k2.csr_build_plain, k4.compact_gather_plain,
+                    k3.probe_ranges_plain, k9.pair_fetch_plain, k10.match_flags_plain,
+                    k11.concat_rows_plain, k3.expand_ranges_plain, k6.radix_sort_plain,
+                    k14.sorted_probe_plain, k15.oa_place_plain, k16.oa_probe_plain)
 
 
 def _hash_cols(compares, side: int):
@@ -225,21 +247,45 @@ def _with_f64_pairs(pt: PackedTable) -> torch.Tensor:
     return torch.cat([pt.packed, torch.stack(pairs)])
 
 
+def _build_table(strategy: JoinStrategy, kernels: JoinKernels, chain: ChainKernels,
+                 words, cols, T: int, num_rows, build_valid, rows):
+    """K1 over the build's key words (null keys, padding and rows outside
+    `build_valid` to slot T), then the strategy's table with `rows` [R, cap]
+    and the row id in its row order: K2 (CSR); K6 and K5's gather (SORT);
+    K6, K15 and K5's gather (OA). Returns (JoinTable, rows in table order)."""
+    hashes, slot = kernels.hash_slot(words, cols, T, num_rows, build_valid)
+    if strategy is JoinStrategy.CSR:
+        _, offsets, perm, start_count, rows_out = kernels.csr_build(slot, T, rows)
+        return JoinTable(offsets, perm, hashes.new_empty(0, dtype=torch.int64),
+                         start_count), rows_out
+    ok = slot != T
+    if strategy is JoinStrategy.SORT:
+        return sort_table_rows(hashes, ok, rows, kernels.table_sort, chain.gather_rows)
+    return oa_table_rows(hashes, slot, ok, T, rows, kernels.table_sort, kernels.oa_place,
+                         chain.gather_rows)
+
+
+def _probe_table(table: JoinTable, kernels: JoinKernels, words, cols, T: int, ok):
+    """K1 over the probe's key words, then the candidate ranges (start,
+    count, base, total): K3's first pass, K14 or K16."""
+    hashes, slot = kernels.hash_slot(words, cols, None if table.is_sort else T)
+    return table_ranges(table, hashes, slot, ok, kernels.probe_ranges, kernels.sorted_probe,
+                        kernels.oa_probe)
+
+
 def prepare_build(build: DeviceTable, build_keys: List[str],
                   strategy: JoinStrategy = JoinStrategy.CSR, kernels: JoinKernels = KERNELS,
                   chain: Optional[ChainKernels] = None) -> PreparedBuild:
     """Freeze `build` for repeated probing: K12 packs it, K1 hashes its key
-    values (null keys and padding to bucket T) and K2 builds the CSR
-    descriptor and puts every row in bucket order."""
-    if strategy is not JoinStrategy.CSR:
-        raise NotImplementedError(
-            f"the {strategy.name} strategy is not ported (ROADMAP queue 1 item 11)")
+    values (null keys and padding to slot T) and the strategy's build
+    (`_build_table`) makes its table and puts every row in table order."""
+    chain = chain or CHAIN_KERNELS
     bp = pack_table(build, chain)
     T = table_size_for(build.capacity)
     words, cols = key_words([build.column(k) for k in build_keys])
-    _, slot = kernels.hash_slot(words, cols, T, build.num_rows)
-    _, _, _, start_count, perm_rows = kernels.csr_build(slot, T, _with_f64_pairs(bp))
-    return PreparedBuild(build, bp, start_count, perm_rows)
+    table, perm_rows = _build_table(strategy, kernels, chain, words, cols, T, build.num_rows,
+                                    None, _with_f64_pairs(bp))
+    return PreparedBuild(build, bp, table, perm_rows)
 
 
 def inner_csr_join(build: DeviceTable, probe: DeviceTable, build_keys: List[str],
@@ -283,9 +329,7 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
     join reaches."""
     if len(build_keys) != len(probe_keys) or not build_keys:
         raise ValueError("join needs the same number (>= 1) of keys on both sides")
-    if strategy is not JoinStrategy.CSR:
-        raise NotImplementedError(
-            f"the {strategy.name} strategy is not ported (ROADMAP queue 1 item 11)")
+    chain = chain or CHAIN_KERNELS
     if prepared is not None:
         if build_valid is not None:
             raise ValueError("a prepared build side cannot carry a mask")
@@ -310,32 +354,32 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
 
     if plan is not None:
         brows, prows, compares = plan
-        if prepared is not None:   # its key word rows and the row id, in perm order
-            start_count, rows = prepared.start_count, prepared.perm_rows
+        if prepared is not None:   # its key word rows and the row id, in table order
+            table, rows = prepared.table, prepared.perm_rows
             bsorted = torch.stack([rows[r] for r in brows] + [rows[-1]])
         else:
             bnarrow = _word_rows(bp, brows)
-            _, bslot = kernels.hash_slot(bnarrow, _hash_cols(compares, 0), T, build.num_rows,
-                                         build_valid)
-            _, _, _, start_count, bsorted = kernels.csr_build(bslot, T, bnarrow)
+            table, bsorted = _build_table(strategy, kernels, chain, bnarrow,
+                                          _hash_cols(compares, 0), T, build.num_rows,
+                                          build_valid, bnarrow)
         pnarrow = _word_rows(pp, prows)
-        _, pslot = kernels.hash_slot(pnarrow, _hash_cols(compares, 1), T)
-        *_, total, match, probe_idx, build_id = kernels.probe_expand(
-            pslot, probe_ok, start_count, pnarrow, bsorted, compares, out_cap)
+        ranges = _probe_table(table, kernels, pnarrow, _hash_cols(compares, 1), T, probe_ok)
+        total = ranges[3]
+        match, probe_idx, build_id = kernels.expand_ranges(*ranges, pnarrow, bsorted, compares,
+                                                           out_cap)
         gb = gp = None
     else:
         # full fetch: the build's whole rows (float64 sidecars as word pairs)
-        # go into perm order with K2 (JAX `_perm_rows`), K9 fetches both
-        # sides' rows at every candidate slot and rechecks the keys by value
+        # go into table order (JAX `_perm_rows`), K9 fetches both sides'
+        # rows at every candidate slot and rechecks the keys by value
         if prepared is not None:
-            start_count, bperm = prepared.start_count, prepared.perm_rows
+            table, bperm = prepared.table, prepared.perm_rows
         else:
             bwords, bcols = key_words([build.column(k) for k in build_keys])
-            _, bslot = kernels.hash_slot(bwords, bcols, T, build.num_rows, build_valid)
-            _, _, _, start_count, bperm = kernels.csr_build(bslot, T, _with_f64_pairs(bp))
+            table, bperm = _build_table(strategy, kernels, chain, bwords, bcols, T,
+                                        build.num_rows, build_valid, _with_f64_pairs(bp))
         pwords, pcols = key_words([probe.column(k) for k in probe_keys])
-        _, pslot = kernels.hash_slot(pwords, pcols, T)
-        start, _, base, total = kernels.probe_ranges(pslot, probe_ok, start_count)
+        start, _, base, total = _probe_table(table, kernels, pwords, pcols, T, probe_ok)
         out_b, out_bf, out_p, out_pf, probe_idx, build_id, match = kernels.pair_fetch(
             start, base, total, pp.packed, f64_matrix(pp), bperm, len(bp.f64s),
             _fetch_keys(bp.layout, pp.layout, build_keys, probe_keys), out_cap)

@@ -11,11 +11,10 @@ capacity overflows runs again at the grown one (run -> check -> grow).
 
 from __future__ import annotations
 
-import torch
-
 from ..kernels.chain import KERNELS, ChainKernels
 from ..utils.columnar import DeviceTable, round_capacity
 from .aggregate import hash_aggregate_counted
+from .expressions import predicate_mask
 from .filter import filter_table
 from .project import project_table
 from .sort import limit_table, sort_table
@@ -51,12 +50,11 @@ def run_steps(t: DeviceTable, steps, caps=None, kernels: ChainKernels = KERNELS)
     for i, step in enumerate(steps):
         kind = step[0]
         if kind == "project":
-            t = project_table(t, step[1], step[2] if len(step) > 2 else None)
+            t = project_table(t, step[1], step[2] if len(step) > 2 else None, kernels)
         elif kind == "filter":
             rest = [s[0] for s in steps[i + 1:] if s[0] != "project"]
             if rest and rest[0] == "aggregate":
-                v, valid, _ = step[1].eval(t)
-                row_filter = valid & v.to(torch.bool)
+                row_filter = predicate_mask(step[1], t, kernels)
             else:
                 t = grown(i, lambda cap, t=t: filter_table(t, step[1], cap, kernels),
                           t.capacity)

@@ -39,7 +39,8 @@ def join_table_from_reference(offsets, perm, start_count, *, device) -> JoinTabl
     def t(a):
         return torch.tensor(np.asarray(a), dtype=torch.int32, device=device)
 
-    return JoinTable(t(offsets), t(perm), t(start_count))
+    return JoinTable(t(offsets), t(perm), torch.empty(0, dtype=torch.int64, device=device),
+                     t(start_count))
 
 
 def _ref_dtype(dt) -> DType:

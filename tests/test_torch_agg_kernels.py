@@ -99,6 +99,33 @@ def test_filter_compact_plain_out_cap_past_cap():
     assert not out[:, int(n):].any() and not out_f64[:, int(n):].any()
 
 
+@pytest.mark.parametrize("entry", ["gather_rows", "gather_rows_counted", "filter_compact"])
+def test_float64_sidecars_move_bit_for_bit(entry):
+    """K5's plain entries copy sidecar bits: int64 keys below 2^34 (denormal
+    doubles, as the SORT build carries them), NaN payloads and -0.0 come
+    out as they went in, also with denormals flushed in arithmetic."""
+    rng = np.random.default_rng(8)
+    bits = rng.integers(0, 1 << 34, (2, 64))
+    bits[1, :3] = [0x7FF8_0000_0000_BEEF, np.int64(-1), np.int64(-(1 << 63))]
+    f64 = torch.from_numpy(bits).view(torch.float64)
+    words = torch.from_numpy(rng.integers(0, 9, (1, 64)).astype(np.int32))
+    idx = torch.from_numpy(rng.permutation(64).astype(np.int32))
+    mask = torch.from_numpy(rng.random(64) < 0.5)
+    torch.set_flush_denormal(True)
+    try:
+        if entry == "filter_compact":
+            _, out_f64, n = k5.filter_compact_plain(mask, words, f64, 64)
+            want = bits[:, mask.numpy()]
+        else:
+            n = torch.tensor(40) if entry == "gather_rows_counted" else None
+            _, out_f64 = k5.gather_rows_plain(words, f64, idx, n)
+            want = bits[:, idx.numpy()][:, :40 if n is not None else 64]
+    finally:
+        torch.set_flush_denormal(False)
+    k = want.shape[1]
+    np.testing.assert_array_equal(out_f64.view(torch.int64)[:, :k].numpy(), want)
+
+
 @pytest.mark.parametrize("with_count", [False, True])
 def test_take_rows_matches_jax(with_count):
     """PackedTable.take_rows (one K5 gather), indices clipped as JAX's

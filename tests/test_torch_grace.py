@@ -14,6 +14,7 @@ import datafusion_parallelism_tpu_torch as tdfp
 from datafusion_parallelism_tpu.runtime.grace import _hash_mod as j_hash_mod
 from datafusion_parallelism_tpu.runtime.grace import plan_grace as jplan_grace
 from datafusion_parallelism_tpu.tpch import generate_tables as jgenerate
+from datafusion_parallelism_tpu_torch.ops.hash_table import JoinStrategy
 from datafusion_parallelism_tpu_torch.runtime.grace import _hash_mod, plan_grace
 from datafusion_parallelism_tpu_torch.tpch import QUERIES, generate_tables
 from datafusion_parallelism_tpu_torch.tpch.oracle import oracle_query
@@ -63,6 +64,20 @@ def test_grace_tpch_matches_oracle(tables, q, monkeypatch):
     assert h.metrics.streamed_chunks > 1, \
         f"Q{q} did not run grace-partitioned (chunks={h.metrics.streamed_chunks})"
     assert h.metrics.route.startswith("grace")
+
+
+@pytest.mark.parametrize("strategy", ["SORT", "OA"])
+def test_grace_under_strategy(tables, strategy, monkeypatch):
+    """Q18 grace-partitioned (the aggregate merge) under the SORT and OA
+    strategies, equal to the oracle."""
+    _force_grace(monkeypatch)
+    ctx = tdfp.SessionContext(tdfp.SessionConfig(join_strategy=JoinStrategy[strategy]),
+                              device="cpu")
+    for n, t in tables.items():
+        ctx.register_table(n, t)
+    h = ctx.sql(QUERIES[18])
+    assert_rows_equal(h.collect().to_pylist(), oracle_query(18, tables))
+    assert h.metrics.route.startswith("grace") and h.metrics.streamed_chunks > 1
 
 
 def test_grace_eligibility(tables, monkeypatch):

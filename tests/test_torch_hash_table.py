@@ -131,9 +131,10 @@ def test_probe_expand_replicates_like_jax(out_cap):
     # bwords: the build's perm position itself, then a row id row
     perm_pos = torch.arange(CAP, dtype=torch.int32)
     bwords = torch.stack([perm_pos, tt.perm])
-    start, count, base, total, match, probe_idx, build_id = k3.probe_expand(
-        tht.slot_of(ph, T), ok, tt.start_count, torch.zeros((1, CAP), dtype=torch.int32),
-        bwords, [([0], [0], (0, 31), (0, 31))], out_cap)
+    start, count, base, total = k3.probe_ranges(tht.slot_of(ph, T), ok, tt.start_count)
+    match, probe_idx, build_id = k3.expand_ranges(
+        start, count, base, total, torch.zeros((1, CAP), dtype=torch.int32), bwords,
+        [([0], [0], (0, 31), (0, 31))], out_cap)
     cr = jht.probe_candidates(jt, jnp.asarray(ph.numpy().view(np.uint32)),
                               jnp.asarray(ok.numpy()), CAP)
     assert int(total) == int(cr.total)

@@ -167,8 +167,7 @@ def _residual(t):
     return bf <= pf, bv & pv
 
 
-# the inputs that lay outside the INNER-only slice of the join; the
-# strategies still do (ROADMAP queue 1 item 11)
+# the inputs that lay outside the INNER-only slice of the join
 OUT_OF_SLICE = {
     "left_join": dict(join_type="LEFT"),
     "semi_join": dict(join_type="RIGHT_SEMI"),
@@ -183,26 +182,21 @@ OUT_OF_SLICE = {
     "float_key": dict(keys=(["bf"], ["pf"])),
     "mixed_width_key": dict(keys=(["bw"], ["pk"])),
 }
-STILL_OUT = {"sort_strategy", "oa_strategy"}
 
 
 @pytest.mark.parametrize("case", list(OUT_OF_SLICE))
 def test_out_of_slice_inputs_raise(case):
-    """The strategies raise naming their ROADMAP item; every other input
-    of the former slice boundary now runs and gives the JAX package's rows
-    (and mask or visited flags); a prepared build is each package's
-    prepare_build of the same table."""
+    """Every input of the former slice boundary, the SORT and OA
+    strategies included, runs and gives the JAX package's rows (and mask or
+    visited flags); a prepared build is each package's prepare_build of the
+    same table."""
     kw = dict(OUT_OF_SLICE[case])
     jt = kw.pop("join_type", "INNER")
     bk, pk = kw.pop("keys", (["bk"], ["pk"]))
     b, p = _tables(tcol)
-    if case in STILL_OUT:
-        if "strategy" in kw:
-            kw["strategy"] = JoinStrategy[kw["strategy"]]
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-            tjoin.hash_join(b, p, bk, pk, tjoin.JoinType[jt], 128, **kw)
-        return
     jkw = dict(kw)
+    if "strategy" in kw:
+        kw["strategy"], jkw["strategy"] = JoinStrategy[kw["strategy"]], JStrategy[kw["strategy"]]
     if kw.get("prepared"):
         kw["prepared"] = tjoin.prepare_build(b, bk)
         jkw["prepared"] = jjoin.prepare_build(_tables(jcol)[0], bk)

@@ -1,7 +1,8 @@
-"""All eight join types of the port's CSR hash join against the JAX
-package's `hash_join` (and the brute-force oracle): the same seeded rows go
-through both; row multisets and candidate totals must be equal. The port
-runs its kernels' plain versions here (CPU tensors): K1-K5 and K9-K11."""
+"""All eight join types of the port's hash join, under each of the CSR,
+SORT and OA strategies, against the JAX package's `hash_join` under the same
+strategy (and the brute-force oracle): the same seeded rows go through
+both; row multisets and candidate totals must be equal. The port runs its
+kernels' plain versions here (CPU tensors): K1-K6, K9-K11 and K14-K16."""
 
 import random
 
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from datafusion_parallelism_tpu.ops import hash_table as jht
 from datafusion_parallelism_tpu.ops import join as jjoin
 from datafusion_parallelism_tpu.utils import columnar as jcol
 from datafusion_parallelism_tpu_torch.ops import join as tjoin
@@ -18,6 +20,10 @@ from datafusion_parallelism_tpu_torch.utils import columnar as tcol
 from oracle import assert_rows_equal, oracle_join
 
 TYPES = [t.name for t in tjoin.JoinType]
+STRATEGIES = [s.name for s in tjoin.JoinStrategy]
+
+# every test runs under each strategy, in both packages
+pytestmark = pytest.mark.parametrize("strategy", STRATEGIES)
 EXPANDABLE = ["INNER", "LEFT_SEMI", "LEFT_ANTI", "RIGHT_SEMI", "RIGHT_ANTI"]
 
 
@@ -26,13 +32,20 @@ def _host(pkg, rows, dtypes=None):
     return pkg.HostTable.from_pydict({n: [r.get(n) for r in rows] for n in names}, dtypes)
 
 
-def _both(build, probe, bkeys, pkeys, jt, out_cap=None, bdtypes=None, pdtypes=None,
-          bcap=None, pcap=None, **kw):
-    """(port result tuple, JAX result tuple) of one join on the same rows."""
+def _strategy_kw(strategy):
+    """(JAX kwargs, port kwargs) naming the strategy in each package."""
+    return {"strategy": jht.JoinStrategy[strategy]}, {"strategy": tjoin.JoinStrategy[strategy]}
+
+
+def _both(build, probe, bkeys, pkeys, jt, strategy, out_cap=None, bdtypes=None,
+          pdtypes=None, bcap=None, pcap=None, **kw):
+    """(port result tuple, JAX result tuple) of one join on the same rows,
+    under `strategy` in both packages."""
     cap = out_cap or max(128, 4 * (len(build) + 1) * (len(probe) + 1))
     jb, jp = _host(jcol, build, bdtypes), _host(jcol, probe, pdtypes)
     tb, tp = _host(tcol, build, bdtypes), _host(tcol, probe, pdtypes)
-    jkw, tkw = dict(kw), dict(kw)
+    js, ts = _strategy_kw(strategy)
+    jkw, tkw = {**kw, **js}, {**kw, **ts}
     jkw.pop("visited_into", None)   # the port's accumulate mode; JAX ORs outside
     for name in ("build_valid", "probe_valid"):
         if name in kw:
@@ -42,8 +55,8 @@ def _both(build, probe, bkeys, pkeys, jt, out_cap=None, bdtypes=None, pdtypes=No
             jkw[name], tkw[name] = kw[name](jnp), kw[name](torch)
     jbd, tbd = jb.to_device(bcap), tb.to_device(bcap, device="cpu")
     if kw.get("prepared"):   # each package's frozen build of the same rows
-        jkw["prepared"] = jjoin.prepare_build(jbd, bkeys)
-        tkw["prepared"] = tjoin.prepare_build(tbd, bkeys)
+        jkw["prepared"] = jjoin.prepare_build(jbd, bkeys, js["strategy"])
+        tkw["prepared"] = tjoin.prepare_build(tbd, bkeys, ts["strategy"])
     want = jjoin.hash_join(jbd, jp.to_device(pcap), bkeys, pkeys, jjoin.JoinType[jt], cap,
                            **jkw)
     got = tjoin.hash_join(tbd, tp.to_device(pcap, device="cpu"), bkeys, pkeys,
@@ -51,8 +64,8 @@ def _both(build, probe, bkeys, pkeys, jt, out_cap=None, bdtypes=None, pdtypes=No
     return got, want
 
 
-def _check(build, probe, bkeys, pkeys, jt, residual_rows=None, **kw):
-    got, want = _both(build, probe, bkeys, pkeys, jt, **kw)
+def _check(build, probe, bkeys, pkeys, jt, strategy, residual_rows=None, **kw):
+    got, want = _both(build, probe, bkeys, pkeys, jt, strategy, **kw)
     assert int(got[1]) == int(want[1])
     rows = got[0].to_host().to_pylist()
     assert_rows_equal(rows, want[0].to_host().to_pylist())
@@ -72,32 +85,32 @@ def make_rows(n, key_space, seed, nulls=False, extra="v"):
 
 
 @pytest.mark.parametrize("jt", TYPES)
-def test_join_types_random(jt):
+def test_join_types_random(jt, strategy):
     build = [{"bk": r["k"], "bv": r["v"]} for r in make_rows(57, 20, 1, nulls=True)]
     probe = [{"pk": r["k"], "pv": r["v"]} for r in make_rows(91, 20, 2, nulls=True)]
-    _check(build, probe, ["bk"], ["pk"], jt)
+    _check(build, probe, ["bk"], ["pk"], jt, strategy)
 
 
 @pytest.mark.parametrize("jt", TYPES)
-def test_join_no_matches(jt):
+def test_join_no_matches(jt, strategy):
     build = [{"bk": i, "bv": i} for i in range(10)]
     probe = [{"pk": i + 100, "pv": i} for i in range(14)]
-    _check(build, probe, ["bk"], ["pk"], jt)
+    _check(build, probe, ["bk"], ["pk"], jt, strategy)
 
 
 @pytest.mark.parametrize("jt", TYPES)
-def test_join_heavy_duplicates(jt):
+def test_join_heavy_duplicates(jt, strategy):
     build = [{"bk": 7 if i % 3 else i, "bv": i} for i in range(40)]
     probe = [{"pk": 7 if i % 4 else i, "pv": i} for i in range(60)]
-    _check(build, probe, ["bk"], ["pk"], jt)
+    _check(build, probe, ["bk"], ["pk"], jt, strategy)
 
 
 @pytest.mark.parametrize("jt", ["INNER", "LEFT", "FULL", "RIGHT_ANTI"])
-def test_multi_key_join(jt):
+def test_multi_key_join(jt, strategy):
     rng = random.Random(3)
     build = [{"a": rng.randrange(4), "b": rng.randrange(4), "bv": i} for i in range(30)]
     probe = [{"c": rng.randrange(4), "d": rng.randrange(4), "pv": i} for i in range(30)]
-    _check(build, probe, ["a", "b"], ["c", "d"], jt)
+    _check(build, probe, ["a", "b"], ["c", "d"], jt, strategy)
 
 
 def _parity_residual(xp):
@@ -109,15 +122,15 @@ def _parity_residual(xp):
 
 
 @pytest.mark.parametrize("jt", ["INNER", "FULL", "LEFT", "RIGHT", "LEFT_SEMI", "RIGHT_ANTI"])
-def test_join_with_residual_filter(jt):
+def test_join_with_residual_filter(jt, strategy):
     build = [{"bk": i % 5, "bv": i} for i in range(20)]
     probe = [{"pk": i % 5, "pv": i} for i in range(20)]
-    _check(build, probe, ["bk"], ["pk"], jt, residual=_parity_residual,
+    _check(build, probe, ["bk"], ["pk"], jt, strategy, residual=_parity_residual,
            residual_rows=lambda r: (r["bv"] + r["pv"]) % 2 == 0)
 
 
 @pytest.mark.parametrize("jt", ["INNER", "LEFT", "RIGHT_SEMI"])
-def test_string_key_join(jt):
+def test_string_key_join(jt, strategy):
     """String keys share one dictionary; a probe string absent from it is
     NULL and never matches."""
     build = [{"bk": k, "bv": i} for i, k in enumerate(["a", "b", "c", None, "a"])]
@@ -134,24 +147,25 @@ def test_string_key_join(jt):
                                       validity={"pk": valid})
         if pkg is jcol:
             res = jjoin.hash_join(bt.to_device(), pt.to_device(), ["bk"], ["pk"],
-                                  jjoin.JoinType[jt], 256)
+                                  jjoin.JoinType[jt], 256, **_strategy_kw(strategy)[0])
         else:
             res = tjoin.hash_join(bt.to_device(device="cpu"), pt.to_device(device="cpu"),
-                                  ["bk"], ["pk"], tjoin.JoinType[jt], 256)
+                                  ["bk"], ["pk"], tjoin.JoinType[jt], 256,
+                                  **_strategy_kw(strategy)[1])
         results.append((res[0].to_host().to_pylist(), int(res[1])))
     assert results[0][1] == results[1][1]
     assert_rows_equal(results[1][0], results[0][0])
 
 
 @pytest.mark.parametrize("jt", ["INNER", "LEFT", "RIGHT_SEMI", "FULL", "LEFT_ANTI"])
-def test_float_keys_signed_zero_and_nan(jt):
+def test_float_keys_signed_zero_and_nan(jt, strategy):
     """float64 keys take the full-fetch path (K9): -0.0 meets 0.0, NaN
     meets nothing (not even NaN), NULL meets nothing."""
     vals = [0.0, -0.0, float("nan"), 1.5, None, 2.25, 1.5, -3.0]
     build = [{"bk": v, "bv": i} for i, v in enumerate(vals)]
     probe = [{"pk": v, "pv": i} for i, v in enumerate([-0.0, float("nan"), 1.5, 7.0, None,
                                                        0.0, -3.0, 2.25, 1.5])]
-    got, want = _both(build, probe, ["bk"], ["pk"], jt)
+    got, want = _both(build, probe, ["bk"], ["pk"], jt, strategy)
     assert int(got[1]) == int(want[1])
 
     def rows(t):   # NaN as a string, so that equal rows compare equal
@@ -163,7 +177,7 @@ def test_float_keys_signed_zero_and_nan(jt):
 
 @pytest.mark.parametrize("jt", ["INNER", "LEFT", "LEFT_ANTI", "RIGHT"])
 @pytest.mark.parametrize("widths", ["int32_int64", "int64_int32", "float32_int32"])
-def test_mixed_width_keys(jt, widths):
+def test_mixed_width_keys(jt, widths, strategy):
     """Keys of different types compare in their promoted type (K9)."""
     rng = np.random.default_rng(5)
     a, b = widths.split("_")
@@ -176,12 +190,13 @@ def test_mixed_width_keys(jt, widths):
     build = [{"bk": k, "bv": i} for i, k in enumerate(bk)]
     probe = [{"pk": k, "pv": i} for i, k in enumerate(pk)]
     results = []
-    for pkg, d, run in ((jcol, dt, jjoin), (tcol, tdt, tjoin)):
+    for pkg, d, run, skw in ((jcol, dt, jjoin, _strategy_kw(strategy)[0]),
+                             (tcol, tdt, tjoin, _strategy_kw(strategy)[1])):
         bt = _host(pkg, build, {"bk": d[a]})
         pt = _host(pkg, probe, {"pk": d[b]})
         kw = {} if pkg is jcol else {"device": "cpu"}
         res = run.hash_join(bt.to_device(**kw), pt.to_device(**kw), ["bk"], ["pk"],
-                            run.JoinType[jt], 8192)
+                            run.JoinType[jt], 8192, **skw)
         results.append((res[0].to_host().to_pylist(), int(res[1])))
     assert results[0][1] == results[1][1]
     assert_rows_equal(results[1][0], results[0][0])
@@ -200,7 +215,7 @@ def _masked_rows(t, mask):
 
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("jt", EXPANDABLE)
-def test_expanded(jt, residual):
+def test_expanded(jt, residual, strategy):
     """Late materialization: INNER gives the uncompacted candidate slots
     (full fetch, K9) with the match mask, semi/anti the input side with its
     flag, with or without a residual filter; the masked rows equal the JAX
@@ -208,7 +223,7 @@ def test_expanded(jt, residual):
     build = [{"bk": r["k"], "bv": r["v"]} for r in make_rows(40, 12, 7, nulls=True)]
     probe = [{"pk": r["k"], "pv": float(r["v"])} for r in make_rows(50, 12, 8, nulls=True)]
     kw = {"residual": _parity_residual} if residual else {}
-    (tt, tm, ttotal), (jt_, jm, jtotal) = _both(build, probe, ["bk"], ["pk"], jt,
+    (tt, tm, ttotal), (jt_, jm, jtotal) = _both(build, probe, ["bk"], ["pk"], jt, strategy,
                                                 expanded=True, **kw)
     assert int(ttotal) == int(jtotal)
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
@@ -217,14 +232,14 @@ def test_expanded(jt, residual):
 
 
 @pytest.mark.parametrize("jt", TYPES)
-def test_build_and_probe_valid(jt):
+def test_build_and_probe_valid(jt, strategy):
     """Chain fusion: masked rows take no part (K1's row mask on the build
     side, the candidate mask on the probe side) and are never unmatched."""
     build = [{"bk": r["k"], "bv": r["v"]} for r in make_rows(45, 15, 11, nulls=True)]
     probe = [{"pk": r["k"], "pv": r["v"]} for r in make_rows(60, 15, 12, nulls=True)]
     rng = np.random.default_rng(13)
     bvalid, pvalid = rng.random(128) < 0.7, rng.random(128) < 0.6
-    got, want = _both(build, probe, ["bk"], ["pk"], jt, build_valid=bvalid,
+    got, want = _both(build, probe, ["bk"], ["pk"], jt, strategy, build_valid=bvalid,
                       probe_valid=pvalid)
     assert int(got[1]) == int(want[1])
     assert_rows_equal(got[0].to_host().to_pylist(), want[0].to_host().to_pylist())
@@ -235,23 +250,24 @@ def test_build_and_probe_valid(jt):
 
 
 @pytest.mark.parametrize("jt", ["INNER", "LEFT", "LEFT_SEMI", "LEFT_ANTI"])
-def test_return_visited(jt):
+def test_return_visited(jt, strategy):
     """The raw build-side visited mask (K10) comes back after the result."""
     build = [{"bk": r["k"], "bv": r["v"]} for r in make_rows(30, 10, 21, nulls=True)]
     probe = [{"pk": r["k"], "pv": r["v"]} for r in make_rows(25, 10, 22)]
-    got, want = _both(build, probe, ["bk"], ["pk"], jt, return_visited=True)
+    got, want = _both(build, probe, ["bk"], ["pk"], jt, strategy, return_visited=True)
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     assert int(got[1]) == int(want[1])
     assert_rows_equal(got[0].to_host().to_pylist(), want[0].to_host().to_pylist())
 
 
-def test_padding_and_overflow_like_jax():
+def test_padding_and_overflow_like_jax(strategy):
     """Inputs padded past their rows, and an out_cap below the candidate
     total: the totals agree and the kept rows are a subset of the JAX
     package's own truncated LEFT result's pair rows."""
     build = [{"bk": i % 6, "bv": i} for i in range(50)]
     probe = [{"pk": i % 6, "pv": i} for i in range(70)]
-    got, want = _both(build, probe, ["bk"], ["pk"], "LEFT", out_cap=256, bcap=256, pcap=512)
+    got, want = _both(build, probe, ["bk"], ["pk"], "LEFT", strategy, out_cap=256, bcap=256,
+                      pcap=512)
     assert int(got[1]) == int(want[1]) > 256
     assert int(got[0].num_rows) == int(want[0].num_rows)
     assert_rows_equal(got[0].to_host().to_pylist(), want[0].to_host().to_pylist())
@@ -259,7 +275,7 @@ def test_padding_and_overflow_like_jax():
 
 @pytest.mark.parametrize("keys", ["int", "float", "residual"])
 @pytest.mark.parametrize("jt", TYPES)
-def test_prepared_build_matches_jax(jt, keys):
+def test_prepared_build_matches_jax(jt, keys, strategy):
     """hash_join(prepared=prepare_build(...)): the frozen build of the
     streamed and grace paths (K1 + K2 once, its rows in perm order kept),
     on the deferred path (int keys), the full-fetch path (float keys) and
@@ -275,11 +291,12 @@ def test_prepared_build_matches_jax(jt, keys):
     elif keys == "residual":
         kw["residual"] = _parity_residual
         residual_rows = lambda r: (r["bv"] + r["pv"]) % 2 == 0   # noqa: E731
-    _check(build, probe, ["bk"], ["pk"], jt, residual_rows, prepared=True, bcap=64, **kw)
+    _check(build, probe, ["bk"], ["pk"], jt, strategy, residual_rows, prepared=True, bcap=64,
+           **kw)
 
 
 @pytest.mark.parametrize("jt", ["LEFT", "FULL", "LEFT_SEMI", "LEFT_ANTI"])
-def test_visited_into_is_incoming_or_visited(jt):
+def test_visited_into_is_incoming_or_visited(jt, strategy):
     """visited_into (K10's accumulate mode): the matches ORed into the
     caller's buffer, as the JAX package's streamed fold `incoming | vis`."""
     build = [{"bk": r["k"], "bv": r["v"]} for r in make_rows(57, 20, 21)]
@@ -287,7 +304,7 @@ def test_visited_into_is_incoming_or_visited(jt):
     incoming = np.random.default_rng(3).random(64) < 0.3
     expanded = jt in ("LEFT_SEMI", "LEFT_ANTI")
     buf = torch.from_numpy(incoming.copy())
-    got, want = _both(build, probe, ["bk"], ["pk"], jt, bcap=64, return_visited=True,
+    got, want = _both(build, probe, ["bk"], ["pk"], jt, strategy, bcap=64, return_visited=True,
                       expanded=expanded, visited_into=buf)
     assert got[-1] is buf
     np.testing.assert_array_equal(buf.numpy(), incoming | np.asarray(want[-1]))

@@ -108,7 +108,7 @@ def test_profile_ops_stages_wrap_and_restore_every_entry_point():
 
 def test_profile_sql_stages_cover_every_kernel_and_run_a_query():
     """tools/profile_sql.py's staged tables name a stage for each of the
-    thirteen kernels, and a query run through them on the CPU gives the same
+    seventeen kernels, and a query run through them on the CPU gives the same
     rows as through the default tables."""
     import profile_sql
 

@@ -10,6 +10,7 @@ import pytest
 import datafusion_parallelism_tpu as jdfp
 import datafusion_parallelism_tpu_torch as tdfp
 from datafusion_parallelism_tpu.models.sql_parser import parse_sql as jparse
+from datafusion_parallelism_tpu.ops.hash_table import JoinStrategy as JStrategy
 from datafusion_parallelism_tpu.tpch import QUERIES as JQUERIES
 from datafusion_parallelism_tpu.tpch import generate_tables as jgenerate
 from datafusion_parallelism_tpu.utils.catalog import Statistics as JStatistics
@@ -126,11 +127,16 @@ MATRIX = {
 }
 
 
-def _session(pkg, setup):
+def _session(pkg, setup, strategy="CSR"):
+    """A session of `pkg` under the join strategy named `strategy`, with
+    `setup`'s tables registered."""
     if pkg is jdfp:
-        ctx, stats = jdfp.SessionContext(), JStatistics
+        ctx = jdfp.SessionContext(jdfp.SessionConfig(join_strategy=JStrategy[strategy]))
+        stats = JStatistics
     else:
-        ctx, stats = tdfp.SessionContext(device="cpu"), TStatistics
+        ctx = tdfp.SessionContext(tdfp.SessionConfig(join_strategy=JoinStrategy[strategy]),
+                                  device="cpu")
+        stats = TStatistics
 
     def reg(name, data, statistics=None):
         ctx.register_pydict(name, data, statistics=statistics)
@@ -139,11 +145,14 @@ def _session(pkg, setup):
     return ctx
 
 
+@pytest.mark.parametrize("strategy", [s.name for s in JoinStrategy])
 @pytest.mark.parametrize("case", sorted(MATRIX))
-def test_sql_matrix_matches_jax(case):
+def test_sql_matrix_matches_jax(case, strategy):
+    """Every scenario under each join strategy, against the JAX session
+    under the same strategy: the same plan text and rows."""
     setup, query = MATRIX[case]
-    jh = _session(jdfp, setup).sql(query)
-    th = _session(tdfp, setup).sql(query)
+    jh = _session(jdfp, setup, strategy).sql(query)
+    th = _session(tdfp, setup, strategy).sql(query)
     assert th.explain() == jh.explain()
     want = jh.collect().to_pylist()
     got = th.collect().to_pylist()
@@ -218,16 +227,14 @@ def test_dictmap_lut_clamps_like_jax_clip():
 
 
 def test_session_refuses_what_is_not_ported():
-    """Several devices (and the settings that steer them), other join
-    strategies and parquet raise, naming their ROADMAP items."""
+    """Several devices (and the settings that steer them) and parquet
+    raise, naming their ROADMAP items."""
     with pytest.raises(NotImplementedError, match="item 13"):
         tdfp.SessionContext(tdfp.SessionConfig(target_partitions=2), device="cpu")
     for setting in ("broadcast_threshold", "skew_salting", "skew_factor", "skew_threshold",
                     "distributed_staged"):
         with pytest.raises(NotImplementedError, match="item 13"):
             tdfp.SessionConfig(**{setting: 1})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdfp.SessionContext(tdfp.SessionConfig(join_strategy=JoinStrategy.SORT), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         tdfp.SessionContext(device="cpu").register_parquet("t", "t.parquet")
 

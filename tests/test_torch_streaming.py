@@ -13,6 +13,7 @@ import datafusion_parallelism_tpu as jdfp
 import datafusion_parallelism_tpu_torch as tdfp
 from datafusion_parallelism_tpu.runtime.streaming import plan_stream_ex as jplan_stream_ex
 from datafusion_parallelism_tpu.tpch import generate_tables as jgenerate
+from datafusion_parallelism_tpu_torch.ops.hash_table import JoinStrategy
 from datafusion_parallelism_tpu_torch.runtime.streaming import plan_stream_ex
 from datafusion_parallelism_tpu_torch.tpch import QUERIES, generate_tables
 from datafusion_parallelism_tpu_torch.tpch.oracle import oracle_query
@@ -70,6 +71,20 @@ def test_tpch_streamed_matches(tables, jtables, q, monkeypatch):
         jh = _ctx(jtables, jdfp).sql(QUERIES[q])
         assert_rows_equal(got, jh.collect().to_pylist())
         assert m.streamed_chunks == jh.metrics.streamed_chunks
+
+
+@pytest.mark.parametrize("strategy", ["SORT", "OA"])
+def test_tpch_streamed_under_strategy(tables, strategy, monkeypatch):
+    """Q3 streamed under the SORT and OA strategies: the frozen builds are
+    the strategy's tables, probed by every chunk."""
+    _stream(monkeypatch)
+    ctx = tdfp.SessionContext(tdfp.SessionConfig(join_strategy=JoinStrategy[strategy]),
+                              device="cpu")
+    for n, t in tables.items():
+        ctx.register_table(n, t)
+    handle = ctx.sql(QUERIES[3])
+    assert_rows_equal(handle.collect().to_pylist(), oracle_query(3, tables))
+    assert handle.metrics.route == "streamed" and handle.metrics.streamed_chunks > 1
 
 
 def test_ineligible_falls_back(tables, monkeypatch):

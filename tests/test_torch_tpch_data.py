@@ -157,12 +157,12 @@ def _counting(calls):
 
 @pytest.mark.parametrize("chain, entries", [
     ("Q1", {"direct_agg", "filter_compact", "radix_sort", "gather_rows", "pack_rows",
-            "unpack_rows"}),
-    ("Q6", {"direct_agg"}),
+            "unpack_rows", "expr_eval"}),
+    ("Q6", {"direct_agg", "expr_eval"}),
     ("Q18-shaped", {"radix_sort", "gather_rows", "segment_agg", "filter_compact", "pack_rows",
-                    "unpack_rows"}),
+                    "unpack_rows", "expr_eval"}),
     ("Q20-shaped", {"hash_slot", "radix_sort", "gather_rows", "segment_agg", "pack_rows",
-                    "unpack_rows"})])
+                    "unpack_rows", "expr_eval"})])
 def test_chains_reach_every_kernel_through_the_table(chain, entries, small):
     """run_steps hands its `kernels` to every operator: each kernel the
     chain runs is called through the table (what chip_smoke.py's plain

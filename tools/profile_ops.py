@@ -8,8 +8,8 @@ Generates TPC-H lineitem with the port's copied generator (SF10: about
 its Q1 and Q18-shaped chains (`chip_smoke.q1_steps`, `q18_steps`) under
 `torch.profiler`. The chains run on `staged()` kernels: every K5-K8 entry
 point (and K1's) inside a `stage:<kernel>` range, so each device activity is charged to the kernel
-whose wrapper launched it, or to the plain torch glue (expressions,
-pack/unpack, the capacity checks) when no wrapper did. Per chain it prints,
+whose wrapper launched it, or to the plain torch glue (masks, row bounds,
+the capacity checks) when no wrapper did. Per chain it prints,
 as `tools/profile_join.py` does for the join: the window from the chain's
 host start to its last device work, the device busy time and share, device
 ms per kernel and of the glue, and the device kernels that took the most

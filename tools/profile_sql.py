@@ -10,8 +10,8 @@ and, per query, settles the capacities with one collect() and then
 profiles 3 more under `torch.profiler`. Every kernel entry point of both
 kernel tables (the join's and the chain's) runs inside a `stage:<kernel>`
 range, so each device activity is charged to the kernel whose wrapper
-launched it, or to the plain torch glue (expressions, pack/unpack, the
-capacity checks) when no wrapper did. Per query it prints, as
+launched it, or to the plain torch glue (masks, row bounds, the capacity
+checks) when no wrapper did. Per query it prints, as
 `tools/profile_join.py` does for the join: the window from collect()'s
 start to its last device work, the device busy time and share, and device
 ms per kernel and of the glue; then the sums over the queries. The full
