@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives `datafusion_parallelism_tpu_torch`'s five main paths through its
-seventeen hand-written CUDA kernels and holds every result against the
+Drives `datafusion_parallelism_tpu_torch`'s six main paths through its
+nineteen hand-written CUDA kernels and holds every result against the
 plain torch versions: the single-device INNER CSR hash join (K1-K4), the
 single-table chain filter -> project -> hash aggregate -> sort -> limit
 (K5-K8, with K1 for multi-column group keys), SQL through
@@ -13,7 +13,9 @@ single-table chain filter -> project -> hash aggregate -> sort -> limit
 partitioning (K12 pack_rows packing and unpacking every table and chunk,
 K13 append_rows, K10's accumulate mode), and the SORT and OA join
 strategies (K14 sorted_probe, K15 oa_place, K16 oa_probe, K6 and K5 in
-their builds, K3's second pass expand_ranges over their ranges); every
+their builds, K3's second pass expand_ranges over their ranges), and the
+distributed hash join over P partitions (K18 dest_pack, K19
+key_histogram, with K1, K5, K11 and K12 around the exchange); every
 expression of every path is K17 expr_eval. Phases, one line each:
 
   1. build the kernels with nvcc, one process per source, all at once;
@@ -74,14 +76,19 @@ expression of every path is K17 expr_eval. Phases, one line each:
      or mask), chunks, ms, host pack and upload seconds, peak bytes beside
      phase 14's; then Q20 once more under DFP_FORCE_GRACE (the mask
      merge, which no query takes at these thresholds); K12 and K13
-     launched, and at least one query streamed, one grace agg, one grace
-     union and one grace mask
+     launched, and at least one query streamed, one after a side-swap, one
+     grace agg, one grace union and one grace mask
  17. the 22 TPC-H queries through SQL at SF10 under the SORT strategy,
      then under OA, run on the card while phase 14's oracle computes: one
      collect() settles, the median of 3 timed ones and the peak over the
      tables already held, beside phase 14's CSR numbers; each result == the oracle's answer; then Q3
      (streamed) and Q18 (grace agg) under OOC_ENV, each == the oracle; K14
      launched under SORT, K15 and K16 under OA, K17 under both
+ 18. (run after 13) ROADMAP queue 3's four refusals at their smallest
+     inputs (a 32-branch CASE, WHEREs of 33 and 65 disjuncts, joins on 5
+     keys, 34 aggregate requests, GROUP BY 17 columns) through
+     SessionContext on the card: each == the CPU session's rows and the
+     JAX package's answer
  15. (run after 17) the largest call of every kernel entry point recorded
      in phase 14, the largest K12 pack and unpack, K13 and K10 accumulate
      calls of phase 16 and the largest K14-K16 and SORT/OA build-sort
@@ -89,6 +96,17 @@ expression of every path is K17 expr_eval. Phases, one line each:
      plain version: equal, and timed beside its bound (bytes moved at
      3.35 TB/s) and, where one PyTorch call computes the same function,
      that call
+ 19. (run after 18) the distributed hash join at P = 8 in process on the one card (the
+     all-to-all a copy on the card, not NVLink): Size512 under all eight
+     join types partitioned, INNER broadcast and skew_salted, partitioned
+     and skew_salted with exponential probe keys (over the whole key range
+     and over 64 keys, where buckets turn heavy), phase 5's SF10 orders x
+     lineitem INNER join partitioned; rows == numpy's counts (and the
+     price sum), INNER rows equal under the three modes, each retry
+     logged; per run the step's ms, comm bytes and peak; K18 and K19
+     launched, and == their plain versions at the largest calls
+ 20. (run after 19) a one-rank NCCL process group: the Size512 INNER join partitioned
+     through ProcessGroupExchange == single-device hash_join row for row
 
 Exact means bit for bit, except float64 sums (and the averages built on
 them), which K7 and K8 add in another order than the plain versions:
@@ -97,15 +115,18 @@ rtol 1e-9).
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels with their launches
-(in phase 14, K12 and K13 in phase 16, K14-K16 in phase 17) and phase
-15's errors, times and bounds. Without a CUDA device
+(in phase 14, K12 and K13 in phase 16, K14-K16 in phase 17, K18 and K19
+in phase 19) and phase 15's (K18, K19: phase 19's) errors, times and
+bounds. Without a CUDA device
 the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -157,7 +178,13 @@ KERNEL_INFO = {
                  "datafusion_parallelism_tpu/ops/hash_table.py:180"),
     "expr_eval": ("datafusion_parallelism_tpu_torch/csrc/expr_eval.cu",
                   "datafusion_parallelism_tpu/ops/expressions.py:84"),
+    "dest_pack": ("datafusion_parallelism_tpu_torch/csrc/dest_pack.cu",
+                  "datafusion_parallelism_tpu/parallel/shuffle.py:69"),
+    "key_histogram": ("datafusion_parallelism_tpu_torch/csrc/key_histogram.cu",
+                      "datafusion_parallelism_tpu/parallel/skew.py:49"),
 }
+# the kernels only the distributed join (phase 19) launches
+DIST_KERNELS = ("dest_pack", "key_histogram")
 # the kernels only the out-of-core path (phase 16) launches
 OOC_KERNELS = ("append_rows",)
 # the kernels only the SORT and OA strategies (phase 17) launch
@@ -183,6 +210,62 @@ LINEITEM_CAP = 67_108_864
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM device memory rate
 PEAK_OPS_PER_S = 67e12                # H100 SXM float32 outside the tensor cores
 
+
+# ROADMAP queue 3's four refusals, each at its smallest input (seeded numpy
+# data, the same in tests/test_torch_queue3.py): name -> (tables as
+# pydicts, SQL, what is compared). QUEUE3_JAX holds the JAX package's
+# answers on these inputs, which tests/test_torch_queue3.py recomputes.
+def queue3_cases():
+    rng = np.random.default_rng(3)
+    n = 500
+    a, b = rng.integers(0, 40, n), rng.integers(0, 8, n)
+    v = rng.integers(-50, 50, n)
+    s = [f"s{x}" for x in rng.integers(0, 5, n)]
+    single = {"a": a.tolist(), "b": b.tolist(), "v": v.tolist(), "s": s}
+    keys5 = {**{f"l{i}": rng.integers(0, 3, n).tolist() for i in range(5)},
+             "lv": rng.integers(0, 100, n).tolist()}
+    keys5r = {**{f"r{i}": rng.integers(0, 3, n).tolist() for i in range(5)},
+              "rv": rng.integers(0, 100, n).tolist()}
+    base = rng.integers(0, 4, (n, 17))
+    wide = np.concatenate([base, base])[rng.permutation(2 * n)]
+    wide17 = {f"c{i}": wide[:, i].tolist() for i in range(17)}
+    case32 = " ".join(f"WHEN a = {i} THEN {3 * i}" for i in range(32))
+    sums17 = ", ".join(f"SUM(v * {i}) AS s{i}" for i in range(17))
+    cols17 = ", ".join(f"c{i}" for i in range(17))
+    return {
+        "case32": ({"t": single},
+                   f"SELECT SUM(CASE {case32} ELSE 0 END) AS x FROM t", "x"),
+        "or33": ({"t": single},
+                 "SELECT COUNT(*) AS x FROM t WHERE "
+                 + " OR ".join(f"(a = {i} AND b = {i % 8})" for i in range(33)), "x"),
+        "or65": ({"t": single},
+                 "SELECT COUNT(*) AS x FROM t WHERE "
+                 + " OR ".join(f"a = {i}" for i in range(0, 130, 2)), "x"),
+        "join5": ({"l": keys5, "r": keys5r},
+                  "SELECT COUNT(*) AS x FROM l JOIN r ON "
+                  + " AND ".join(f"l.l{i} = r.r{i}" for i in range(5)), "x"),
+        # a residual takes the full-fetch path (K9) instead of K3's recheck
+        "join5_residual": ({"l": keys5, "r": keys5r},
+                           "SELECT COUNT(*) AS x FROM l JOIN r ON "
+                           + " AND ".join(f"l.l{i} = r.r{i}" for i in range(5))
+                           + " AND l.lv < r.rv", "x"),
+        "agg34_sorted": ({"t": single}, f"SELECT a, {sums17} FROM t GROUP BY a", "s16"),
+        "agg34_direct": ({"t": single}, f"SELECT s, {sums17} FROM t GROUP BY s", "s16"),
+        "agg34_global": ({"t": single}, f"SELECT {sums17} FROM t", "s16"),
+        "group17": ({"t": wide17},
+                    f"SELECT {cols17}, COUNT(*) AS x FROM t GROUP BY {cols17}", "rows"),
+    }
+
+
+def queue3_answer(rows, what):
+    """The number a queue-3 case is held to: the row count ("rows"), else
+    the sum of column `what` over the rows."""
+    return len(rows) if what == "rows" else sum(r[what] for r in rows)
+
+
+QUEUE3_JAX = {"case32": 18942, "or33": 56, "or65": 237, "join5": 1057, "join5_residual": 547,
+              "agg34_sorted": -25184, "agg34_direct": -25184, "agg34_global": -25184,
+              "group17": 500}
 
 _START = time.perf_counter()
 
@@ -218,14 +301,15 @@ def max_abs_err(got, want) -> float:
         if a.numel() == 0:
             continue
         if a.is_floating_point():
-            worst = max(worst, float((a - b).abs().max()))
             bits = torch.int64 if a.dtype == torch.float64 else torch.int32
-            same = torch.equal(a.view(bits), b.view(bits))
+            if torch.equal(a.view(bits), b.view(bits)):
+                continue
+            worst = max(worst, float((a - b).abs().max()))
         else:
+            if torch.equal(a, b):   # no int64 copy of a large result
+                continue
             worst = max(worst, float((a.long() - b.long()).abs().max()))
-            same = torch.equal(a, b)
-        if not same:
-            raise AssertionError(f"kernel and plain differ: max abs err {worst}")
+        raise AssertionError(f"kernel and plain differ: max abs err {worst}")
     return worst
 
 
@@ -794,9 +878,17 @@ def phase_size512(device) -> dict:
 
 
 def sf10_tables(rng, device):
+    """sf10_host_tables on the device."""
+    orders, lineitem, n_lines, expected_price = sf10_host_tables(rng)
+    return (orders.to_device(device=device), lineitem.to_device(device=device),
+            n_lines, expected_price)
+
+
+def sf10_host_tables(rng):
     """orders (o_orderkey int64 in dbgen's sparse pattern, o_custkey int32,
     o_totalprice DECIMAL(2)) and lineitem (1-7 lines per order: l_orderkey
-    int64, l_linenumber int32, l_extendedprice float64)."""
+    int64, l_linenumber int32, l_extendedprice float64) on the host, their
+    join's row count and o_totalprice sum."""
     from datafusion_parallelism_tpu_torch.utils.columnar import DECIMAL, HostTable
     i = np.arange(SF10_ORDERS, dtype=np.int64)
     o_orderkey = (i // 8) * 32 + i % 8 + 1
@@ -814,8 +906,7 @@ def sf10_tables(rng, device):
          "l_linenumber": (np.arange(n_lines) - first + 1).astype(np.int32),
          "l_extendedprice": rng.random(n_lines) * 100_000.0})
     expected_price = int((o_totalprice * lines).sum())
-    return (orders.to_device(device=device), lineitem.to_device(device=device),
-            n_lines, expected_price)
+    return orders, lineitem, n_lines, expected_price
 
 
 def phase_sf10(device):
@@ -921,18 +1012,23 @@ def recorder(record):
 
 
 def all_counters():
-    """{(table, entry point): wrapper} over the join's and the chain's
-    kernel tables; each wrapper counts its own launches."""
+    """{(table, entry point): wrapper} over the join's, the chain's and the
+    distributed layer's kernel tables; each wrapper counts its own
+    launches."""
     from datafusion_parallelism_tpu_torch.kernels.chain import KERNELS as CHAIN
     from datafusion_parallelism_tpu_torch.ops.join import KERNELS as JOIN
+    from datafusion_parallelism_tpu_torch.parallel.shuffle import KERNELS as DIST
     return {**{("join", e): fn for e, fn in JOIN._asdict().items()},
-            **{("chain", e): fn for e, fn in CHAIN._asdict().items()}}
+            **{("chain", e): fn for e, fn in CHAIN._asdict().items()},
+            **{("dist", e): fn for e, fn in DIST._asdict().items()}}
 
 
 def kernel_of(key) -> str:
     """The kernel (KERNEL_INFO's name) a (table, entry point) launches."""
     from datafusion_parallelism_tpu_torch.kernels.chain import KERNEL_OF as CHAIN_OF
     from datafusion_parallelism_tpu_torch.ops.join import KERNEL_OF as JOIN_OF
+    if key[0] == "dist":   # each entry point is its kernel
+        return key[1]
     return (JOIN_OF if key[0] == "join" else CHAIN_OF)[entry_of(key)]
 
 
@@ -1650,7 +1746,7 @@ def phase_tpch_sql(device, tables, meanwhile=None):
             diff_rule_match(got[q], oracle[q])
         except AssertionError as e:
             raise AssertionError(f"Q{q}: {e}") from None
-    missing = [k for k in KERNEL_INFO if k not in OOC_KERNELS + STRATEGY_KERNELS
+    missing = [k for k in KERNEL_INFO if k not in OOC_KERNELS + STRATEGY_KERNELS + DIST_KERNELS
                and launches.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the SQL path: {missing}")
@@ -1788,7 +1884,9 @@ def work(key, args, out):
 def library_call(key, args):
     """One PyTorch call computing the same function on the same inputs, or
     None: K6 on one signed key word is torch.argsort(stable=True); K5's
-    row gather without float64 rows is index_select."""
+    row gather without float64 rows is index_select; K10 is index_fill_
+    at the matched ids, K11 torch.cat of the valid prefixes, K13 a slice
+    copy_."""
     import torch
     entry = key[1]
     if entry == "radix_sort" and args[0].shape[0] == 1 and args[1][0]:
@@ -1808,6 +1906,32 @@ def library_call(key, args):
                         torch.searchsorted(sorted_hash, ph, side="right"))
     if entry == "gather_rows" and args[1].shape[0] == 0 and len(args) < 4:
         return lambda: args[0].index_select(1, args[2])
+    if entry in ("match_flags", "match_flags_acc"):
+        # index_fill_ at the matched ids (selected before the timing)
+        match, build_id, probe_idx, bcap, mcap = args[:5]
+        bi, pi = build_id[match].long(), probe_idx[match].long()
+        visited = args[5].clone() if len(args) > 5 else None
+
+        def flags():
+            v = (visited if visited is not None
+                 else torch.zeros(bcap, dtype=torch.bool, device=match.device))
+            return (v.index_fill_(0, bi, True),
+                    torch.zeros(mcap, dtype=torch.bool, device=match.device)
+                    .index_fill_(0, pi, True))
+        return flags
+    if entry == "concat_rows":
+        # torch.cat of the parts' valid prefixes (their counts read first)
+        parts = args[0]
+        ns = [int(n) for _, _, n in parts]
+        return lambda: (torch.cat([w[:, :k] for (w, _, _), k in zip(parts, ns)], 1),
+                        torch.cat([f[:, :k] for (_, f, _), k in zip(parts, ns)], 1))
+    if entry == "append_rows":
+        # a slice copy_ of the new rows into the accumulator
+        acc, acc_f64, acc_rows, words, f64, num_rows = args
+        lo = int(acc_rows)
+        k = max(min(int(num_rows), acc.shape[1] - lo), 0)
+        return lambda: (acc[:, lo:lo + k].copy_(words[:, :k]),
+                        acc_f64[:, lo:lo + k].copy_(f64[:, :k]))
     return None
 
 
@@ -1953,7 +2077,8 @@ def phase_out_of_core(device, tables, oracle, resident):
     if missing or ("join", "match_flags_acc") not in rec.sizes:
         raise AssertionError(f"kernels never launched out of core: {missing}, K10 accumulate "
                              f"{('join', 'match_flags_acc') in rec.sizes}")
-    untaken = [r for r in ("streamed", "grace agg", "grace union", "grace mask")
+    untaken = [r for r in ("streamed", "streamed after a side-swap", "grace agg",
+                           "grace union", "grace mask")
                if not any(t.startswith(r) for t in routes)]
     if untaken:
         raise AssertionError(f"no query took the routes {untaken}; routes {sorted(routes)}")
@@ -2065,6 +2190,357 @@ def phase_strategies(run, oracle):
     return run["res"], total
 
 
+# ---------------------------------------------------------------------------
+# queue 3 on the card, the distributed join, NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+def phase_queue3(device):
+    """ROADMAP queue 3's four refusals at their smallest inputs through
+    SessionContext on the card: each result == the CPU session's (the
+    plain versions) and == the JAX package's answer (QUEUE3_JAX)."""
+    from datafusion_parallelism_tpu_torch import SessionContext
+    lines = []
+    for name, (tables, sql, what) in queue3_cases().items():
+        rows = {}
+        for dev in (device, "cpu"):
+            ctx = SessionContext(device=dev)
+            for tname, data in tables.items():
+                ctx.register_pydict(tname, data)
+            before = kernel_launches()
+            rows[str(dev)] = ctx.sql(sql).collect().to_pylist()
+            if dev == device:
+                after = kernel_launches()
+                launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        got, want = rows[str(device)], rows["cpu"]
+        if sorted(map(repr, got)) != sorted(map(repr, want)):
+            raise AssertionError(f"{name}: the card's rows differ from the CPU's")
+        answer = queue3_answer(got, what)
+        if answer != QUEUE3_JAX[name]:
+            raise AssertionError(f"{name}: {answer}, the JAX package {QUEUE3_JAX[name]}")
+        lines.append(f"{name} {answer} (launches {launched})")
+    log("phase 18 ok: ROADMAP queue 3's refusals at their smallest inputs on the card, each "
+        "== the CPU session's rows and the JAX package's answer: " + "; ".join(lines))
+
+
+DIST_P = 8                            # partitions of phase 19's in-process mesh
+SKEW_KEY_RANGE = 64                   # phase 19's skewed probe keys with heavy buckets
+DIST_SIZE512_CASES = ([("partitioned", t) for t in
+                       ("INNER", "LEFT", "RIGHT", "FULL", "LEFT_SEMI", "LEFT_ANTI",
+                        "RIGHT_SEMI", "RIGHT_ANTI")]
+                      + [("broadcast", "INNER"), ("skew_salted", "INNER")])
+
+
+def size512_host_tables(rng, skew_range=None):
+    """bench.py's Size512 tables on the host (the draw of entry.make_tables);
+    with `skew_range`, the probe keys exponential over [0, skew_range),
+    skew_range * (16^x - 1) / 15 (tests/test_distributed.py:28-43)."""
+    from datafusion_parallelism_tpu_torch.utils.columnar import HostTable
+    n = SIZE512
+    bk = rng.integers(0, n, n).astype(np.int32)
+    bv = rng.random(n).astype(np.float32)
+    pk = rng.integers(0, n, n).astype(np.int32)
+    pv = rng.random(n).astype(np.float32)
+    if skew_range is not None:
+        x = rng.random(n)
+        pk = np.minimum(skew_range * (16.0 ** x - 1) / 15.0, skew_range - 1).astype(np.int32)
+    return (HostTable.from_numpy({"b_key": bk, "b_val": bv}),
+            HostTable.from_numpy({"p_key": pk, "p_val": pv}), (bk, pk, bv, pv))
+
+
+class DistRecorder:
+    """The distributed layer's kernel table (K18, K19) recording the
+    largest call of each kind: K18 routing by hash, salted, replicating;
+    K19."""
+
+    def __init__(self):
+        from datafusion_parallelism_tpu_torch.parallel.shuffle import KERNELS, DistKernels
+        self.calls = {}
+
+        def keep(kind, args, size):
+            if size > self.calls.get(kind, (-1, None))[0]:
+                self.calls[kind] = (size, args)
+
+        def dest_pack(h, mask, P, send_cap, heavy=None, rank=0, replicate=None,
+                      heavy_to_all=False):
+            kind = ("replicate" if heavy_to_all or replicate is not None else
+                    "salted" if heavy is not None else "route")
+            args = (h, mask, P, send_cap, heavy, rank, replicate, heavy_to_all)
+            keep(kind, args, h.numel() + P * send_cap)
+            return KERNELS.dest_pack(*args)
+
+        def key_histogram(h, mask):
+            keep("histogram", (h, mask), h.numel())
+            return KERNELS.key_histogram(h, mask)
+
+        self.table = DistKernels(dest_pack, key_histogram)
+
+
+def _heavy_count(par, probe) -> int:
+    """How many hash buckets of the probe keys skew_salted finds heavy,
+    on the host (the plain versions: no launch adds to phase 19's counts)."""
+    from datafusion_parallelism_tpu_torch.parallel import shuffle, skew
+    host = par.make_mesh(DIST_P, "cpu")
+    cols, num, schema, _ = shuffle.partition_table(probe, host.P)
+    with no_launches():
+        shards = shuffle.local_shards(host, schema, cols, num)
+        return int(skew.heavy_buckets(skew.key_histogram(host, shards, ["p_key"])).sum())
+
+
+def _sorted_columns(t):
+    """The host table's columns, rows in one canonical order."""
+    cols = [np.asarray(t.columns[n][0]) for n in t.schema.names]
+    order = np.lexsort([c.view(np.int32) if c.dtype == np.float32 else c for c in cols])
+    return [c[order] for c in cols]
+
+
+class RetryLog(logging.Handler):
+    """The distributed join's retry messages (its module's logger, at
+    INFO), kept and printed under `label` as they come."""
+
+    def __init__(self, label):
+        super().__init__(logging.INFO)
+        self.label, self.lines = label, []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+        log(f"  {self.label}: {record.getMessage()}")
+
+
+def _dist_run(par, ex, build, probe, bkeys, pkeys, cfg, rec, label):
+    """One distributed_hash_join and, at the config it settled on, the
+    median of 3 of its step on the device: (result, config, stats)."""
+    import torch
+    from datafusion_parallelism_tpu_torch.parallel import distributed, exchange, shuffle
+    logger, retries = logging.getLogger(distributed.__name__), RetryLog(label)
+    logger.setLevel(logging.INFO)
+    logger.addHandler(retries)
+    dev = ex.device
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    try:
+        res, cfg = par.distributed_hash_join(ex, build, probe, bkeys, pkeys, cfg, rec.table)
+    finally:
+        logger.removeHandler(retries)
+    first_s = time.perf_counter() - t0
+    stats = {"first_ms": first_s * 1e3, "retries": retries.lines, "rows": res.num_rows}
+    bcols, bnum, bschema, _ = shuffle.partition_table(build, ex.P)
+    pcols, pnum, pschema, _ = shuffle.partition_table(probe, ex.P)
+    builds = shuffle.local_shards(ex, bschema, bcols, bnum)
+    probes = shuffle.local_shards(ex, pschema, pcols, pnum)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    times = []
+    for _ in range(3):
+        exchange.reset_comm_bytes()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        outs, total, dropped = distributed.dist_join_shard(ex, builds, probes, bkeys, pkeys,
+                                                           cfg, rec.table)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        del outs
+    if int(dropped) or int(total) > cfg.out_cap:
+        raise AssertionError(f"{label}: the settled config overflowed")
+    stats.update(step_ms=statistics.median(times) * 1e3,
+                 comm_bytes=exchange.get_comm_bytes(),
+                 peak_bytes=torch.cuda.max_memory_allocated(dev) - base)
+    del builds, probes
+    return res, cfg, stats
+
+
+def _k18_k19_vs_plain(rec):
+    """The largest recorded K18 call of each kind and K19's, through the
+    kernel and its plain version: equal, timed, beside the bound (bytes
+    moved at 3.35 TB/s) and, for K19, torch.bincount of the buckets."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels.dest_pack import bucket_of
+    from datafusion_parallelism_tpu_torch.parallel.shuffle import KERNELS, PLAIN
+    out, lines = {}, []
+    for kind, (_, args) in sorted(rec.calls.items()):
+        name = "key_histogram" if kind == "histogram" else "dest_pack"
+        kernel, plain = getattr(KERNELS, name), getattr(PLAIN, name)
+        got = kernel(*args)
+        with no_launches():
+            want = plain(*args)
+        err = max_abs_err(got, want)
+        h = args[0]
+        if name == "dest_pack":
+            P, send_cap, heavy, rep = args[2], args[3], args[4], args[6]
+            # hash + mask (+ replicate flags, heavy table) read, the grid and
+            # counts written
+            nbytes = (h.numel() * (5 + (rep is not None)) + 256 * (heavy is not None)
+                      + 4 * P * (send_cap + 1) + 4)
+            lib_ms = None
+        else:
+            nbytes = h.numel() * 5 + 256 * 4
+            buckets = ((h.long() & 0xFFFFFFFF) >> 24)[args[1]]
+            lib_ms = cuda_ms(lambda: torch.bincount(buckets, minlength=256), reps=3)
+        ms = cuda_ms(kernel, *args, reps=3)
+        with no_launches():
+            plain_ms = cuda_ms(plain, *args, reps=1)
+        acc = out.setdefault(name, {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0,
+                                    "ops_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                                    "calls": []})
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        acc["err"] = max(acc["err"], err)
+        acc["ms"] += ms
+        acc["plain_ms"] += plain_ms
+        acc["bytes_ms"] += b_ms
+        acc["bound_ms"] += b_ms
+        acc["library_ms"] = None if lib_ms is None else acc["library_ms"] + lib_ms
+        acc["calls"].append(f"{name}.{kind}@{h.numel()} rows")
+        lines.append(f"{name} {kind} ({h.numel()} rows, {nbytes} bytes moved) {ms:.3f}/"
+                     f"{plain_ms:.3f}" + (f"/{lib_ms:.3f}" if lib_ms is not None else "")
+                     + f" bound {b_ms:.3f}")
+        del got, want
+    # K18's replicate-flags input (replicating_shuffle(replicate=)), which the
+    # join does not take: the heavy rows of the largest heavy_to_all call as
+    # flags, == the plain version and == that call
+    h, mask, P, send_cap, heavy = rec.calls["replicate"][1][:5]
+    flags = heavy[bucket_of(h).long()]
+    got = KERNELS.dest_pack(h, mask, P, send_cap, replicate=flags)
+    same = KERNELS.dest_pack(*rec.calls["replicate"][1])
+    with no_launches():
+        want = PLAIN.dest_pack(h, mask, P, send_cap, replicate=flags)
+    err = max(max_abs_err(got, want), max_abs_err(got, same))
+    out["dest_pack"]["err"] = max(out["dest_pack"]["err"], err)
+    lines.append(f"dest_pack replicate flags ({h.numel()} rows) == plain and == heavy_to_all, "
+                 f"max abs err {err}")
+    return out, lines
+
+
+def phase_distributed(device):
+    """The distributed hash join at P = 8 in process on the one card (the
+    all-to-all a copy on the card, not NVLink): Size512 under every join
+    type partitioned, INNER broadcast and skew_salted, skew_salted with
+    exponential probe keys, then phase 5's SF10 orders x lineitem INNER
+    join partitioned. Row counts == numpy's, the modes' INNER rows equal,
+    K18 and K19 launched on the path and == their plain versions at its
+    largest calls."""
+    import torch
+    from datafusion_parallelism_tpu_torch import parallel as par
+    from datafusion_parallelism_tpu_torch.kernels import dest_pack, key_histogram
+    from datafusion_parallelism_tpu_torch.ops.join import JoinType
+
+    for w in (dest_pack.dest_pack, key_histogram.key_histogram):
+        w.launches = 0
+    rec = DistRecorder()
+    ex = par.make_mesh(DIST_P, device)
+    build, probe, (bk, pk, bv, pv) = size512_host_tables(np.random.default_rng(0))
+    c = _size512_counts(bk, pk, bv, pv)
+    n, m, ub, up = SIZE512, c["matches"], c["unmatched_build"], c["unmatched_probe"]
+    expect = {"INNER": m, "LEFT": m + ub, "RIGHT": m + up, "FULL": m + ub + up,
+              "LEFT_SEMI": n - ub, "LEFT_ANTI": ub, "RIGHT_SEMI": n - up, "RIGHT_ANTI": up}
+    res, lines, inner = {}, [], {}
+    for mode, jt in DIST_SIZE512_CASES:
+        label = f"Size512 {jt} {mode}"
+        cfg = par.DistJoinConfig(mode=mode, join_type=JoinType[jt])
+        out, cfg, st = _dist_run(par, ex, build, probe, ["b_key"], ["p_key"], cfg, rec, label)
+        if out.num_rows != expect[jt]:
+            raise AssertionError(f"{label}: {out.num_rows} rows, numpy counts {expect[jt]}")
+        if jt == "INNER":
+            inner[mode] = _sorted_columns(out)
+        res[label] = st
+        lines.append(f"{label} {out.num_rows} rows, {len(st['retries'])} retries, first "
+                     f"{st['first_ms']:.1f} ms, step {st['step_ms']:.3f} ms, comm "
+                     f"{st['comm_bytes']} bytes, peak {st['peak_bytes']} bytes")
+        del out
+    for mode in ("broadcast", "skew_salted"):
+        if any(not np.array_equal(a, b) for a, b in zip(inner[mode], inner["partitioned"])):
+            raise AssertionError(f"Size512 INNER {mode} rows differ from partitioned")
+    del inner
+
+    # skew_salted under exponential probe keys, over the whole key range
+    # and over its first SKEW_KEY_RANGE keys (where hash buckets turn heavy),
+    # against numpy's count
+    for skew_range in (n, SKEW_KEY_RANGE):
+        sbuild, sprobe, (sbk, spk, _, _) = size512_host_tables(np.random.default_rng(1),
+                                                                skew_range)
+        want = int(np.bincount(sbk, minlength=n)[spk].sum())
+        heavy = _heavy_count(par, sprobe)
+        for mode in ("partitioned", "skew_salted"):
+            label = (f"Size512 INNER {mode}, probe keys exponential over {skew_range} "
+                     f"({heavy} heavy buckets)")
+            out, cfg, st = _dist_run(par, ex, sbuild, sprobe, ["b_key"], ["p_key"],
+                                     par.DistJoinConfig(mode=mode), rec, label)
+            if out.num_rows != want:
+                raise AssertionError(f"{label}: {out.num_rows} rows, numpy counts {want}")
+            res[label] = st
+            lines.append(f"{label} {out.num_rows} rows, {len(st['retries'])} retries, first "
+                         f"{st['first_ms']:.1f} ms, step {st['step_ms']:.3f} ms, comm "
+                         f"{st['comm_bytes']} bytes, peak {st['peak_bytes']} bytes")
+            del out
+        del sbuild, sprobe
+
+    # phase 5's SF10 orders x lineitem, partitioned
+    orders, lineitem, n_lines, expected_price = sf10_host_tables(np.random.default_rng(10))
+    label = f"SF10 orders x lineitem INNER partitioned at P = {DIST_P}"
+    out, cfg, st = _dist_run(par, ex, orders, lineitem, ["o_orderkey"], ["l_orderkey"],
+                             par.DistJoinConfig(), rec, label)
+    price = int(np.asarray(out.columns["o_totalprice"][0]).sum())
+    if out.num_rows != n_lines or price != expected_price:
+        raise AssertionError(f"{label}: {out.num_rows} rows (expected {n_lines}), price sum "
+                             f"{price} (expected {expected_price})")
+    res[label] = st
+    lines.append(f"{label} {out.num_rows} rows == lineitem, price sum exact, "
+                 f"{len(st['retries'])} retries, first {st['first_ms']:.1f} ms, step "
+                 f"{st['step_ms']:.3f} ms, comm {st['comm_bytes']} bytes, peak "
+                 f"{st['peak_bytes']} bytes")
+    del out, orders, lineitem
+    launches = {"dest_pack": dest_pack.dest_pack.launches,
+                "key_histogram": key_histogram.key_histogram.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"K18/K19 not launched on the distributed path: {launches}")
+    per_kernel, klines = _k18_k19_vs_plain(rec)
+    del rec
+    torch.cuda.empty_cache()
+    log(f"phase 19 ok: distributed hash join at P = {DIST_P} in process on one card (the "
+        "all-to-all a copy on the card): " + " | ".join(lines) + f"; INNER rows equal under "
+        f"the three modes; launches {launches}; K18/K19 == plain at the largest calls, ms "
+        "kernel/plain[/library] (median of 3 / one run / median of 3): " + "; ".join(klines))
+    return res, launches, per_kernel
+
+
+def phase_nccl(device):
+    """A one-rank NCCL process group (file store): the Size512 INNER join
+    partitioned through ProcessGroupExchange == single-device hash_join
+    row for row."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from datafusion_parallelism_tpu_torch import parallel as par
+    from datafusion_parallelism_tpu_torch.ops.join import JoinType, hash_join
+
+    build, probe, _ = size512_host_tables(np.random.default_rng(0))
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(d, 'store')}",
+                                world_size=1, rank=0, device_id=device)
+        try:
+            ex = par.make_mesh(1, device, process_group=True)
+            t0 = time.perf_counter()
+            res, cfg = par.distributed_hash_join(ex, build, probe, ["b_key"], ["p_key"],
+                                                 par.DistJoinConfig())
+            nccl_s = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    bt, pt = build.to_device(device=device), probe.to_device(device=device)
+    out, total = hash_join(bt, pt, ["b_key"], ["p_key"], JoinType.INNER, SIZE512_OUT_CAP)
+    if int(total) > SIZE512_OUT_CAP:
+        raise AssertionError(f"single-device total {int(total)} > {SIZE512_OUT_CAP}")
+    want = out.to_host()
+    if res.num_rows != want.num_rows or res.schema.names != want.schema.names:
+        raise AssertionError(f"NCCL {res.num_rows} rows, single device {want.num_rows}")
+    for name in want.schema.names:
+        for a, b in zip(res.columns[name], want.columns[name]):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise AssertionError(f"NCCL column {name} differs from single-device")
+    log(f"phase 20 ok: NCCL process group of world size 1: Size512 INNER partitioned through "
+        f"ProcessGroupExchange, {res.num_rows} rows == single-device hash_join row for row; "
+        f"{nccl_s * 1e3:.1f} ms end to end (host partitioning and upload included), config "
+        f"{cfg}")
+
+
 def launch_counters():
     from datafusion_parallelism_tpu_torch.kernels import (compact_gather, csr_build,
                                                           hash_slot, probe_expand)
@@ -2120,6 +2596,15 @@ def main() -> int:
         "summed over their calls: " + _fmt_timing(chain_timing))
 
     phase_join_types(device)
+    phase_queue3(device)
+    # the distributed join holds up to ~52 GB at SF10: it runs while the card
+    # holds nothing else, and gives the cache back after
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, dist_launches, dist_kernels = phase_distributed(device)
+    phase_nccl(device)
+    gc.collect()
+    torch.cuda.empty_cache()
     sql_res, sql_launches, ctx, sizes, oracle, strategy_run = phase_tpch_sql(
         device, tables, lambda res: run_strategies(device, tables, res))
     _, ooc_launches, ooc_ctx, ooc_sizes = phase_out_of_core(device, tables, oracle, sql_res)
@@ -2127,12 +2612,14 @@ def main() -> int:
     replay = phase_replay(device, {14: ctx, 16: ooc_ctx, **strategy_run["ctxs"]},
                           {**sizes, **ooc_sizes, **strategy_run["sizes"]})
     del ctx, ooc_ctx, strategy_run, tables
+    replay.update(dist_kernels)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = replay[name]
         launches = (ooc_launches if name in OOC_KERNELS + ("pack_rows",) else
-                    strategy_launches if name in STRATEGY_KERNELS else sql_launches)
+                    strategy_launches if name in STRATEGY_KERNELS else
+                    dist_launches if name in DIST_KERNELS else sql_launches)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": r["err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

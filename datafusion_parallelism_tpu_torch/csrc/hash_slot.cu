@@ -1,4 +1,7 @@
 // K1 hash_slot: row hash over 1-16 key columns, and its hash-table bucket.
+// A key of more columns runs as several launches of 16: each launch
+// continues the `combine` fold from the hash (and the all-keys-valid flag)
+// the one before left, so the hash stays bit for bit the JAX package's.
 //
 // Replaces the JAX package's `hash_rows` (+ `_fmix32`, `_hash_values_u32`,
 // `combine`; ops/hashing.py:32-81) and `slot_of` (ops/hash_table.py:95-107),
@@ -53,16 +56,22 @@ __device__ __forceinline__ uint32_t combine(uint32_t h, uint32_t hv) {
 // num_rows (device scalar) marks the build side: rows at or past it, and
 // rows with any null key, go to bucket T; so do rows whose row_mask byte is
 // 0 (a chain-fused build side's build_valid, JAX ops/join.py:221-225).
+// hash_in / ok_in (either may be null) carry the fold of an earlier launch
+// over the key's first columns; ok_out (may be null) receives the flag for
+// the next one.
 __global__ void hash_slot_kernel(const int32_t* __restrict__ words, HashSpec spec,
                                  dfp::i64 n, dfp::i64 T,
                                  const int32_t* __restrict__ num_rows,
                                  const uint8_t* __restrict__ row_mask,
+                                 const int32_t* __restrict__ hash_in,
+                                 const uint8_t* ok_in,  // may alias ok_out
                                  int32_t* __restrict__ hash_out,
-                                 int32_t* __restrict__ slot_out) {
+                                 int32_t* __restrict__ slot_out,
+                                 uint8_t* ok_out) {
   const dfp::i64 i = (dfp::i64)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  uint32_t h = SEED;
-  bool ok = true;
+  uint32_t h = hash_in != nullptr ? (uint32_t)hash_in[i] : SEED;
+  bool ok = ok_in != nullptr ? ok_in[i] != 0 : true;
   // unrolled over MAX_COLS so that the spec is read at constant indices
   // from the parameter bank, not copied to local memory (a loop bounded by
   // spec.n_cols ran 3-4x slower on the H100)
@@ -86,6 +95,7 @@ __global__ void hash_slot_kernel(const int32_t* __restrict__ words, HashSpec spe
     h = combine(h, v ? hv : NULL_HASH);
   }
   hash_out[i] = (int32_t)h;
+  if (ok_out != nullptr) ok_out[i] = ok ? 1 : 0;
   if (slot_out != nullptr) {
     dfp::i64 s;
     if ((T & (T - 1)) == 0) {
@@ -103,14 +113,16 @@ __global__ void hash_slot_kernel(const int32_t* __restrict__ words, HashSpec spe
 
 // words [R, n] int32; spec is a host array laid out as HashSpec.
 extern "C" int dfp_hash_slot(const void* words, const int* spec, long long n, long long T,
-                             const void* num_rows, const void* row_mask, void* hash_out,
-                             void* slot_out, void* stream) {
+                             const void* num_rows, const void* row_mask, const void* hash_in,
+                             const void* ok_in, void* hash_out, void* slot_out, void* ok_out,
+                             void* stream) {
   HashSpec hs = *(const HashSpec*)spec;
   if (hs.n_cols < 1 || hs.n_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     hash_slot_kernel<<<dfp::grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
         (const int32_t*)words, hs, n, T, (const int32_t*)num_rows, (const uint8_t*)row_mask,
-        (int32_t*)hash_out, (int32_t*)slot_out);
+        (const int32_t*)hash_in, (const uint8_t*)ok_in, (int32_t*)hash_out, (int32_t*)slot_out,
+        (uint8_t*)ok_out);
   }
   return (int)cudaGetLastError();
 }

@@ -84,7 +84,7 @@ __global__ void pair_fetch_kernel(const int32_t* __restrict__ start,
                                   const int32_t* __restrict__ pwords, int wp,
                                   const double* __restrict__ pf64, int fp,
                                   const int32_t* __restrict__ bwords, int wb, int fb,
-                                  i64 b_stride, FetchSpec spec, i64 out_cap,
+                                  i64 b_stride, FetchSpec spec, i64 out_cap, bool and_match,
                                   int32_t* __restrict__ out_b, double* __restrict__ out_bf,
                                   int32_t* __restrict__ out_p, double* __restrict__ out_pf,
                                   int32_t* __restrict__ probe_idx,
@@ -93,6 +93,7 @@ __global__ void pair_fetch_kernel(const int32_t* __restrict__ start,
   const i64 j = (i64)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= out_cap) return;
   if (j >= *total) {
+    if (and_match) return;  // the first launch zeroed this slot
     for (int w = 0; w < wb; ++w) out_b[w * out_cap + j] = 0;
     for (int f = 0; f < fb; ++f) out_bf[f * out_cap + j] = 0.0;
     for (int w = 0; w < wp; ++w) out_p[w * out_cap + j] = 0;
@@ -110,14 +111,16 @@ __global__ void pair_fetch_kernel(const int32_t* __restrict__ start,
   }
   const i64 i = lo;
   const i64 pos = (i64)start[i] + (j - (i64)base[i]);
-  for (int w = 0; w < wb; ++w) out_b[w * out_cap + j] = bwords[w * b_stride + pos];
-  for (int f = 0; f < fb; ++f) {
-    const long long bits = pair64(bwords[(wb + 2 * f) * b_stride + pos],
-                                  bwords[(wb + 2 * f + 1) * b_stride + pos]);
-    out_bf[f * out_cap + j] = __longlong_as_double(bits);
+  if (!and_match) {
+    for (int w = 0; w < wb; ++w) out_b[w * out_cap + j] = bwords[w * b_stride + pos];
+    for (int f = 0; f < fb; ++f) {
+      const long long bits = pair64(bwords[(wb + 2 * f) * b_stride + pos],
+                                    bwords[(wb + 2 * f + 1) * b_stride + pos]);
+      out_bf[f * out_cap + j] = __longlong_as_double(bits);
+    }
+    for (int w = 0; w < wp; ++w) out_p[w * out_cap + j] = pwords[w * m + i];
+    for (int f = 0; f < fp; ++f) out_pf[f * out_cap + j] = pf64[f * m + i];
   }
-  for (int w = 0; w < wp; ++w) out_p[w * out_cap + j] = pwords[w * m + i];
-  for (int f = 0; f < fp; ++f) out_pf[f * out_cap + j] = pf64[f * m + i];
 
   bool eq = true;
   for (int k = 0; k < spec.n; ++k) {
@@ -137,6 +140,10 @@ __global__ void pair_fetch_kernel(const int32_t* __restrict__ start,
     const uint32_t pvw = (uint32_t)pwords[(i64)spec.pvrow[k] * m + i];
     eq = eq && same && ((bvw >> spec.bvbit[k]) & 1u) && ((pvw >> spec.pvbit[k]) & 1u);
   }
+  if (and_match) {  // a later group of the keys: only the match changes
+    match[j] = (match[j] && eq) ? 1 : 0;
+    return;
+  }
   match[j] = eq ? 1 : 0;
   probe_idx[j] = (int32_t)i;
   build_id[j] = bwords[(i64)(wb + 2 * fb) * b_stride + pos];
@@ -149,11 +156,14 @@ __global__ void pair_fetch_kernel(const int32_t* __restrict__ start,
 // b_stride] int32 in perm order (packed words, float64 (lo, hi) pairs, row
 // id); spec a host array laid out as FetchSpec. Out: out_b [wb, out_cap],
 // out_bf [fb, out_cap], out_p [wp, out_cap], out_pf [fp, out_cap],
-// probe_idx, build_id and match [out_cap].
+// probe_idx, build_id and match [out_cap]. More than 4 keys run as several
+// launches, the later ones with and_match set: they AND their recheck into
+// match and write nothing else.
 extern "C" int dfp_pair_fetch(const void* start, const void* base, const void* total64,
                               long long m, const void* pwords, int wp, const void* pf64, int fp,
                               const void* bwords, int wb, int fb, long long b_stride,
-                              const int* spec, long long out_cap, void* out_b, void* out_bf,
+                              const int* spec, long long out_cap, int and_match, void* out_b,
+                              void* out_bf,
                               void* out_p, void* out_pf, void* probe_idx, void* build_id,
                               void* match, void* stream) {
   const FetchSpec fs = *(const FetchSpec*)spec;
@@ -162,7 +172,7 @@ extern "C" int dfp_pair_fetch(const void* start, const void* base, const void* t
     pair_fetch_kernel<<<dfp::grid_for(out_cap, 256), 256, 0, (cudaStream_t)stream>>>(
         (const int32_t*)start, (const int32_t*)base, (const i64*)total64, m,
         (const int32_t*)pwords, wp, (const double*)pf64, fp, (const int32_t*)bwords, wb, fb,
-        b_stride, fs, out_cap, (int32_t*)out_b, (double*)out_bf, (int32_t*)out_p,
+        b_stride, fs, out_cap, and_match != 0, (int32_t*)out_b, (double*)out_bf, (int32_t*)out_p,
         (double*)out_pf, (int32_t*)probe_idx, (int32_t*)build_id, (uint8_t*)match);
   }
   return (int)cudaGetLastError();

@@ -66,7 +66,7 @@ __global__ void probe_expand_kernel(const int32_t* __restrict__ start,
                                     const int32_t* __restrict__ pwords, i64 p_stride,
                                     const int32_t* __restrict__ bwords, i64 b_stride,
                                     int n_bwords, KeySpec spec, i64 out_cap,
-                                    uint8_t* __restrict__ match,
+                                    bool and_match, uint8_t* __restrict__ match,
                                     int32_t* __restrict__ probe_idx,
                                     int32_t* __restrict__ build_id) {
   const i64 j = (i64)blockIdx.x * blockDim.x + threadIdx.x;
@@ -93,6 +93,10 @@ __global__ void probe_expand_kernel(const int32_t* __restrict__ start,
     const uint32_t bw = (uint32_t)bwords[(i64)spec.vb_row[k] * b_stride + pos];
     const uint32_t pw = (uint32_t)pwords[(i64)spec.vp_row[k] * p_stride + i];
     eq = eq && ((bw >> spec.vb_bit[k]) & 1u) && ((pw >> spec.vp_bit[k]) & 1u);
+  }
+  if (and_match) {  // a later group of the key's columns: probe_idx, build_id are set
+    match[j] = (match[j] && eq) ? 1 : 0;
+    return;
   }
   match[j] = eq ? 1 : 0;
   probe_idx[j] = (int32_t)i;
@@ -125,11 +129,14 @@ extern "C" int dfp_probe_ranges(const void* slot, const void* ok, long long m,
 
 // Pass 2. pwords [*, p_stride] are the probe's narrow words; bwords
 // [n_bwords, b_stride] the build's narrow words in perm order, the last row
-// the build row id. spec is a host array laid out as KeySpec.
+// the build row id. spec is a host array laid out as KeySpec. A key past
+// the spec's 4 columns or 8 words runs as several launches, the later ones
+// with and_match set: they AND their recheck into match and leave
+// probe_idx and build_id as the first launch wrote them.
 extern "C" int dfp_probe_expand(const void* start, const void* base, const void* total64,
                                 long long m, const void* pwords, long long p_stride,
                                 const void* bwords, long long b_stride, int n_bwords,
-                                const int* spec, long long out_cap, void* match,
+                                const int* spec, long long out_cap, int and_match, void* match,
                                 void* probe_idx, void* build_id, void* stream) {
   KeySpec ks = *(const KeySpec*)spec;
   if (ks.n_eq > MAX_EQ || ks.n_keys > MAX_KEYS || m <= 0) return (int)cudaErrorInvalidValue;
@@ -137,7 +144,7 @@ extern "C" int dfp_probe_expand(const void* start, const void* base, const void*
     probe_expand_kernel<<<dfp::grid_for(out_cap, 256), 256, 0, (cudaStream_t)stream>>>(
         (const int32_t*)start, (const int32_t*)base, (const i64*)total64, m,
         (const int32_t*)pwords, p_stride, (const int32_t*)bwords, b_stride, n_bwords, ks,
-        out_cap, (uint8_t*)match, (int32_t*)probe_idx, (int32_t*)build_id);
+        out_cap, and_match != 0, (uint8_t*)match, (int32_t*)probe_idx, (int32_t*)build_id);
   }
   return (int)cudaGetLastError();
 }

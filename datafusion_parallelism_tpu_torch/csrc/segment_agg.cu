@@ -13,7 +13,9 @@
 // So every aggregate is a segmented scan, one thread per row:
 //   * flags: row i < n_valid opens a group when i == 0 or a key column
 //     differs from row i-1 (valid in both and unequal, or valid in one);
-//     floats compare as floats (-0.0 == 0.0, NaN != NaN), as jnp's == does;
+//     floats compare as floats (-0.0 == 0.0, NaN != NaN), as jnp's == does.
+//     A key of more than 16 columns comes as several specs of 16: one
+//     launch per spec, each ORing its flags into the first one's;
 //   * ranks: the exclusive scan of the flags (scan.cuh) gives each row its
 //     group and the true group count;
 //   * tiles: each block scans its 512 rows segmentedly per aggregate
@@ -88,12 +90,13 @@ __device__ __forceinline__ bool same_key(const int32_t* __restrict__ words, cons
 }
 
 __global__ void boundary_kernel(const int32_t* __restrict__ words, KeySpec ks, i64 n,
-                                const int32_t* __restrict__ n_valid, uint8_t* __restrict__ flags) {
+                                const int32_t* __restrict__ n_valid, bool or_into,
+                                uint8_t* __restrict__ flags) {
   const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint8_t f = 0;
   if (i < (i64)*n_valid) f = (i == 0 || !same_key(words, ks, n, i)) ? 1 : 0;
-  flags[i] = f;
+  flags[i] = or_into ? (uint8_t)(flags[i] | f) : f;
 }
 
 // Segmented inclusive scan over the block, one (flag, value) per thread:
@@ -289,25 +292,28 @@ extern "C" long long dfp_segment_agg_scratch_bytes(long long n, int n_aggs) {
   return carve(nullptr, n, n_aggs).bytes;
 }
 
-// words [R, n] sorted key words (keys: a host array laid out as KeySpec),
-// n_valid (device int32): the rows in groups. Out: starts int32[out_cap],
-// sizes int64[out_cap], out [A, out_cap] accumulator bits, n_groups
-// (device int64, the true count); zeros at and past min(n_groups, out_cap).
-extern "C" int dfp_segment_agg(const void* words, long long n, const int* keys,
+// words [R, n] sorted key words (keys: a host array of n_specs KeySpecs,
+// the key's columns 16 at a time), n_valid (device int32): the rows in
+// groups. Out: starts int32[out_cap], sizes int64[out_cap], out [A,
+// out_cap] accumulator bits, n_groups (device int64, the true count); zeros
+// at and past min(n_groups, out_cap).
+extern "C" int dfp_segment_agg(const void* words, long long n, const int* keys, int n_specs,
                                const void* n_valid, const void* spec_ptr, long long out_cap,
                                void* starts, void* sizes, void* out, void* n_groups,
                                void* scratch, long long scratch_bytes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const KeySpec ks = *(const KeySpec*)keys;
+  const KeySpec* kss = (const KeySpec*)keys;
   const AggSpec* spec = (const AggSpec*)spec_ptr;
-  if (ks.n_cols < 1 || ks.n_cols > MAX_COLS || spec->n < 0 || spec->n > dfp::MAX_AGGS)
-    return (int)cudaErrorInvalidValue;
+  if (n_specs < 1 || spec->n < 0 || spec->n > dfp::MAX_AGGS) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < n_specs; ++k)
+    if (kss[k].n_cols < 1 || kss[k].n_cols > MAX_COLS) return (int)cudaErrorInvalidValue;
   Scratch s = carve((char*)scratch, n, spec->n);
   if (scratch_bytes < s.bytes) return (int)cudaErrorInvalidValue;
   const i64 n_tiles = (n + SEG_BLOCK - 1) / SEG_BLOCK;
   if (n > 0) {
-    boundary_kernel<<<dfp::grid_for(n, 256), 256, 0, st>>>((const int32_t*)words, ks, n,
-                                                           (const int32_t*)n_valid, s.flags);
+    for (int k = 0; k < n_specs; ++k)
+      boundary_kernel<<<dfp::grid_for(n, 256), 256, 0, st>>>(
+          (const int32_t*)words, kss[k], n, (const int32_t*)n_valid, k > 0, s.flags);
   }
   dfp::exclusive_scan<uint8_t, int32_t>(s.flags, n, s.rank, (i64*)n_groups, s.scan, st);
   if (n > 0) {

@@ -68,6 +68,12 @@ def reduce_plain(func: str, values: torch.Tensor, validity: Optional[torch.Tenso
     return out.scatter_reduce_(0, s, x, "amin" if func == "min" else "amax")
 
 
+def request_groups(reqs: Sequence[Request]) -> List[Sequence[Request]]:
+    """The requests in the runs of at most MAX_AGGS that one launch of K7
+    or K8 each takes, in order (one empty run for no requests)."""
+    return [reqs[i:i + MAX_AGGS] for i in range(0, max(len(reqs), 1), MAX_AGGS)]
+
+
 def spec(reqs: Sequence[Request], n: int, dev: torch.device) -> AggSpecC:
     """The requests as the kernels' AggSpec, after checking each tensor."""
     if len(reqs) > MAX_AGGS:

@@ -66,7 +66,8 @@ def _group_ids(keys, doms, num_rows, row_filter, cap):
 def direct_agg(keys: Sequence[Key], doms: Sequence[int], num_rows: torch.Tensor,
                row_filter: Optional[torch.Tensor], reqs: Sequence[_agg.Request],
                cap: int) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """direct_agg_plain's contract; launches K8 for CUDA tensors."""
+    """direct_agg_plain's contract; launches K8 for CUDA tensors, once per
+    run of at most 32 requests (_agg.request_groups)."""
     if not num_rows.is_cuda:
         return direct_agg_plain(keys, doms, num_rows, row_filter, reqs, cap)
     dev = num_rows.device
@@ -86,22 +87,26 @@ def direct_agg(keys: Sequence[Key], doms: Sequence[int], num_rows: torch.Tensor,
         _build.require(valid, f"key {i} validity", torch.bool, (cap,), dev)
         kc.dom[i], kc.is_bool[i] = d, int(v.dtype == torch.bool)
         kc.vals[i], kc.valid[i] = v.data_ptr(), valid.data_ptr()
-    spec = _agg.spec(reqs, cap, dev)
     scratch_bytes = _build.function("dfp_direct_agg_scratch_bytes",
                                     (_build.I64, _build.I32, _build.I32), _build.I64)
     fn = _build.function("dfp_direct_agg", (
         ctypes.POINTER(DirectKeysC), ctypes.POINTER(_agg.AggSpecC), _build.I64, _build.P,
         _build.P, _build.P, _build.P, _build.I64, _build.P))
-    # one row per request, then the row count
-    out = torch.empty((len(reqs) + 1, G), dtype=torch.int64, device=dev)
-    nbytes = scratch_bytes(cap, len(reqs) + 1, G)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    err = fn(ctypes.byref(kc), ctypes.byref(spec), cap, num_rows.data_ptr(),
-             row_filter.data_ptr() if row_filter is not None else None, out.data_ptr(),
-             scratch.data_ptr(), nbytes, _build.stream(dev))
-    direct_agg.launches += 1
-    _build.check(err, "direct_agg")
-    return out[-1], _agg.split_results(out[:-1], reqs)
+    rowcount, results = None, []
+    for group in _agg.request_groups(reqs):
+        spec = _agg.spec(group, cap, dev)
+        # one row per request, then the row count (the same in every launch)
+        out = torch.empty((len(group) + 1, G), dtype=torch.int64, device=dev)
+        nbytes = scratch_bytes(cap, len(group) + 1, G)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        err = fn(ctypes.byref(kc), ctypes.byref(spec), cap, num_rows.data_ptr(),
+                 row_filter.data_ptr() if row_filter is not None else None, out.data_ptr(),
+                 scratch.data_ptr(), nbytes, _build.stream(dev))
+        direct_agg.launches += 1
+        _build.check(err, "direct_agg")
+        rowcount = out[-1] if rowcount is None else rowcount
+        results += _agg.split_results(out[:-1], group)
+    return rowcount, results
 
 
 direct_agg.launches = 0

@@ -11,7 +11,7 @@ version; on CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -20,7 +20,7 @@ from ..ops.hashing import (KIND_F32, KIND_I32, NULL_HASH, SEED, combine,
                            hash_words)
 from . import _build
 
-MAX_KEY_COLUMNS = 16   # TPC-H Q10 groups by 7 columns
+MAX_KEY_COLUMNS = 16   # a launch's columns; a wider key runs in several launches
 # one key column as K1 reads it from the word matrix: (kind, its word rows
 # (lo,) or (lo, hi), (validity word row, bit))
 KeyCol = Tuple[int, Tuple[int, ...], Tuple[int, int]]
@@ -85,17 +85,25 @@ def _spec(cols: Sequence[KeyCol], n_rows: int):
     return (ctypes.c_int * len(fields))(*fields)
 
 
+def col_groups(cols: Sequence[KeyCol]) -> List[Sequence[KeyCol]]:
+    """The key columns in the runs of at most MAX_KEY_COLUMNS that one
+    launch each takes, in order."""
+    return [cols[i:i + MAX_KEY_COLUMNS] for i in range(0, max(len(cols), 1), MAX_KEY_COLUMNS)]
+
+
 def hash_slot(words: torch.Tensor, cols: Sequence[KeyCol], T: Optional[int] = None,
               num_rows: Optional[torch.Tensor] = None,
               row_mask: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """hash_slot_plain's contract; launches the CUDA kernel for CUDA tensors."""
+    """hash_slot_plain's contract; launches the CUDA kernel for CUDA
+    tensors, once per run of col_groups(cols): each launch continues the
+    hash (and the all-keys-valid flag) of the one before."""
     if not words.is_cuda:
         return hash_slot_plain(words, cols, T, num_rows, row_mask)
     if words.dim() != 2:
         raise ValueError(f"words: expected [R, n], got {tuple(words.shape)}")
     _build.require(words, "words", torch.int32)
-    spec = _spec(cols, words.shape[0])
+    specs = [_spec(g, words.shape[0]) for g in col_groups(cols)]
     n, dev = words.shape[1], words.device
     if T is not None and not 1 <= T < 2**31 - 1:
         raise ValueError(f"table size {T} out of range")
@@ -107,18 +115,27 @@ def hash_slot(words: torch.Tensor, cols: Sequence[KeyCol], T: Optional[int] = No
         if T is None:
             raise ValueError("row_mask masks slots: give T too")
         _build.require(row_mask, "row_mask", torch.bool, (n,), dev)
-    hashes = torch.empty(n, dtype=torch.int32, device=dev)
-    slot = torch.empty(n, dtype=torch.int32, device=dev) if T is not None else None
     fn = _build.function("dfp_hash_slot", (_build.P, ctypes.POINTER(ctypes.c_int), _build.I64,
                                            _build.I64, _build.P, _build.P, _build.P, _build.P,
-                                           _build.P))
-    err = fn(words.data_ptr(), spec, n, T if T is not None else 0,
-             num_rows.data_ptr() if num_rows is not None else None,
-             row_mask.data_ptr() if row_mask is not None else None,
-             hashes.data_ptr(), slot.data_ptr() if slot is not None else None,
-             _build.stream(dev))
-    hash_slot.launches += 1
-    _build.check(err, "hash_slot")
+                                           _build.P, _build.P, _build.P, _build.P))
+    # the fold carried between launches: the hash, and with num_rows the
+    # flag that every key column so far is valid
+    ok = (torch.empty(n, dtype=torch.uint8, device=dev)
+          if len(specs) > 1 and num_rows is not None else None)
+    hashes, slot = None, None
+    for k, spec in enumerate(specs):
+        last = k == len(specs) - 1
+        h_in, hashes = hashes, torch.empty(n, dtype=torch.int32, device=dev)
+        slot = torch.empty(n, dtype=torch.int32, device=dev) if last and T is not None else None
+        err = fn(words.data_ptr(), spec, n, T if last and T is not None else 0,
+                 num_rows.data_ptr() if last and num_rows is not None else None,
+                 row_mask.data_ptr() if last and row_mask is not None else None,
+                 h_in.data_ptr() if h_in is not None else None,
+                 ok.data_ptr() if ok is not None and k > 0 else None,
+                 hashes.data_ptr(), slot.data_ptr() if slot is not None else None,
+                 ok.data_ptr() if ok is not None and not last else None, _build.stream(dev))
+        hash_slot.launches += 1
+        _build.check(err, "hash_slot")
     return hashes, slot
 
 

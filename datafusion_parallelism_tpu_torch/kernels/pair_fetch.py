@@ -35,7 +35,7 @@ NaN matches nothing, and an int32 key meets an int64 one by value.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -103,6 +103,12 @@ def pair_fetch_plain(start: torch.Tensor, base: torch.Tensor, total: torch.Tenso
     return bw[:wb], bf, pw, pf, i.to(torch.int32), bw[-1], match
 
 
+def key_groups(keys: Sequence[FetchKey]) -> List[Sequence[FetchKey]]:
+    """The keys in the runs of at most MAX_KEYS that one launch each takes,
+    in order."""
+    return [keys[i:i + MAX_KEYS] for i in range(0, max(len(keys), 1), MAX_KEYS)]
+
+
 def _spec(keys: Sequence[FetchKey], rows_b: int, rows_p: int, n_pf64: int):
     """The keys as the kernel's FetchSpec: n, then per key bkind, brow,
     pkind, prow, bvrow, bvbit, pvrow, pvbit (MAX_KEYS each)."""
@@ -128,7 +134,9 @@ def _spec(keys: Sequence[FetchKey], rows_b: int, rows_p: int, n_pf64: int):
 
 def pair_fetch(start, base, total, pwords, pf64, bwords, n_bf64: int,
                keys: Sequence[FetchKey], out_cap: int) -> Fetched:
-    """pair_fetch_plain's contract; launches K9 for CUDA tensors."""
+    """pair_fetch_plain's contract; launches K9 for CUDA tensors, once per
+    run of key_groups(keys): the first fetches the rows, the later ones AND
+    their recheck into match."""
     if not base.is_cuda:
         return pair_fetch_plain(start, base, total, pwords, pf64, bwords, n_bf64, keys,
                                 out_cap)
@@ -145,7 +153,8 @@ def pair_fetch(start, base, total, pwords, pf64, bwords, n_bf64: int,
     if wb < 0 or m < 1 or not 0 <= out_cap < 2**31:
         raise ValueError(f"pair_fetch: {bwords.shape[0]} build rows for {n_bf64} float64 "
                          f"pairs, {m} probe rows, out_cap {out_cap}")
-    spec = _spec(keys, bwords.shape[0] - 1, pwords.shape[0], pf64.shape[0])
+    specs = [_spec(g, bwords.shape[0] - 1, pwords.shape[0], pf64.shape[0])
+             for g in key_groups(keys)]
     total64 = total.to(torch.int64)
     _build.require(total64, "total", torch.int64, (), dev)
     out_b = torch.empty((wb, out_cap), dtype=torch.int32, device=dev)
@@ -158,14 +167,16 @@ def pair_fetch(start, base, total, pwords, pf64, bwords, n_bf64: int,
     fn = _build.function("dfp_pair_fetch", (
         _build.P, _build.P, _build.P, _build.I64, _build.P, _build.I32, _build.P, _build.I32,
         _build.P, _build.I32, _build.I32, _build.I64, ctypes.POINTER(ctypes.c_int), _build.I64,
-        _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P))
-    err = fn(start.data_ptr(), base.data_ptr(), total64.data_ptr(), m, pwords.data_ptr(),
-             pwords.shape[0], pf64.data_ptr(), pf64.shape[0], bwords.data_ptr(), wb, n_bf64,
-             bwords.shape[1], spec, out_cap, out_b.data_ptr(), out_bf.data_ptr(),
-             out_p.data_ptr(), out_pf.data_ptr(), probe_idx.data_ptr(), build_id.data_ptr(),
-             match.data_ptr(), _build.stream(dev))
-    pair_fetch.launches += 1
-    _build.check(err, "pair_fetch")
+        _build.I32, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+        _build.P))
+    for k, spec in enumerate(specs):
+        err = fn(start.data_ptr(), base.data_ptr(), total64.data_ptr(), m, pwords.data_ptr(),
+                 pwords.shape[0], pf64.data_ptr(), pf64.shape[0], bwords.data_ptr(), wb,
+                 n_bf64, bwords.shape[1], spec, out_cap, int(k > 0), out_b.data_ptr(),
+                 out_bf.data_ptr(), out_p.data_ptr(), out_pf.data_ptr(), probe_idx.data_ptr(),
+                 build_id.data_ptr(), match.data_ptr(), _build.stream(dev))
+        pair_fetch.launches += 1
+        _build.check(err, "pair_fetch")
     return out_b, out_bf, out_p, out_pf, probe_idx, build_id, match
 
 

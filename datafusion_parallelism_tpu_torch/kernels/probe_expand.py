@@ -126,6 +126,19 @@ def expand_ranges_plain(start, count, base, total, pwords, bwords, compares, out
     return match, i.to(torch.int32), build_id
 
 
+def key_groups(compares: Sequence[Compare]) -> List[Sequence[Compare]]:
+    """The recheck plan in the runs, in order, that one launch of the
+    second pass each takes: at most MAX_KEYS keys of MAX_EQ_WORDS words."""
+    groups, cur, words = [], [], 0
+    for c in compares:
+        if cur and (len(cur) == MAX_KEYS or words + len(c[0]) > MAX_EQ_WORDS):
+            groups.append(cur)
+            cur, words = [], 0
+        cur.append(c)
+        words += len(c[0])
+    return groups + [cur]
+
+
 def _spec(compares: Sequence[Compare]):
     """The recheck plan as the kernel's KeySpec: n_eq, eq_b[8], eq_p[8],
     n_keys, vb_row[4], vb_bit[4], vp_row[4], vp_bit[4]."""
@@ -158,12 +171,13 @@ def _check_expand(start, pwords, bwords, compares, out_cap):
             raise ValueError("recheck plan names a word row the matrices lack")
     if out_cap < 1:
         raise ValueError(f"out_cap {out_cap} < 1")
-    return _spec(compares)
+    return [_spec(g) for g in key_groups(compares)]
 
 
 def expand_ranges(start, count, base, total, pwords, bwords, compares, out_cap):
     """expand_ranges_plain's contract; launches K3's second pass for CUDA
-    tensors (the SORT and OA strategies' ranges come from K14 / K16)."""
+    tensors (the SORT and OA strategies' ranges come from K14 / K16), once
+    per run of key_groups(compares), the later runs ANDing into match."""
     if not start.is_cuda:
         return expand_ranges_plain(start, count, base, total, pwords, bwords, compares,
                                    out_cap)
@@ -172,21 +186,23 @@ def expand_ranges(start, count, base, total, pwords, bwords, compares, out_cap):
     _build.require(base, "base", torch.int32, (m,), start.device)
     if m < 1:
         raise ValueError("probe side has no rows")
-    spec = _check_expand(start, pwords, bwords, compares, out_cap)
+    specs = _check_expand(start, pwords, bwords, compares, out_cap)
     dev = start.device
     fn = _build.function("dfp_probe_expand", (
         _build.P, _build.P, _build.P, _build.I64, _build.P, _build.I64, _build.P,
-        _build.I64, _build.I32, ctypes.POINTER(ctypes.c_int), _build.I64, _build.P,
-        _build.P, _build.P, _build.P))
+        _build.I64, _build.I32, ctypes.POINTER(ctypes.c_int), _build.I64, _build.I32,
+        _build.P, _build.P, _build.P, _build.P))
     total64 = total.to(torch.int64)
     match = torch.empty(out_cap, dtype=torch.bool, device=dev)
     probe_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
     build_id = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    err = fn(start.data_ptr(), base.data_ptr(), total64.data_ptr(), m, pwords.data_ptr(), m,
-             bwords.data_ptr(), bwords.shape[1], bwords.shape[0], spec, out_cap,
-             match.data_ptr(), probe_idx.data_ptr(), build_id.data_ptr(), _build.stream(dev))
-    expand_ranges.launches += 1
-    _build.check(err, "expand_ranges")
+    for k, spec in enumerate(specs):
+        err = fn(start.data_ptr(), base.data_ptr(), total64.data_ptr(), m, pwords.data_ptr(),
+                 m, bwords.data_ptr(), bwords.shape[1], bwords.shape[0], spec, out_cap,
+                 int(k > 0), match.data_ptr(), probe_idx.data_ptr(), build_id.data_ptr(),
+                 _build.stream(dev))
+        expand_ranges.launches += 1
+        _build.check(err, "expand_ranges")
     return match, probe_idx, build_id
 
 

@@ -26,7 +26,8 @@ import torch
 
 from ..ops.hashing import KIND_F32, KIND_F64, KIND_I32
 from . import _agg, _build
-from .hash_slot import KeyCol, _spec as key_spec
+from .hash_slot import KeyCol, col_groups
+from .hash_slot import _spec as key_spec
 
 Result = Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], torch.Tensor]
 
@@ -90,7 +91,9 @@ def segment_agg_plain(words: torch.Tensor, cols: Sequence[KeyCol], n_valid: torc
 
 def segment_agg(words: torch.Tensor, cols: Sequence[KeyCol], n_valid: torch.Tensor,
                 reqs: Sequence[_agg.Request], out_cap: int) -> Result:
-    """segment_agg_plain's contract; launches K7 for CUDA tensors."""
+    """segment_agg_plain's contract; launches K7 for CUDA tensors: once per
+    run of at most 32 requests (_agg.request_groups), each over the key's
+    columns 16 at a time (their boundaries ORed)."""
     if not words.is_cuda:
         return segment_agg_plain(words, cols, n_valid, reqs, out_cap)
     if words.dim() != 2:
@@ -100,25 +103,30 @@ def segment_agg(words: torch.Tensor, cols: Sequence[KeyCol], n_valid: torch.Tens
     _build.require(n_valid, "n_valid", torch.int32, (), dev)
     if not 0 <= out_cap < 2**31:
         raise ValueError(f"out_cap {out_cap} out of range")
-    keys = key_spec(cols, words.shape[0])
-    spec = _agg.spec(reqs, n, dev)
+    specs = [key_spec(g, words.shape[0]) for g in col_groups(cols)]
+    keys = (ctypes.c_int * sum(len(s) for s in specs))(*[x for s in specs for x in s])
     scratch_bytes = _build.function("dfp_segment_agg_scratch_bytes",
                                     (_build.I64, _build.I32), _build.I64)
     fn = _build.function("dfp_segment_agg", (
-        _build.P, _build.I64, ctypes.POINTER(ctypes.c_int), _build.P,
+        _build.P, _build.I64, ctypes.POINTER(ctypes.c_int), _build.I32, _build.P,
         ctypes.POINTER(_agg.AggSpecC), _build.I64, _build.P, _build.P, _build.P, _build.P,
         _build.P, _build.I64, _build.P))
     starts = torch.empty(out_cap, dtype=torch.int32, device=dev)
     sizes = torch.empty(out_cap, dtype=torch.int64, device=dev)
     out = torch.empty((len(reqs), out_cap), dtype=torch.int64, device=dev)
     n_groups = torch.empty((), dtype=torch.int64, device=dev)
-    nbytes = scratch_bytes(n, len(reqs))
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    err = fn(words.data_ptr(), n, keys, n_valid.data_ptr(), ctypes.byref(spec), out_cap,
-             starts.data_ptr(), sizes.data_ptr(), out.data_ptr(), n_groups.data_ptr(),
-             scratch.data_ptr(), nbytes, _build.stream(dev))
-    segment_agg.launches += 1
-    _build.check(err, "segment_agg")
+    lo = 0
+    for group in _agg.request_groups(reqs):
+        spec = _agg.spec(group, n, dev)
+        nbytes = scratch_bytes(n, len(group))
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        # every launch writes the same starts, sizes and group count
+        err = fn(words.data_ptr(), n, keys, len(specs), n_valid.data_ptr(), ctypes.byref(spec),
+                 out_cap, starts.data_ptr(), sizes.data_ptr(), out[lo:].data_ptr(),
+                 n_groups.data_ptr(), scratch.data_ptr(), nbytes, _build.stream(dev))
+        segment_agg.launches += 1
+        _build.check(err, "segment_agg")
+        lo += len(group)
     return starts, sizes, _agg.split_results(out, reqs), n_groups.to(torch.int32)
 
 

@@ -17,6 +17,7 @@ program one torch op at a time, on CPU tables.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -25,7 +26,7 @@ import torch
 
 from ..kernels import expr_eval as k17
 from ..utils.columnar import (BOOL, DATE32, DECIMAL, FLOAT64, INT32, INT64,
-                              DeviceTable, DType, Kind)
+                              DeviceTable, DType, Field, Kind, Schema)
 
 EvalResult = Tuple[torch.Tensor, torch.Tensor, DType]
 
@@ -227,9 +228,11 @@ class BinOp(Expr):
                 return d
             a, b, dt = c.promote(lr, ldt, rr, rdt)
             if op in ("+", "-", "*"):
+                # torch refuses `-` with a bool operand, even beside an int
+                # (a CASE's BOOL-typed result can hold its ELSE's ints)
+                if op == "-" and torch.bool in (c.dtype[a], c.dtype[b]):
+                    raise TypeError("subtraction with a bool operand")
                 a, b = c.common(a, b)
-                if c.dtype[a] == torch.bool and op == "-":
-                    raise TypeError("subtraction of two bool tensors")
                 return c.op(_ARITH_OP[op], c.dtype[a], a, b), dt
             if op == "/" and dt.kind in (Kind.INT32, Kind.INT64):
                 a, b = c.common(a, b)
@@ -364,16 +367,21 @@ class Case(Expr):
         return out_v, out_valid, vdt
 
     def emit(self, c):
-        branches = [(cond.emit(c)[0], val.emit(c)) for cond, val in self.whens]
-        vdt = branches[0][1][1]
+        # last branch first, each folded in as soon as it is emitted: the
+        # fold holds the running result and one branch's registers, however
+        # many branches there are
+        first = None
         if self.otherwise is not None:
             out = self.otherwise.emit(c)[0]
-        else:
-            out = c.const(0, vdt.device_dtype, False)
-        for cond, (val, _) in reversed(branches):
-            hit = c.to_bool(cond)
-            val, out = c.common(val, out)
-            out = c.op(k17.SELECT, c.dtype[val], hit, val, out)
+        else:   # a NULL of the first branch's type
+            first = self.whens[0][1].emit(c)
+            out = c.const(0, first[1].device_dtype, False)
+        for k in reversed(range(len(self.whens))):
+            cond, val = self.whens[k]
+            hit = c.to_bool(cond.emit(c)[0])
+            r, vdt = first if k == 0 and first is not None else val.emit(c)
+            r, out = c.common(r, out)
+            out = c.op(k17.SELECT, c.dtype[r], hit, r, out)
         return out, vdt
 
 
@@ -424,12 +432,12 @@ class Coalesce(Expr):
         return out_v, out_valid, dt
 
     def emit(self, c):
-        rs = [ch.emit(c) for ch in self.children]
-        out, dt = rs[-1]
-        for r, vdt in reversed(rs[:-1]):
+        # last child first, folded in as it comes (a few live registers)
+        out, dt = self.children[-1].emit(c)
+        for ch in reversed(self.children[:-1]):
+            r, dt = ch.emit(c)
             r, out = c.common(r, out)
             out = c.op(k17.COALESCE, c.dtype[r], r, out)
-            dt = vdt
         return out, dt
 
 
@@ -579,12 +587,15 @@ class Compiler:
                            tuple(self.scalars))
 
 
+def _schema_key(t: DeviceTable):
+    return tuple((f.name, f.dtype, t.columns[f.name][0].dtype) for f in t.schema.fields)
+
+
 def compile_exprs(exprs: Sequence[Expr], t: DeviceTable) -> Tuple[k17.Program, List[DType]]:
     """One K17 program computing every expression of `exprs` over tables of
     t's schema and column dtypes, and their DTypes. Cached on the first
     tree, by the identity of the trees and the schema's fields and dtypes."""
-    key = (tuple(id(e) for e in exprs),
-           tuple((f.name, f.dtype, t.columns[f.name][0].dtype) for f in t.schema.fields))
+    key = (tuple(id(e) for e in exprs), _schema_key(t))
     cache = exprs[0].__dict__.setdefault("_k17_programs", {})
     hit = cache.get(key)
     if hit is not None and all(a is b for a, b in zip(hit[0], exprs)):
@@ -608,7 +619,8 @@ def evaluate(exprs: Sequence[Expr], t: DeviceTable, kernels=None) -> List[EvalRe
     gives them: one K17 launch (through `kernels`, a ChainKernels table)
     computes all of them (one launch per 32); an expression that is a
     column as it stands (a Col, or a Cast to its own type) is that
-    column's tensors."""
+    column's tensors. A tree past one launch runs in several
+    (`_materialised`)."""
     out: List[Optional[EvalResult]] = []
     for e in exprs:
         name = _passthrough(e, t)
@@ -616,8 +628,12 @@ def evaluate(exprs: Sequence[Expr], t: DeviceTable, kernels=None) -> List[EvalRe
     computed = [e for e, o in zip(exprs, out) if o is None]
     results = []
     for group in _groups(computed, t):
-        program, dts = compile_exprs(group, t)
-        results += [_with_dtype(r, dt) for r, dt in zip(_launch(program, t, kernels), dts)]
+        gt = t
+        if len(group) == 1 and not _fits(compile_exprs(group, t)[0]):
+            gt, root = _materialised(group[0], t, kernels)
+            group = [root]
+        program, dts = compile_exprs(group, gt)
+        results += [_with_dtype(r, dt) for r, dt in zip(_launch(program, gt, kernels), dts)]
     results = iter(results)
     return [o if o is not None else next(results) for o in out]
 
@@ -630,8 +646,8 @@ def _fits(program: k17.Program) -> bool:
 def _groups(exprs: List[Expr], t: DeviceTable) -> List[List[Expr]]:
     """`exprs` cut into runs that one launch takes: at most MAX_OUTS roots,
     halved until each program fits the kernel's instruction, register,
-    column and scalar limits (a single tree past them stays whole, and the
-    kernel refuses it)."""
+    column and scalar limits (a single tree past them stays a run of its
+    own, which `evaluate` splits further)."""
     if not exprs:
         return []
     if len(exprs) == 1 or (len(exprs) <= k17.MAX_OUTS and _fits(compile_exprs(exprs, t)[0])):
@@ -656,7 +672,201 @@ def predicate_mask(predicate: Expr, t: DeviceTable, kernels=None, in_rows: bool 
                    and_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """bool [capacity]: valid & value of `predicate` over t (a NULL rejects
     the row), False past t.num_rows where `in_rows`, and ANDed with
-    `and_mask`: one K17 launch in mask mode."""
+    `and_mask`: one K17 launch in mask mode, or several for a predicate
+    past one launch (`_split_mask`)."""
     program, _ = compile_exprs([predicate], t)
+    if not _fits(program):
+        return _split_mask(predicate, t, kernels, in_rows, and_mask)
     num_rows = t.num_rows.to(torch.int32) if in_rows else None
     return _launch(program, t, kernels, (num_rows, and_mask))
+
+
+# ---------------------------------------------------------------------------
+# Trees past one launch. The JAX package has no limit on a tree; K17 holds
+# MAX_CODE instructions, MAX_REGS registers, MAX_COLS columns and
+# MAX_SCALARS scalars. A predicate's AND or OR chain runs in runs of terms,
+# each a mask-mode launch; any other tree runs as stages, each computing a
+# subtree into a column of a widened table that the next stage reads.
+# ---------------------------------------------------------------------------
+
+_SPLIT_COLUMN = "__k17_stage_{}"
+
+
+def _cached(e: Expr, t: DeviceTable, tag: str, make):
+    """make() once per tree, tag and schema (the split of a tree is as
+    static as its program)."""
+    cache = e.__dict__.setdefault("_k17_splits", {})
+    key = (tag, _schema_key(t))
+    if key not in cache:
+        cache[key] = make()
+    return cache[key]
+
+
+def _terms(e: Expr, op: str) -> List[Expr]:
+    """The operands of an `op` chain ("and" / "or"), left to right."""
+    if isinstance(e, BinOp) and e.op == op:
+        return _terms(e.left, op) + _terms(e.right, op)
+    return [e]
+
+
+def _chain(terms: Sequence[Expr], op: str) -> Expr:
+    out = terms[0]
+    for term in terms[1:]:
+        out = BinOp(op, out, term)
+    return out
+
+
+def _term_runs(terms: Sequence[Expr], op: str, t: DeviceTable) -> List[Expr]:
+    """The chain's terms in runs, in order, each run's chain one launch
+    (a single term past a launch stays a run of its own)."""
+    runs: List[List[Expr]] = []
+    for term in terms:
+        if runs and _fits(compile_exprs([_chain(runs[-1] + [term], op)], t)[0]):
+            runs[-1].append(term)
+        else:
+            runs.append([term])
+    return [_chain(r, op) for r in runs]
+
+
+def _split_mask(predicate: Expr, t: DeviceTable, kernels, in_rows: bool,
+                and_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """predicate_mask of a predicate past one launch. Under SQL's
+    three-valued logic a chain of ANDs is true where every term is and a
+    chain of ORs where any term is, so the runs' masks combine exactly:
+    each AND run's mask is the next run's and_mask, OR runs' masks are
+    ORed. Any other tree is evaluated over its materialised parts."""
+    op = predicate.op if isinstance(predicate, BinOp) else None
+    if op not in ("and", "or"):
+        gt, root = _materialised(predicate, t, kernels)
+        return predicate_mask(root, gt, kernels, in_rows, and_mask)
+    runs = _cached(predicate, t, op, lambda: _term_runs(_terms(predicate, op), op, t))
+    if op == "and":
+        for run in runs:
+            and_mask = predicate_mask(run, t, kernels, in_rows, and_mask)
+        return and_mask
+    mask = None
+    for run in runs:
+        m = predicate_mask(run, t, kernels, in_rows)
+        mask = m if mask is None else mask | m
+    return mask if and_mask is None else mask & and_mask
+
+
+def _with_column(t: DeviceTable, name: str, dt: DType, values: torch.Tensor,
+                 valid: torch.Tensor) -> DeviceTable:
+    return DeviceTable(Schema(list(t.schema.fields) + [Field(name, dt)]),
+                       {**t.columns, name: (values, valid)}, t.num_rows)
+
+
+def _children(e: Expr) -> List[Expr]:
+    """A node's direct subtrees, in field order (a Case's (cond, value)
+    pairs flattened)."""
+    out = []
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        for x in (v if isinstance(v, list) else [v]):
+            out += [y for y in (x if isinstance(x, tuple) else (x,)) if isinstance(y, Expr)]
+    return out
+
+
+def _with_children(e: Expr, kids: Sequence[Expr]) -> Expr:
+    """A copy of `e` over `kids` in `_children`'s order."""
+    it = iter(kids)
+
+    def sub(x):
+        if isinstance(x, Expr):
+            return next(it)
+        if isinstance(x, tuple):
+            return tuple(sub(y) for y in x)
+        return x
+
+    changes = {}
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        if isinstance(v, list):   # a Case's whens, a Coalesce's children
+            if any(isinstance(x, (Expr, tuple)) for x in v):
+                changes[f.name] = [sub(x) for x in v]
+        else:
+            changes[f.name] = sub(v)
+    return dataclasses.replace(e, **changes)
+
+
+class _Stages:
+    """A tree cut into stages that each fit one K17 launch: `stages` holds
+    (column name, subtree) in order, each subtree over t's columns and the
+    stages before it; `fit` returns the tree left over them."""
+
+    def __init__(self, t: DeviceTable):
+        self.t = t        # t widened by the stages' columns (dtypes only)
+        self.stages: List[Tuple[str, Expr]] = []
+
+    def fits(self, e: Expr) -> bool:
+        return _fits(compile_exprs([e], self.t)[0])
+
+    def size(self, e: Expr) -> int:
+        return len(compile_exprs([e], self.t)[0].code)
+
+    def column(self, e: Expr) -> Expr:
+        """A stage computing `e` (which fits), and the Col that reads it."""
+        program, (dt,) = compile_exprs([e], self.t)
+        name = _SPLIT_COLUMN.format(len(self.stages))
+        self.t = _with_column(self.t, name, dt, torch.empty(0, dtype=program.roots[0][1]),
+                              torch.empty(0, dtype=torch.bool))
+        self.stages.append((name, e))
+        return Col(name)
+
+    def fit(self, e: Expr) -> Expr:
+        if self.fits(e):
+            return e
+        if isinstance(e, Case) and len(e.whens) > 1:
+            return self._fit_case(e)
+        if isinstance(e, Coalesce) and len(e.children) > 2:
+            return self._fit_coalesce(e)
+        kids = [self.fit(k) for k in _children(e)]
+        # the largest operands become columns until the node fits
+        for i in sorted(range(len(kids)), key=lambda i: -self.size(kids[i])):
+            if self.fits(_with_children(e, kids)):
+                break
+            if not isinstance(kids[i], Col):
+                kids[i] = self.column(kids[i])
+        e = _with_children(e, kids)
+        if not self.fits(e):
+            raise ValueError(f"{e!r} over column operands does not fit one expr_eval launch")
+        return e
+
+    def _fit_case(self, e: Case) -> Expr:
+        """From the last branch: the branches that fit one launch over the
+        rest's result become a stage, the rest for the branches before
+        them (the first matching branch wins, so CASE w1..wn ELSE r is
+        CASE w1..wk ELSE (CASE wk+1..wn ELSE r), with the first branch's
+        type for a NULL ELSE, as `eval` widens either way)."""
+        rest, run = e.otherwise, []
+        for when in reversed(e.whens):
+            if run and not self.fits(Case([when] + run, rest)):
+                rest, run = self.column(self.fit(Case(run, rest))), []
+            run.insert(0, when)
+        return self.fit(Case(run, rest))
+
+    def _fit_coalesce(self, e: Coalesce) -> Expr:
+        """As `_fit_case`: COALESCE(c1..cn) is COALESCE(c1..ck, COALESCE(ck+1..cn))."""
+        run = [e.children[-1]]
+        for child in reversed(e.children[:-1]):
+            if len(run) > 1 and not self.fits(Coalesce([child] + run)):
+                run = [self.column(self.fit(Coalesce(run)))]
+            run.insert(0, child)
+        return self.fit(Coalesce(run))
+
+
+def _materialised(e: Expr, t: DeviceTable, kernels) -> Tuple[DeviceTable, Expr]:
+    """(t widened by the columns of `e`'s stages, the tree left over them):
+    one K17 launch per stage, then the tree fits one more."""
+    def plan():
+        st = _Stages(t)
+        root = st.fit(e)
+        return st.stages, root
+
+    stages, root = _cached(e, t, "stages", plan)
+    for name, sub in stages:
+        program, (dt,) = compile_exprs([sub], t)
+        ((values, valid),) = _launch(program, t, kernels)
+        t = _with_column(t, name, dt, values, valid)
+    return t, root

@@ -6,7 +6,9 @@ columns plus a schema of fields with `name`, `dtype.kind.value`,
 `join_table_from_reference` turns a JAX-built CSR table's arrays into the
 port's `JoinTable`, so that one package can probe the other's table;
 `expr_from_reference` rebuilds a JAX-package expression tree (a planner's
-predicate, projection or sort key) in the port's classes.
+predicate, projection or sort key) in the port's classes;
+`shards_from_reference` turns the JAX package's `partition_table` output
+into the port's shards.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.hash_table import JoinTable
-from .columnar import DType, Dictionary, Field, HostTable, Kind, Schema
+from .columnar import DeviceTable, DType, Dictionary, Field, HostTable, Kind, Schema
 
 
 def host_table_from_reference(ref) -> HostTable:
@@ -80,3 +82,23 @@ def expr_from_reference(e):
     if cls is None or not dataclasses.is_dataclass(cls):
         raise TypeError(f"no port class for {name}")
     return cls(**{f.name: _ref_value(getattr(e, f.name)) for f in dataclasses.fields(e)})
+
+
+def shards_from_reference(cols, num_rows, schema, *, device, ranks=None):
+    """The JAX package's `partition_table` output (columns name -> ([P, cap]
+    values, [P, cap] validity), num_rows [P], its schema; jnp or numpy
+    arrays) as the port's shards: one DeviceTable on `device` per
+    partition in `ranks` (all P by default), in order."""
+    port_schema = Schema([_ref_value(f) for f in schema.fields])
+    nr = np.asarray(num_rows)
+    shards = []
+    for p in (range(len(nr)) if ranks is None else ranks):
+        local = {}
+        for f in port_schema.fields:
+            v, valid = cols[f.name]
+            local[f.name] = (torch.from_numpy(np.array(np.asarray(v)[p])).to(device),
+                             torch.from_numpy(np.array(np.asarray(valid)[p],
+                                                       dtype=np.bool_)).to(device))
+        shards.append(DeviceTable(port_schema, local,
+                                  torch.tensor(int(nr[p]), dtype=torch.int32, device=device)))
+    return shards
