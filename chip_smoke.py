@@ -31,7 +31,10 @@ expression of every path is K17 expr_eval. Phases, one line each:
      padding, a one-home cluster displaced by thousands of slots) at a
      power-of-two and a Lemire table size, SORT and OA joins with every
      stage checked, and K17 on every expression class x dtype with NULLs,
-     division by zero and negative operands (2c)
+     division by zero and negative operands (2c); K6 on edge cases, bit
+     for bit: one row, a pass tile's rows plus and minus one, 2^24 + 3
+     rows, 0, 1, 32, 33, 64 and 96 varying bits, int64 extremes, sorted
+     and reverse-sorted input, one value in every row, a hot digit (2d)
   3. the `entry()` twin on the card against the same step on the CPU
   4. Size512 (4,194,304 build and probe rows): kernel path == plain path
      word for word, match count == a numpy count, rows/s of both paths
@@ -95,7 +98,8 @@ expression of every path is K17 expr_eval. Phases, one line each:
      calls of phase 17, replayed through the kernel and its
      plain version: equal, and timed beside its bound (bytes moved at
      3.35 TB/s) and, where one PyTorch call computes the same function,
-     that call
+     that call; each K6 call with its rows, words, varying bits, key
+     width and passes
  19. (run after 18) the distributed hash join at P = 8 in process on the one card (the
      all-to-all a copy on the card, not NVLink): Size512 under all eight
      join types partitioned, INNER broadcast and skew_salted, partitioned
@@ -631,6 +635,78 @@ def phase_strategy_kernels_vs_plain(device, n: int = 1 << 18) -> None:
     lines.append(expr_kernel_vs_plain(rng, device))
     log("phase 2c ok: K14 sorted_probe, K15 oa_place, K16 oa_probe, K3's expand_ranges and "
         "the SORT/OA builds (K6, K5) == plain, exact; " + "; ".join(lines))
+
+
+def _radix_edge_cases(rng, device):
+    """(name, words [k, n] int32, signed flags) for K6's edge cases."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import radix_sort as k6
+    from datafusion_parallelism_tpu_torch.utils.columnar import int64_words
+
+    def words(*rows):
+        return torch.from_numpy(np.stack(rows).astype(np.int32)).to(device)
+
+    def full(n):
+        return rng.integers(-2**31, 2**31, n)
+
+    def split(v):   # an int64 key: its signed high word, its unsigned low word
+        lo, hi = int64_words(torch.from_numpy(v).to(device))
+        return torch.stack([hi, lo])
+
+    m = 1 << 20
+    t32, t64 = k6.TILE_ROWS[32], k6.TILE_ROWS[64]
+    extremes = rng.integers(-2**63, 2**63 - 1, m, dtype=np.int64)
+    extremes[rng.random(m) < 0.2] = np.iinfo(np.int64).min
+    extremes[rng.random(m) < 0.2] = np.iinfo(np.int64).max
+    extremes[rng.random(m) < 0.1] = -1
+    hot = rng.integers(-2**31, 2**31, m)
+    hot[rng.random(m) < 0.9] = 0x5A5A5A5A
+    big = (1 << 24) + 3
+    return [
+        ("n = 1", words(full(1), full(1)), [True, False]),
+        ("one 32-bit tile - 1", words(full(t32 - 1)), [False]),
+        ("one 32-bit tile + 1", words(full(t32 + 1)), [True]),
+        ("one 64-bit tile - 1", words(full(t64 - 1), full(t64 - 1)), [True, False]),
+        ("one 64-bit tile + 1", words(full(t64 + 1), full(t64 + 1)), [False, True]),
+        ("B = 0, one value in every row", words(np.full(m, -7), np.full(m, 9)), [True, False]),
+        ("B = 1", words(rng.choice([5, 7], m)), [True]),
+        ("B = 32", words(full(m)), [True]),
+        ("B = 33", words(rng.integers(0, 2, m), full(m)), [False, False]),
+        ("B = 64", words(full(m), full(m)), [True, False]),
+        ("B = 96", words(full(m), full(m), full(m)), [False, True, False]),
+        ("signed int64 with negatives and extremes", split(extremes), [True, False]),
+        ("already sorted", split(np.sort(rng.integers(-2**40, 2**40, m))), [True, False]),
+        ("reverse sorted", split(np.sort(rng.integers(-2**40, 2**40, m))[::-1].copy()),
+         [True, False]),
+        ("a single hot digit (90% one value)", words(hot), [True]),
+        ("2^24 + 3 rows, B = 33", words(rng.integers(0, 2, big), full(big)), [False, False]),
+        ("2^24 + 3 rows, B = 96", words(full(big), full(big), full(big)),
+         [True, False, False]),
+    ]
+
+
+def phase_radix_edges(device) -> None:
+    """K6 against its plain version bit for bit on seeded edge cases: one
+    row, a tile's rows plus and minus one, 2^24 + 3 rows, 0 to 96 varying
+    bits, int64 extremes, sorted and reverse-sorted input, one value in
+    every row, a hot digit."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import radix_sort as k6
+    rng = np.random.default_rng(26)
+    lines = []
+    for name, words, signed in _radix_edge_cases(rng, device):
+        with no_launches():
+            want = k6.radix_sort_plain(words, signed)
+        got = k6.radix_sort(words, signed)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"K6 {name}: {bad} of {want.numel()} positions differ")
+        plan = k6.planned(words, signed)
+        lines.append(f"{name} ({words.shape[1]} rows, {words.shape[0]} words, {plan.bits} bits, "
+                     f"{plan.key_bits}-bit key, {len(plan.passes)} passes)")
+        del words, want, got
+    log("phase 2d ok: K6 == radix_sort_plain bit for bit: " + "; ".join(lines))
 
 
 def strategy_join_variants(rng, n, device):
@@ -1881,24 +1957,26 @@ def work(key, args, out):
     return reads + _bytes(out), ops
 
 
+K6_ENTRIES = ("radix_sort", "table_sort", "table_sort_oa")
+
+
 def library_call(key, args):
     """One PyTorch call computing the same function on the same inputs, or
-    None: K6 on one signed key word is torch.argsort(stable=True); K5's
-    row gather without float64 rows is index_select; K10 is index_fill_
-    at the matched ids, K11 torch.cat of the valid prefixes, K13 a slice
-    copy_."""
+    None: K6 is torch.argsort(stable=True) of its packed key where that
+    fits 63 bits (packed before the timing, pack_key_plain); K5's row
+    gather without float64 rows is index_select; K10 is index_fill_ at the
+    matched ids (selected inside the timing, as K10 selects them), K11
+    torch.cat of the valid prefixes, K13 a slice copy_."""
     import torch
+    from datafusion_parallelism_tpu_torch.kernels import radix_sort as k6
     entry = key[1]
-    if entry == "radix_sort" and args[0].shape[0] == 1 and args[1][0]:
-        return lambda: torch.argsort(args[0][0], stable=True)
-    if entry in ("table_sort", "table_sort_oa"):
-        # the unsigned words packed into the one int64 key they order
-        # (invalid << 32 | hash; invalid << 62 | home << 32 | hash), packed
-        # before the timing
-        w = args[0].long() & 0xFFFFFFFF
-        key = ((w[0] << 32) | w[1] if w.shape[0] == 2
-               else (w[0] << 62) | (w[1] << 32) | w[2])
-        return lambda: torch.argsort(key, stable=True)
+    if entry in K6_ENTRIES:
+        plan = k6.planned(*args)
+        if plan.bits > 63:
+            return None
+        packed = (k6.pack_key_plain(args[0], plan)[0] if plan.bits
+                  else torch.zeros(args[0].shape[1], dtype=torch.int64, device=args[0].device))
+        return lambda: torch.argsort(packed, stable=True)
     if entry == "sorted_probe":
         hashes, _, sorted_hash = args
         ph = hashes.long() & 0xFFFFFFFF
@@ -1907,17 +1985,16 @@ def library_call(key, args):
     if entry == "gather_rows" and args[1].shape[0] == 0 and len(args) < 4:
         return lambda: args[0].index_select(1, args[2])
     if entry in ("match_flags", "match_flags_acc"):
-        # index_fill_ at the matched ids (selected before the timing)
+        # index_fill_ at the matched ids, selected inside the timing
         match, build_id, probe_idx, bcap, mcap = args[:5]
-        bi, pi = build_id[match].long(), probe_idx[match].long()
         visited = args[5].clone() if len(args) > 5 else None
 
         def flags():
             v = (visited if visited is not None
                  else torch.zeros(bcap, dtype=torch.bool, device=match.device))
-            return (v.index_fill_(0, bi, True),
+            return (v.index_fill_(0, build_id[match].long(), True),
                     torch.zeros(mcap, dtype=torch.bool, device=match.device)
-                    .index_fill_(0, pi, True))
+                    .index_fill_(0, probe_idx[match].long(), True))
         return flags
     if entry == "concat_rows":
         # torch.cat of the parts' valid prefixes (their counts read first)
@@ -1942,21 +2019,35 @@ def phase_replay(device, ctx, sizes):
     and environment, capturing
     those calls; each captured call then goes through the kernel and its
     plain version (equal), timed, beside its bound and its library
-    call."""
+    call. Before each rerun the other sessions drop their cached device
+    tables."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import radix_sort as k6
     from datafusion_parallelism_tpu_torch.kernels.chain import KERNELS as CHAIN
     from datafusion_parallelism_tpu_torch.kernels.chain import PLAIN as CHAIN_PLAIN
     from datafusion_parallelism_tpu_torch.ops.join import KERNELS as JOIN
     from datafusion_parallelism_tpu_torch.ops.join import PLAIN as JOIN_PLAIN
     from datafusion_parallelism_tpu_torch.tpch import QUERIES
     per_kernel, lines = {}, []
+    held = []
     for owner in sorted({owner for _, owner in sizes.values()}):
         phase, q, extra = owner
         env = dict(extra)
         strategy = env.pop("strategy", None)
+        session = ctx[(phase, strategy)] if strategy else ctx[phase]
+        # the other sessions' cached device tables go: four sessions' caches
+        # and one query's largest calls do not fit the card together
+        for other in ctx.values():
+            if other is not session:
+                for reg in other.catalog.tables.values():
+                    reg.release_device()
+        gc.collect()
+        torch.cuda.empty_cache()
+        held.append(f"Q{q}@{phase}{'/' + strategy if strategy else ''} "
+                    f"{torch.cuda.memory_allocated()}")
         rec = LargestCalls(capture=True)
         rec.on, rec.query = True, owner
         with ooc_env(phase == 16, **env):
-            session = ctx[(phase, strategy)] if strategy else ctx[phase]
             session.sql(QUERIES[q], kernels=rec.join, chain=rec.chain).collect()
         rec.on = False
         for key in sorted(k for k, (_, o) in sizes.items() if o == owner):
@@ -1977,6 +2068,11 @@ def phase_replay(device, ctx, sizes):
                 plain_ms = cuda_ms(plain, *args, reps=1)
             lib = library_call(key, args)
             lib_ms = cuda_ms(lib, reps=3) if lib is not None else None
+            detail = ""
+            if key[1] in K6_ENTRIES:
+                plan = k6.planned(*args)
+                detail = (f", {args[0].shape[1]} rows, {args[0].shape[0]} words, {plan.bits} "
+                          f"varying bits, {plan.key_bits}-bit key, {len(plan.passes)} passes")
             del args, lib
             acc = per_kernel.setdefault(kernel_of(key), {
                 "err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
@@ -1992,8 +2088,8 @@ def phase_replay(device, ctx, sizes):
                                  else acc["library_ms"] + lib_ms)
             where = ("(ooc)" if phase == 16 else f"({strategy})" if strategy else "")
             acc["calls"].append(f"{key[0]}.{key[1]}@Q{q}" + where)
-            lines.append(f"{key[0]}.{key[1]} (phase {phase} Q{q}{where}, {nbytes} bytes moved) "
-                         f"{ms:.3f}/{plain_ms:.3f}"
+            lines.append(f"{key[0]}.{key[1]} (phase {phase} Q{q}{where}{detail}, "
+                         f"{nbytes} bytes moved) {ms:.3f}/{plain_ms:.3f}"
                          + (f"/{lib_ms:.3f}" if lib_ms is not None else "")
                          + f" bound {max(b_ms, o_ms):.3f}")
         del rec
@@ -2001,7 +2097,8 @@ def phase_replay(device, ctx, sizes):
         "K12, K13 and K10 accumulate calls and phase 17's largest K14-K16 and SORT/OA "
         "build sorts, captured by rerunning their queries, == their plain "
         "versions (K9-K17 bit for bit); ms kernel/plain[/library] (median of 3 / one run / "
-        "median of 3) and bound: " + "; ".join(lines))
+        "median of 3) and bound: " + "; ".join(lines) + "; bytes allocated before each "
+        "rerun: " + ", ".join(held))
     return per_kernel
 
 
@@ -2570,6 +2667,7 @@ def main() -> int:
     phase_kernels_vs_plain(device)
     phase_size512_kernels(device)
     phase_strategy_kernels_vs_plain(device)
+    phase_radix_edges(device)
 
     wrappers = launch_counters()
     for w in wrappers.values():

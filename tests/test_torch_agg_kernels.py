@@ -14,6 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from datafusion_parallelism_tpu.ops import aggregate as jagg
 from datafusion_parallelism_tpu.utils import columnar as jcol
@@ -195,7 +197,15 @@ SORT_WORDS = {
     "constant_word": (1000, [(7, 8), (-100, 100)], [True, True]),
     "four_words": (2500, [(0, 2), (-2**31, 2**31), (-9, 9), (-2**31, 2**31)],
                    [True, False, True, False]),
+    # exactly 32, 33, 64 and 65 varying bits: one 32-bit key, the first
+    # 64-bit one, a full 64-bit key, and three 32-bit chunks, the last of
+    # one bit
+    "bits_32": (3000, [(0, 2**16), (0, 2**16)], [True, False]),
+    "bits_33": (3000, [(0, 2), (-2**31, 2**31)], [False, False]),
+    "bits_64": (3000, [(-2**31, 2**31), (-2**31, 2**31)], [True, False]),
+    "bits_65": (3000, [(0, 2), (-2**31, 2**31), (-2**31, 2**31)], [False, True, False]),
 }
+SORT_WORDS_BITS = {"bits_32": 32, "bits_33": 33, "bits_64": 64, "bits_65": 65}
 
 
 @pytest.mark.parametrize("case", sorted(SORT_WORDS))
@@ -210,34 +220,107 @@ def test_radix_sort_plain_matches_lax_sort(case):
 
 
 def _lsd_emulation(words: np.ndarray, signed):
-    """The CUDA kernel's algorithm in numpy: the planned 8-bit digit
-    passes, each a stable sort, least significant first."""
-    w64 = words.astype(np.int64) & 0xFFFFFFFF
-    span_and = [int(np.bitwise_and.reduce(w)) for w in w64]
-    span_or = [int(np.bitwise_or.reduce(w)) for w in w64]
+    """The CUDA kernel's algorithm in numpy: the varying bits packed into
+    one key (pack_key_plain, the pack kernel's twin), then the planned
+    digit passes over it, each a stable sort, least significant first,
+    chunk by chunk past 64 bits."""
+    plan = k6.planned(torch.from_numpy(words), signed)
+    chunks = k6.pack_key_plain(torch.from_numpy(words), plan).numpy().view(np.uint64)
     perm = np.arange(words.shape[1])
-    for w, shift, flip in k6.passes(span_and, span_or, signed):
-        digit = ((w64[w][perm] ^ flip) >> shift) & 0xFF
+    for c, shift, width in plan.passes:
+        digit = (chunks[c][perm] >> np.uint64(shift)) & np.uint64((1 << width) - 1)
         perm = perm[np.argsort(digit, kind="stable")]
     return perm
 
 
 @pytest.mark.parametrize("case", sorted(SORT_WORDS))
 def test_radix_sort_pass_plan_is_exact(case):
-    """The kernel skips digits every row shares: the planned passes still
-    give the stable lexicographic argsort."""
+    """The kernel sorts the packed varying bits by the planned digits: the
+    stable lexicographic argsort, as radix_sort_plain and JAX's lax.sort
+    give it."""
     n, ranges, signed = SORT_WORDS[case]
     rng = np.random.default_rng(n + 1)
     words = np.stack([rng.integers(lo, hi, n).astype(np.int32) for lo, hi in ranges])
+    plan = k6.planned(torch.from_numpy(words), signed)
+    if case in SORT_WORDS_BITS:
+        assert plan.bits == SORT_WORDS_BITS[case]
+        assert plan.key_bits == (64 if 32 < plan.bits <= 64 else 32)
+        assert plan.chunks == -(-plan.bits // plan.key_bits)
     ref = k6.radix_sort_plain(torch.from_numpy(words), signed).numpy()
     np.testing.assert_array_equal(_lsd_emulation(words, signed), ref)
+    ops = [w if s else w.view(np.uint32) for w, s in zip(words, signed)]
+    np.testing.assert_array_equal(ref, _jax_perm(ops))
 
 
 def test_radix_sort_plan_skips_shared_digits():
-    # word 1 varies only in its low byte; word 0 is constant
-    assert k6.passes([5, 0x100], [5, 0x1FF], [True, False]) == [(1, 0, 0)]
-    assert k6.passes([0], [0xFFFFFFFF], [True]) == [
-        (0, 0, 0x80000000), (0, 8, 0x80000000), (0, 16, 0x80000000), (0, 24, 0x80000000)]
+    # word 0 is constant, word 1 varies in its low byte: one 8-bit pass
+    plan = k6.sort_plan([5, 0x100], [5, 0x1FF], [True, False])
+    assert plan.masks == (0, 0xFF) and plan.bits == 8 and plan.key_bits == 32
+    assert plan.passes == ((0, 0, 8),)
+    # a full signed word: four 8-bit passes over a 32-bit key
+    plan = k6.sort_plan([0], [0xFFFFFFFF], [True])
+    assert plan.flips == (0x80000000,) and plan.bits == 32
+    assert plan.passes == ((0, 0, 8), (0, 8, 8), (0, 16, 8), (0, 24, 8))
+    # OA's (invalid, home, hash): 1 + 21 + 32 bits, one 54-bit key in 7
+    # passes (the last 6 bits wide), the words packed below each other
+    plan = k6.sort_plan([0, 0, 0], [1, (1 << 21) - 1, 0xFFFFFFFF], [False] * 3)
+    assert plan.bits == 54 and plan.key_bits == 64 and plan.offsets == (53, 32, 0)
+    assert [p[1:] for p in plan.passes] == [(s, 8) for s in range(0, 48, 8)] + [(48, 6)]
+    # 65 bits: two full 32-bit chunks, then one of one bit; no bit varies:
+    # no pass
+    plan = k6.sort_plan([0, 0, 0], [1, 0xFFFFFFFF, 0xFFFFFFFF], [False] * 3)
+    assert plan.key_bits == 32 and plan.chunks == 3 and len(plan.passes) == 9
+    assert plan.passes[-1] == (2, 0, 1) and plan.passes[4] == (1, 0, 8)
+    assert k6.sort_plan([7, 7], [7, 7], [True, False]).passes == ()
+    # non-contiguous varying bits are moved down in order
+    words = torch.tensor([[0b1010_0000, 0b0010_0000, 0b1000_0000]], dtype=torch.int32)
+    plan = k6.sort_plan([0b0010_0000 & 0b1000_0000], [0b1010_0000], [False])
+    assert plan.masks == (0b1010_0000,)
+    assert k6.pack_key_plain(words, plan).tolist() == [[3, 1, 2]]
+
+
+@st.composite
+def _sort_words(draw):
+    """1-6 key words, each constant or varying in a drawn set of bits
+    (narrow, full, or scattered), mixed signed flags, and totals of 0, 1,
+    32, 33, 64 and 65+ varying bits among the draws."""
+    total = draw(st.sampled_from([0, 1, 32, 33, 64, 65, 96, None]))
+    if total is None:
+        widths = draw(st.lists(st.sampled_from([0, 1, 3, 8, 17, 31, 32]), min_size=1,
+                               max_size=6))
+    else:   # full words and the rest, among constant words, in a drawn order
+        widths = [32] * (total // 32) + ([total % 32] if total % 32 or not total else [])
+        widths += [0] * draw(st.integers(0, 6 - len(widths)))
+        widths = draw(st.permutations(widths))
+    n = draw(st.integers(1, 3000)) if sum(widths) == 0 else draw(st.integers(2, 3000))
+    signed = draw(st.lists(st.booleans(), min_size=len(widths), max_size=len(widths)))
+    rng = np.random.default_rng(draw(st.integers(0, 2**32 - 1)))
+    rows = []
+    for b in widths:
+        low = draw(st.booleans())   # the low b bits, or b bits anywhere in the word
+        pos = np.arange(b) if low else np.sort(rng.choice(32, b, replace=False))
+        mask = int(sum(1 << int(p) for p in pos))
+        base = int(rng.integers(0, 2**32)) & ~mask
+        v = (rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32) & mask) | base
+        if b:   # two rows differ in every bit of the mask
+            v[0], v[1] = base, base | mask
+        rows.append(v.astype(np.uint32).view(np.int32))
+    return np.stack(rows), signed, sum(widths)
+
+
+@settings(max_examples=50, deadline=None)
+@given(case=_sort_words())
+def test_radix_sort_packed_key_orders_as_the_words(case):
+    """Sorting the packed key (its chunks, most significant first) equals
+    sorting the words, and the planned digit passes give that order."""
+    words, signed, bits = case
+    plan = k6.planned(torch.from_numpy(words), signed)
+    assert plan.bits == bits
+    ref = k6.radix_sort_plain(torch.from_numpy(words), signed).numpy()
+    chunks = k6.pack_key_plain(torch.from_numpy(words), plan).numpy().view(np.uint64)
+    packed = (np.lexsort(chunks) if len(chunks) else np.arange(words.shape[1]))
+    np.testing.assert_array_equal(packed, ref)
+    np.testing.assert_array_equal(_lsd_emulation(words, signed), ref)
 
 
 def test_float_sort_order_matches_lax_sort():
