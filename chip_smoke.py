@@ -34,7 +34,14 @@ expression of every path is K17 expr_eval. Phases, one line each:
      division by zero and negative operands (2c); K6 on edge cases, bit
      for bit: one row, a pass tile's rows plus and minus one, 2^24 + 3
      rows, 0, 1, 32, 33, 64 and 96 varying bits, int64 extremes, sorted
-     and reverse-sorted input, one value in every row, a hot digit (2d)
+     and reverse-sorted input, one value in every row, a hot digit (2d);
+     K13 and K11 bit for bit on edge cases: K13 at acc_rows 0-3 mod 4, no
+     rows, a partition capacity past acc_cap, rows dropped past it, a full
+     accumulator, no float64 sidecar, more rows than the capacity and a
+     4,194,304-row append of 13 words and 2 sidecars at an odd offset into
+     16,777,216 rows; K11 with 1 and 8 parts, empty parts between full
+     ones, part boundaries inside a tile (caps 4097, 1, 3), no sidecar and
+     two large parts meeting at an unaligned row (2e)
   3. the `entry()` twin on the card against the same step on the CPU
   4. Size512 (4,194,304 build and probe rows): kernel path == plain path
      word for word, match count == a numpy count, rows/s of both paths
@@ -98,8 +105,11 @@ expression of every path is K17 expr_eval. Phases, one line each:
      calls of phase 17, replayed through the kernel and its
      plain version: equal, and timed beside its bound (bytes moved at
      3.35 TB/s) and, where one PyTorch call computes the same function,
-     that call; each K6 call with its rows, words, varying bits, key
-     width and passes
+     that call (K5's gather: index_select, checked equal to the kernel
+     first; K11 and K13: also with their device counts read inside the
+     timing, as the kernels read them); each K6 call with its rows, words,
+     varying bits, key width and passes, each K11 and K13 call with its
+     shapes and counts
  19. (run after 18) the distributed hash join at P = 8 in process on the one card (the
      all-to-all a copy on the card, not NVLink): Size512 under all eight
      join types partitioned, INNER broadcast and skew_salted, partitioned
@@ -120,9 +130,10 @@ rtol 1e-9).
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; the line before it lists the kernels with their launches
 (in phase 14, K12 and K13 in phase 16, K14-K16 in phase 17, K18 and K19
-in phase 19) and phase 15's (K18, K19: phase 19's) errors, times and
-bounds. Without a CUDA device
-the script exits non-zero and prints no result.
+in phase 19) and phase 15's (K18, K19: phase 19's) errors, times,
+bounds and library times (`library_sync_ms`: K11's and K13's with the
+counts read inside the timing; `library_by_call`: each call's). Without a
+CUDA device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -707,6 +718,103 @@ def phase_radix_edges(device) -> None:
                      f"{plan.key_bits}-bit key, {len(plan.passes)} passes)")
         del words, want, got
     log("phase 2d ok: K6 == radix_sort_plain bit for bit: " + "; ".join(lines))
+
+
+def _random_rows(rng, w, f, cap, device):
+    """Packed rows on the card: int32 words [w, cap] and float64 sidecars
+    [f, cap] of random 64-bit patterns (NaN payloads and denormals among
+    them)."""
+    import torch
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (w, cap), dtype=np.int64)
+                             .astype(np.int32)).to(device)
+    bits = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, (f, cap), dtype=np.int64))
+    return words, bits.view(torch.float64).to(device)
+
+
+def _count(n, device):
+    import torch
+    return torch.tensor(n, dtype=torch.int32, device=device)
+
+
+def _row_copy_cases(rng, device):
+    """(name, kernel, args) for K13's and K11's edge cases: K13 (acc,
+    acc_f64, acc_rows, words, f64, num_rows) at acc_rows = 0-3 mod 4, no
+    rows, a partition capacity past acc_cap, rows dropped past acc_cap, a
+    full accumulator, F = 0, more rows than the partition's capacity and a
+    large unaligned append; K11 ([parts]) with 1 and 8 parts, empty parts
+    between full ones, part boundaries inside a tile, F = 0 and two large
+    parts whose boundary is unaligned."""
+    cases = []
+
+    def append(name, w, f, acc_cap, acc_rows, cap, n):
+        acc, acc_f64 = _random_rows(rng, w, f, acc_cap, device)
+        words, f64 = _random_rows(rng, w, f, cap, device)
+        cases.append((f"K13 {name} (W {w}, F {f}, acc_cap {acc_cap}, acc_rows {acc_rows}, "
+                      f"cap {cap}, num_rows {n})", "append_rows",
+                      (acc, acc_f64, _count(acc_rows, device), words, f64, _count(n, device))))
+
+    for r in range(4):
+        append(f"acc_rows = {r} mod 4", 5, 2, 16384, 1024 + r, 4096, 3001)
+    append("no rows", 5, 2, 16384, 7, 4096, 0)
+    append("partition capacity past acc_cap, rows dropped past it", 3, 1, 4096, 17, 8192,
+           6000)
+    append("rows dropped past acc_cap", 5, 2, 16384, 14000, 4096, 4000)
+    append("acc_rows == acc_cap", 5, 2, 16384, 16384, 4096, 100)
+    append("F = 0", 4, 0, 16384, 333, 4096, 2500)
+    append("num_rows past the partition's capacity", 5, 2, 16384, 2, 4096, 5000)
+    append("large, unaligned", 13, 2, 1 << 24, (1 << 22) + 12345, 1 << 22, 1 << 22)
+
+    def concat(name, w, f, caps, ns):
+        parts = [(*_random_rows(rng, w, f, c, device), _count(n, device))
+                 for c, n in zip(caps, ns)]
+        cases.append((f"K11 {name} (W {w}, F {f}, caps {caps}, num_rows {ns})",
+                      "concat_rows", (parts,)))
+
+    concat("1 part", 5, 2, (1000,), (777,))
+    concat("8 parts", 4, 1, (4096, 64, 1000, 3, 4097, 128, 1, 9000),
+           (4000, 64, 999, 3, 4097, 1, 1, 8191))
+    concat("empty parts between full ones", 3, 2, (4096, 512, 4096, 100, 4096),
+           (4096, 0, 4096, 0, 4095))
+    concat("part boundaries inside a tile", 6, 1, (4097, 1, 3), (4097, 1, 3))
+    concat("part boundaries inside a tile, short parts", 6, 1, (4097, 1, 3), (4001, 0, 2))
+    concat("F = 0", 5, 0, (5000, 3000), (4999, 2001))
+    concat("no rows", 2, 1, (128, 64), (0, 0))
+    concat("large, unaligned boundary", 7, 1, ((1 << 22) + 5, (1 << 20) + 3),
+           ((1 << 22) + 1, (1 << 20) + 3))
+    return cases
+
+
+def phase_row_copy_edges(device) -> None:
+    """K13 and K11 against their plain versions bit for bit (float64
+    sidecars as their bits) on seeded edge cases (_row_copy_cases): the
+    accumulator K13 writes in place, the count, K11's matrices and total."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import append_rows as k13
+    from datafusion_parallelism_tpu_torch.kernels import concat_rows as k11
+    kernel = {"append_rows": (k13.append_rows, k13.append_rows_plain),
+              "concat_rows": (k11.concat_rows, k11.concat_rows_plain)}
+    rng = np.random.default_rng(13)
+    names = []
+    for name, entry, args in _row_copy_cases(rng, device):
+        fn, plain = kernel[entry]
+        if entry == "append_rows":
+            key = ("chain", "append_rows")
+            with no_launches():
+                want = run_call(key, plain, args)
+            got = run_call(key, fn, args)
+        else:
+            with no_launches():
+                want = plain(*args)
+            got = fn(*args)
+        torch.cuda.synchronize()
+        try:
+            max_abs_err(got, want)
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {e}") from None
+        names.append(name)
+        del args, got, want
+    log("phase 2e ok: K13 == append_rows_plain and K11 == concat_rows_plain bit for bit: "
+        + "; ".join(names))
 
 
 def strategy_join_variants(rng, n, device):
@@ -1964,9 +2072,13 @@ def library_call(key, args):
     """One PyTorch call computing the same function on the same inputs, or
     None: K6 is torch.argsort(stable=True) of its packed key where that
     fits 63 bits (packed before the timing, pack_key_plain); K5's row
-    gather without float64 rows is index_select; K10 is index_fill_ at the
-    matched ids (selected inside the timing, as K10 selects them), K11
-    torch.cat of the valid prefixes, K13 a slice copy_."""
+    gather is index_select of the words and of the float64 sidecars (with
+    the indices clamped first where any lies outside the rows, as K5
+    clips), then torch.where past `n` where it is given; K10 is index_fill_
+    at the matched ids (selected inside the timing, as K10 selects them),
+    K11 torch.cat of the valid prefixes, K13 a slice copy_ (the device
+    counts of these two read before the timing; library_sync_call reads
+    them inside it)."""
     import torch
     from datafusion_parallelism_tpu_torch.kernels import radix_sort as k6
     entry = key[1]
@@ -1982,8 +2094,22 @@ def library_call(key, args):
         ph = hashes.long() & 0xFFFFFFFF
         return lambda: (torch.searchsorted(sorted_hash, ph, side="left"),
                         torch.searchsorted(sorted_hash, ph, side="right"))
-    if entry == "gather_rows" and args[1].shape[0] == 0 and len(args) < 4:
-        return lambda: args[0].index_select(1, args[2])
+    if entry == "gather_rows":
+        words, f64, idx = args[:3]
+        n = args[3] if len(args) > 3 else None
+        cap = words.shape[1]
+        if cap == 0:
+            return None
+        inside = bool(((idx >= 0) & (idx < cap)).all())
+
+        def gather():
+            i = idx if inside else idx.clamp(0, cap - 1)
+            out, out_f64 = words.index_select(1, i), f64.index_select(1, i)
+            if n is None:
+                return out, out_f64
+            ok = torch.arange(idx.shape[0], device=idx.device) < n
+            return torch.where(ok, out, 0), torch.where(ok, out_f64, 0.0)
+        return gather
     if entry in ("match_flags", "match_flags_acc"):
         # index_fill_ at the matched ids, selected inside the timing
         match, build_id, probe_idx, bcap, mcap = args[:5]
@@ -2010,6 +2136,45 @@ def library_call(key, args):
         return lambda: (acc[:, lo:lo + k].copy_(words[:, :k]),
                         acc_f64[:, lo:lo + k].copy_(f64[:, :k]))
     return None
+
+
+def library_sync_call(key, args):
+    """K11's and K13's library calls with their device counts read inside
+    the timing, as the kernels read them on the device (the host waits on
+    the card for them); None for the other entry points."""
+    import torch
+    entry = key[1]
+    if entry == "concat_rows":
+        parts = args[0]
+
+        def cat():
+            ns = [int(n) for _, _, n in parts]
+            return (torch.cat([w[:, :k] for (w, _, _), k in zip(parts, ns)], 1),
+                    torch.cat([f[:, :k] for (_, f, _), k in zip(parts, ns)], 1))
+        return cat
+    if entry == "append_rows":
+        acc, acc_f64, acc_rows, words, f64, num_rows = args
+
+        def copy():
+            lo = int(acc_rows)
+            k = max(min(int(num_rows), words.shape[1], acc.shape[1] - lo), 0)
+            return (acc[:, lo:lo + k].copy_(words[:, :k]),
+                    acc_f64[:, lo:lo + k].copy_(f64[:, :k]))
+        return copy
+    return None
+
+
+def row_copy_shape(key, args) -> str:
+    """K11's and K13's shapes, for the phase-15 line ('' for the rest)."""
+    if key[1] == "concat_rows":
+        parts = args[0]
+        return (f", W {parts[0][0].shape[0]}, F {parts[0][1].shape[0]}, caps "
+                f"{[w.shape[1] for w, _, _ in parts]}, num_rows {[int(n) for _, _, n in parts]}")
+    if key[1] == "append_rows":
+        acc, acc_f64, acc_rows, words, _, num_rows = args
+        return (f", W {acc.shape[0]}, F {acc_f64.shape[0]}, acc_cap {acc.shape[1]}, acc_rows "
+                f"{int(acc_rows)}, cap {words.shape[1]}, num_rows {int(num_rows)}")
+    return ""
 
 
 def phase_replay(device, ctx, sizes):
@@ -2062,21 +2227,26 @@ def phase_replay(device, ctx, sizes):
             got = run_call(key, kernel, args)
             err = entry_err(key[1], args, got, want)
             nbytes, ops = work(key, args, got)
+            lib = library_call(key, args)
+            if lib is not None and key[1] == "gather_rows":
+                max_abs_err(lib(), got)   # the yardstick computes K5's function
             del got, want
             ms = cuda_ms(kernel, *args, reps=3)
             with no_launches():
                 plain_ms = cuda_ms(plain, *args, reps=1)
-            lib = library_call(key, args)
             lib_ms = cuda_ms(lib, reps=3) if lib is not None else None
-            detail = ""
+            sync = library_sync_call(key, args)
+            sync_ms = cuda_ms(sync, reps=3) if sync is not None else None
+            detail = row_copy_shape(key, args)
             if key[1] in K6_ENTRIES:
                 plan = k6.planned(*args)
                 detail = (f", {args[0].shape[1]} rows, {args[0].shape[0]} words, {plan.bits} "
                           f"varying bits, {plan.key_bits}-bit key, {len(plan.passes)} passes")
-            del args, lib
+            del args, lib, sync
             acc = per_kernel.setdefault(kernel_of(key), {
                 "err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                "bound_ms": 0.0, "library_ms": 0.0, "calls": []})
+                "bound_ms": 0.0, "library_ms": 0.0, "library_sync_ms": None,
+                "library_by_call": {}, "calls": []})
             b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
             acc["err"] = max(acc["err"], err)
             acc["ms"] += ms
@@ -2086,19 +2256,26 @@ def phase_replay(device, ctx, sizes):
             acc["bound_ms"] += max(b_ms, o_ms)
             acc["library_ms"] = (None if lib_ms is None or acc["library_ms"] is None
                                  else acc["library_ms"] + lib_ms)
+            if sync_ms is not None:
+                acc["library_sync_ms"] = (acc["library_sync_ms"] or 0.0) + sync_ms
             where = ("(ooc)" if phase == 16 else f"({strategy})" if strategy else "")
-            acc["calls"].append(f"{key[0]}.{key[1]}@Q{q}" + where)
+            call = f"{key[0]}.{key[1]}@Q{q}" + where
+            acc["calls"].append(call)
+            if lib_ms is not None:
+                acc["library_by_call"][call] = lib_ms
             lines.append(f"{key[0]}.{key[1]} (phase {phase} Q{q}{where}{detail}, "
                          f"{nbytes} bytes moved) {ms:.3f}/{plain_ms:.3f}"
                          + (f"/{lib_ms:.3f}" if lib_ms is not None else "")
+                         + (f" (counts read inside: {sync_ms:.3f})" if sync_ms is not None
+                            else "")
                          + f" bound {max(b_ms, o_ms):.3f}")
         del rec
     log("phase 15 ok: the largest phase-14 call of every entry point, phase 16's largest "
         "K12, K13 and K10 accumulate calls and phase 17's largest K14-K16 and SORT/OA "
         "build sorts, captured by rerunning their queries, == their plain "
         "versions (K9-K17 bit for bit); ms kernel/plain[/library] (median of 3 / one run / "
-        "median of 3) and bound: " + "; ".join(lines) + "; bytes allocated before each "
-        "rerun: " + ", ".join(held))
+        "median of 3; K5's gather library == the kernel) and bound: " + "; ".join(lines)
+        + "; bytes allocated before each rerun: " + ", ".join(held))
     return per_kernel
 
 
@@ -2668,6 +2845,7 @@ def main() -> int:
     phase_size512_kernels(device)
     phase_strategy_kernels_vs_plain(device)
     phase_radix_edges(device)
+    phase_row_copy_edges(device)
 
     wrappers = launch_counters()
     for w in wrappers.values():
@@ -2722,7 +2900,9 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": r["err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-                        "library_ms": r["library_ms"], "calls": r["calls"]})
+                        "library_ms": r["library_ms"],
+                        "library_sync_ms": r.get("library_sync_ms"),
+                        "library_by_call": r.get("library_by_call", {}), "calls": r["calls"]})
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,10 @@
 // so nothing travels to the host and the loop need not wait. Only rows
 // past the caller's acc_rows are written, so a partition that must be run
 // again (a capacity overflow) rewrites exactly what its first attempt
-// wrote over, from the same acc_rows.
+// wrote over, from the same acc_rows. A union partition moves a few rows,
+// so the wrapper's host time is most of a call: the wrapper
+// (kernels/append_rows.py) resolves this entry point once and checks its
+// six tensors in one pass.
 
 #include <cstdint>
 #include <cuda_runtime.h>

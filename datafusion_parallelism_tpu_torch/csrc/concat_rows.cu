@@ -12,8 +12,11 @@
 // (at most 8 scalars, in L1 after the first warp), finds the part whose
 // range [off_p, off_p + n_p) holds j and copies that row's words and
 // float64 sidecars; slots past the total are written as zeros, so their
-// validity words read NULL. The offsets never travel to the host.
+// validity words read NULL. The offsets never travel to the host. The
+// wrapper (kernels/concat_rows.py) resolves this entry point once and
+// checks the parts in one pass.
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -25,7 +28,7 @@ using dfp::i64;
 
 constexpr int MAX_PARTS = 8;
 
-// laid out as kernels/concat_rows.py's ConcatPartsC
+// laid out as kernels/concat_rows.py::check_parts builds it: 1 + 4 * 8 int64
 struct ConcatParts {
   int n;
   const int32_t* words[MAX_PARTS];
@@ -33,6 +36,8 @@ struct ConcatParts {
   long long cap[MAX_PARTS];
   const int32_t* num_rows[MAX_PARTS];
 };
+static_assert(sizeof(ConcatParts) == 8 * (1 + 4 * MAX_PARTS) && offsetof(ConcatParts, words) == 8,
+              "ConcatParts must match check_parts' int64 layout");
 
 __global__ void concat_rows_kernel(ConcatParts parts, int w, int f, i64 total_cap,
                                    int32_t* __restrict__ out, double* __restrict__ out_f64,

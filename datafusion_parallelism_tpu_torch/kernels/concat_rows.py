@@ -6,7 +6,8 @@ Replaces the JAX package's `concat_tables` scatter (utils/columnar.py:
 and the unmatched rows together. The CUDA kernel is `csrc/concat_rows.cu`,
 whose header says what bounds it on the H100; the plain version below is
 the same function in torch ops. On CPU tensors the wrapper runs the plain
-version; on CUDA tensors it launches the kernel or raises.
+version; on CUDA tensors it launches the kernel or raises, through the
+lean launch path (`_lean.py`).
 
 A part is (words int32 [W, cap_p], f64 float64 [F, cap_p], num_rows int32
 0-dim on the device): the same W and F in every part, each part's valid
@@ -16,12 +17,12 @@ nothing is read back to the host.
 
 from __future__ import annotations
 
-import ctypes
+from array import array
 from typing import Sequence, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _lean
 
 MAX_PARTS = 8
 Part = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -50,44 +51,58 @@ def concat_rows_plain(parts: Sequence[Part]) -> Tuple[torch.Tensor, torch.Tensor
             torch.where(ok, f64.index_select(1, src), 0.0), ends[-1].to(torch.int32))
 
 
-class ConcatPartsC(ctypes.Structure):
-    _fields_ = [("n", ctypes.c_int),
-                ("words", ctypes.c_void_p * MAX_PARTS),
-                ("f64", ctypes.c_void_p * MAX_PARTS),
-                ("cap", ctypes.c_int64 * MAX_PARTS),
-                ("num_rows", ctypes.c_void_p * MAX_PARTS)]
-
-
-def concat_rows(parts: Sequence[Part]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """concat_rows_plain's contract; launches K11 for CUDA tensors."""
-    if not parts[0][0].is_cuda:
-        return concat_rows_plain(parts)
+def check_parts(parts: Sequence[Part]) -> Tuple[int, int, int, array, int]:
+    """The wrapper's host-side checks in one pass: 1-8 parts, each (words
+    int32 [W, cap_p], float64 [F, cap_p], num_rows int32 0-dim) on the
+    first part's device and contiguous, the capacities summing below 2^31;
+    raises as `_build.require` does. Returns (W, F, total capacity, the
+    parts as the kernel takes them, device index): csrc/concat_rows.cu's
+    ConcatParts, 1 + 4 * MAX_PARTS int64 -- the count of parts, then the
+    word matrices' and the float64 matrices' addresses, the capacities and
+    the row counts' addresses, each padded to MAX_PARTS."""
     if not 1 <= len(parts) <= MAX_PARTS:
         raise ValueError(f"concat_rows takes 1-{MAX_PARTS} parts, got {len(parts)}")
-    dev = parts[0][0].device
     w, f = parts[0][0].shape[0], parts[0][1].shape[0]
-    spec = ConcatPartsC()
-    spec.n = len(parts)
+    index = parts[0][0].get_device()
+    ptrs, f64s, caps, counts = [], [], [], []
     for i, (words, f64, num_rows) in enumerate(parts):
         if words.dim() != 2 or f64.dim() != 2:
             raise ValueError("part words [W, cap] and float64 [F, cap] expected")
         cap = words.shape[1]
-        _build.require(words, f"part {i} words", torch.int32, (w, cap), dev)
-        _build.require(f64, f"part {i} float64", torch.float64, (f, cap), dev)
-        _build.require(num_rows, f"part {i} num_rows", torch.int32, (), dev)
-        spec.words[i], spec.f64[i] = words.data_ptr(), f64.data_ptr()
-        spec.cap[i], spec.num_rows[i] = cap, num_rows.data_ptr()
-    total_cap = sum(p[0].shape[1] for p in parts)
+        _lean.check(((words, "words", torch.int32, (w, cap)),
+                     (f64, "float64", torch.float64, (f, cap)),
+                     (num_rows, "num_rows", torch.int32, ())), index, f"part {i} ")
+        ptrs.append(words.data_ptr())
+        f64s.append(f64.data_ptr())
+        caps.append(cap)
+        counts.append(num_rows.data_ptr())
+    total_cap = sum(caps)
     if total_cap >= 2**31:
         raise ValueError(f"concatenated capacity {total_cap} reaches 2^31")
-    out = torch.empty((w, total_cap), dtype=torch.int32, device=dev)
-    out_f64 = torch.empty((f, total_cap), dtype=torch.float64, device=dev)
-    total = torch.empty((), dtype=torch.int32, device=dev)
-    fn = _build.function("dfp_concat_rows", (ctypes.POINTER(ConcatPartsC), _build.I32,
-                                             _build.I32, _build.I64, _build.P, _build.P,
-                                             _build.P, _build.P))
-    err = fn(ctypes.byref(spec), w, f, total_cap, out.data_ptr(), out_f64.data_ptr(),
-             total.data_ptr(), _build.stream(dev))
+    pad = [0] * (MAX_PARTS - len(parts))
+    spec = array("q", [len(parts), *ptrs, *pad, *f64s, *pad, *caps, *pad, *counts, *pad])
+    return w, f, total_cap, spec, index
+
+
+_launch = None   # dfp_concat_rows, resolved at the first launch
+
+
+def concat_rows(parts: Sequence[Part]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """concat_rows_plain's contract; launches K11 for CUDA tensors."""
+    global _launch
+    if not parts[0][0].is_cuda:
+        return concat_rows_plain(parts)
+    w, f, total_cap, spec, index = check_parts(parts)
+    if _launch is None:
+        _launch = _build.function("dfp_concat_rows", (
+            _build.P, _build.I32, _build.I32, _build.I64, _build.P, _build.P, _build.P,
+            _build.P))
+    words, f64, num_rows = parts[0]
+    out = words.new_empty((w, total_cap))
+    out_f64 = f64.new_empty((f, total_cap))
+    total = num_rows.new_empty(())
+    err = _launch(spec.buffer_info()[0], w, f, total_cap, out.data_ptr(), out_f64.data_ptr(),
+                  total.data_ptr(), _lean.current_stream(index))
     concat_rows.launches += 1
     _build.check(err, "concat_rows")
     return out, out_f64, total

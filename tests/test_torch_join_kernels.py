@@ -127,13 +127,15 @@ def test_match_flags_plain_matches_the_scatter_set(density):
     np.testing.assert_array_equal(m.numpy(), _np(jm))
 
 
-@pytest.mark.parametrize("rows", [(5, 0, 17), (0, 0, 0), (128, 64, 200), (1, 1, 1)])
+@pytest.mark.parametrize("rows", [(5, 0, 17), (0, 0, 0), (128, 64, 200), (1, 1, 1),
+                                  (128, 0, 256), (100, 64, 0, 1, 3, 0, 128, 17),
+                                  (5, 0, 0, 1, 0, 0, 0, 20)])
 def test_concat_rows_plain_matches_concat_tables(rows):
-    """Parts with some, no and all rows valid; packed words (validity
-    included) and float64 sidecars equal bit for bit over the whole
-    capacity."""
+    """Parts with some, no and all rows valid, 3 or 8 of them, empty parts
+    between full ones; packed words (validity included) and float64
+    sidecars equal bit for bit over the whole capacity (tolerance: none)."""
     rng = np.random.default_rng(sum(rows))
-    caps = (128, 64, 256)
+    caps = (128, 64, 256) if len(rows) == 3 else (128, 64, 256, 1, 3, 64, 128, 32)
     jparts, tparts = [], []
     for cap, n in zip(caps, rows):
         h = jcol.HostTable.from_numpy(

@@ -155,34 +155,49 @@ def _jax_union_append(acc_cols, acc_rows, acc_cap, out_cols, out_cap, out_rows):
     return res, acc_rows + out_rows
 
 
-@pytest.mark.parametrize("acc_rows, out_rows, acc_cap",
-                         [(0, 200, 1024), (700, 250, 1024), (900, 250, 1024), (1024, 5, 1024)],
-                         ids=["first", "fits", "drops past acc_cap", "full"])
-def test_append_rows_matches_jax_union(acc_rows, out_rows, acc_cap):
-    ref = _ref_table(["int32", "int64", "float64", "bool", "float32"], seed=9, n=256)
-    part = ref.to_device(256)
+UNION_KINDS = ["int32", "int64", "float64", "bool", "float32"]
+
+
+@pytest.mark.parametrize("acc_rows, out_rows, acc_cap, cap, kinds",
+                         [(0, 200, 1024, 256, UNION_KINDS), (700, 250, 1024, 256, UNION_KINDS),
+                          (900, 250, 1024, 256, UNION_KINDS), (1024, 5, 1024, 256, UNION_KINDS),
+                          (701, 250, 1024, 256, UNION_KINDS), (702, 3, 1024, 256, UNION_KINDS),
+                          (703, 256, 1024, 256, UNION_KINDS), (37, 0, 1024, 256, UNION_KINDS),
+                          (3, 400, 256, 512, UNION_KINDS),
+                          (333, 250, 1024, 256, ["int32", "int64", "bool", "float32"])],
+                         ids=["first", "fits", "drops past acc_cap", "full",
+                              "acc_rows 1 mod 4", "acc_rows 2 mod 4", "acc_rows 3 mod 4",
+                              "no rows", "partition capacity past acc_cap", "no float64 column"])
+def test_append_rows_matches_jax_union(acc_rows, out_rows, acc_cap, cap, kinds):
+    """K13's plain version against the JAX row-union append: packed words
+    and float64 bits equal exactly (tolerance: none), the count too."""
+    ref = _ref_table(kinds, seed=9, n=cap)
+    part = ref.to_device(cap)
     part = jcol.DeviceTable(part.schema, part.columns, jnp.int32(out_rows))
-    prev = _ref_table(["int32", "int64", "float64", "bool", "float32"], seed=10, n=acc_cap)
+    prev = _ref_table(kinds, seed=10, n=acc_cap)
     acc = prev.to_device(acc_cap)
     # rows past acc_rows of an accumulator are never written before: zeros
     zero_past = jnp.arange(acc_cap) < acc_rows
     acc_cols = {k: (jnp.where(zero_past, v, jnp.zeros_like(v)), vv & zero_past)
                 for k, (v, vv) in acc.columns.items()}
     want, want_rows = _jax_union_append(acc_cols, jnp.int32(acc_rows), acc_cap,
-                                        part.columns, 256, out_rows)
+                                        part.columns, cap, out_rows)
     want_t = jcol.pack_table(jcol.DeviceTable(acc.schema, want, want_rows))
+
+    def f64_rows(pt, n):
+        return torch.from_numpy(np.stack([np.array(v) for v in pt.f64s.values()])
+                                if pt.f64s else np.zeros((0, n)))
 
     jp = jcol.pack_table(jcol.DeviceTable(acc.schema, acc_cols, jnp.int32(acc_rows)))
     words = torch.from_numpy(np.array(jp.packed))
-    f64 = torch.from_numpy(np.stack([np.array(v) for v in jp.f64s.values()]))
+    f64 = f64_rows(jp, acc_cap)
     pp = jcol.pack_table(part)
     new_rows = k13.append_rows(words, f64, torch.tensor(acc_rows, dtype=torch.int32),
-                               torch.from_numpy(np.array(pp.packed)),
-                               torch.from_numpy(np.stack([np.array(v)
-                                                          for v in pp.f64s.values()])),
+                               torch.from_numpy(np.array(pp.packed)), f64_rows(pp, cap),
                                torch.tensor(out_rows, dtype=torch.int32))
     assert int(new_rows) == int(want_rows) and new_rows.dtype == torch.int32
     np.testing.assert_array_equal(words.numpy(), np.asarray(want_t.packed))
+    assert f64.shape[0] == len(want_t.f64s)
     for i, v in enumerate(want_t.f64s.values()):
         np.testing.assert_array_equal(_bits(f64[i].numpy()), _bits(v))
 
