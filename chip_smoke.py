@@ -31,7 +31,10 @@ expression of every path is K17 expr_eval. Phases, one line each:
      padding, a one-home cluster displaced by thousands of slots) at a
      power-of-two and a Lemire table size, SORT and OA joins with every
      stage checked, and K17 on every expression class x dtype with NULLs,
-     division by zero and negative operands (2c); K6 on edge cases, bit
+     division by zero and negative operands, then at row counts around its
+     tile (0, 1, 31, T - 1, T, T + 1, 1,000; values and masks) and with
+     1, 5 and 64 registers up to more tiles than its grid holds (2c); K6
+     on edge cases, bit
      for bit: one row, a pass tile's rows plus and minus one, 2^24 + 3
      rows, 0, 1, 32, 33, 64 and 96 varying bits, int64 extremes, sorted
      and reverse-sorted input, one value in every row, a hot digit (2d);
@@ -41,7 +44,9 @@ expression of every path is K17 expr_eval. Phases, one line each:
      4,194,304-row append of 13 words and 2 sidecars at an odd offset into
      16,777,216 rows; K11 with 1 and 8 parts, empty parts between full
      ones, part boundaries inside a tile (caps 4097, 1, 3), no sidecar and
-     two large parts meeting at an unaligned row (2e)
+     two large parts meeting at an unaligned row; K5's gather in both
+     thread layouts: cap 0, m 0, n 0, n > m, idx out of range, words or
+     sidecars only, sources below and above the L2 (2e)
   3. the `entry()` twin on the card against the same step on the CPU
   4. Size512 (4,194,304 build and probe rows): kernel path == plain path
      word for word, match count == a numpy count, rows/s of both paths
@@ -104,9 +109,10 @@ expression of every path is K17 expr_eval. Phases, one line each:
      calls of phase 16 and the largest K14-K16 and SORT/OA build-sort
      calls of phase 17, replayed through the kernel and its
      plain version: equal, and timed beside its bound (bytes moved at
-     3.35 TB/s) and, where one PyTorch call computes the same function,
-     that call (K5's gather: index_select, checked equal to the kernel
-     first; K11 and K13: also with their device counts read inside the
+     3.35 TB/s; K5's gather: the rows below its count, beside the bound
+     with every row read) and, where one PyTorch call computes the same
+     function, that call (K5's gather: index_select, checked equal to the
+     kernel first; K11 and K13: also with their device counts read inside the
      timing, as the kernels read them); each K6 call with its rows, words,
      varying bits, key width and passes, each K11 and K13 call with its
      shapes and counts
@@ -132,7 +138,8 @@ phase passed; the line before it lists the kernels with their launches
 (in phase 14, K12 and K13 in phase 16, K14-K16 in phase 17, K18 and K19
 in phase 19) and phase 15's (K18, K19: phase 19's) errors, times,
 bounds and library times (`library_sync_ms`: K11's and K13's with the
-counts read inside the timing; `library_by_call`: each call's). Without a
+counts read inside the timing; `library_by_call`: each call's;
+`bound_all_rows_ms`: K5's bound with every gathered row read). Without a
 CUDA device the script exits non-zero and prints no result.
 """
 
@@ -644,6 +651,7 @@ def phase_strategy_kernels_vs_plain(device, n: int = 1 << 18) -> None:
         lines.append(f"OA T={T}: cluster displaced {displaced} slots")
     lines += strategy_join_variants(rng, n // 4, device)
     lines.append(expr_kernel_vs_plain(rng, device))
+    lines.append(expr_tile_edges(rng, device))
     log("phase 2c ok: K14 sorted_probe, K15 oa_place, K16 oa_probe, K3's expand_ranges and "
         "the SORT/OA builds (K6, K5) == plain, exact; " + "; ".join(lines))
 
@@ -784,6 +792,47 @@ def _row_copy_cases(rng, device):
     return cases
 
 
+def gather_layout_edges(rng, device) -> str:
+    """K5's gather in each layout (kernels/filter_compact.py `_gather`) and
+    through `gather_rows` (the layout `gather_layout` picks) bit for bit
+    against gather_rows_plain: cap 0, m 0, n 0, n > m, idx out of range
+    (clipped), words only, sidecars only, and sources whose word rows fit
+    the L2 and do not."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import _build
+    from datafusion_parallelism_tpu_torch.kernels import filter_compact as k5
+    l2 = _build.device_limits(device).l2_bytes
+    above = l2 // 4 + 4097                     # a word row past the L2
+    cases = [("cap 0", 3, 1, 0, 0, 0), ("cap 0, no n", 2, 0, 0, 0, None),
+             ("m 0", 3, 1, 1000, 0, None),
+             ("n 0", 4, 2, 5000, 3000, 0), ("n > m", 4, 1, 5000, 3000, 4000),
+             ("n < m", 5, 0, 5000, 3000, 1234), ("no n", 2, 2, 5000, 7001, None),
+             ("words only", 7, 0, 100_000, 65_537, None), ("sidecars only", 0, 3, 100_000,
+                                                            65_537, 777),
+             ("below the L2", 5, 1, 1 << 20, 1 << 20, (1 << 20) - 33),
+             (f"above the L2 ({above} rows)", 2, 1, above, 1 << 20, 700_001)]
+    names = []
+    for name, W, F, cap, m, n in cases:
+        words, f64 = _random_rows(rng, W, F, cap, device)
+        # out-of-range ids (clipped) among the in-range ones
+        idx = torch.from_numpy(rng.integers(-5, cap + 5, m).astype(np.int32)).to(device)
+        count = None if n is None else torch.tensor(n, dtype=torch.int64, device=device)
+        with no_launches():
+            want = k5.gather_rows_plain(words, f64, idx, count)
+        for layout in (k5.GATHER_WORD, k5.GATHER_WORD4):
+            try:
+                max_abs_err(k5._gather(words, f64, idx, count, layout), want)
+            except AssertionError as e:
+                raise AssertionError(f"K5 gather {name}, layout {layout}: {e}") from None
+        max_abs_err(k5.gather_rows(words, f64, idx, count), want)
+        names.append(f"{name} (W {W}, F {F}, cap {cap}, m {m}, n {n}; "
+                     f"layout {k5.gather_layout(cap, F, l2)})")
+        del words, f64, idx, want
+    torch.cuda.synchronize()
+    return ("K5's gather == gather_rows_plain bit for bit in both layouts: "
+            + "; ".join(names))
+
+
 def phase_row_copy_edges(device) -> None:
     """K13 and K11 against their plain versions bit for bit (float64
     sidecars as their bits) on seeded edge cases (_row_copy_cases): the
@@ -814,7 +863,7 @@ def phase_row_copy_edges(device) -> None:
         names.append(name)
         del args, got, want
     log("phase 2e ok: K13 == append_rows_plain and K11 == concat_rows_plain bit for bit: "
-        + "; ".join(names))
+        + "; ".join(names) + "; " + gather_layout_edges(rng, device))
 
 
 def strategy_join_variants(rng, n, device):
@@ -947,6 +996,21 @@ def expr_suite():
             ("scalar decimal", BinOp("<", Col("d2"), ScalarValue([12.5], [DECIMAL(2)]))),
             ("scalar null", BinOp("+", Col("i64"), ScalarValue([None], [INT64]))),
             ("string lit", BinOp("=", Col("s"), Lit(2, STRING)))]
+    # literals only: K17 computes an op of uniform operands once a block
+    out += [("lit * lit", BinOp("*", Lit(3, INT32), Lit(-4, INT32))),
+            ("lit / 0", BinOp("/", Lit(7, INT32), Lit(0, INT32))),
+            ("lit % lit", BinOp("%", Lit(-7, INT64), Lit(3, INT64))),
+            ("f lit / f lit 0", BinOp("/", Lit(1.5, FLOAT64), Lit(0.0, FLOAT64))),
+            ("null lit is null", IsNull(Lit(None, INT32))),
+            ("coalesce lits", Coalesce([Lit(None, INT32), Lit(5, INT64)])),
+            ("case of lits", Case([(BinOp("<", Lit(1, INT32), Lit(2, INT32)),
+                                    Lit(3.5, FLOAT64))], Lit(0.0, FLOAT64))),
+            ("extract of lit", ExtractDatePart("year", Lit(-1000, DATE32))),
+            ("lit in", InCodes(Lit(3, INT32), np.array([1, 3]))),
+            ("not lit and lit", BinOp("and", Not(Lit(True, BOOL)), Lit(None, BOOL))),
+            ("d2 + lit * (1 - lit)", BinOp("+", Col("d2"), BinOp(
+                "*", Lit(2, DECIMAL(2)), BinOp("-", Lit(1, INT32), Lit(0.25, DECIMAL(2)))))),
+            ("scalar * lit", BinOp("*", ScalarValue([12.5], [DECIMAL(2)]), Lit(2, INT32)))]
     return out
 
 
@@ -986,6 +1050,92 @@ def expr_kernel_vs_plain(rng, device, n: int = 1 << 16) -> str:
     return (f"K17 == plain on {len(suite)} expressions (every class x dtype; NULLs, x/0, "
             f"negative % and //, dates before 1970; up to {longest} instructions), "
             f"{-(-len(suite) // 16)} 16-root projections and {2 * len(bools)} masks")
+
+
+def _deep(col: str, depth: int):
+    """col + (col + (... + col)): every left operand stays live, so the
+    program holds depth + 1 registers."""
+    from datafusion_parallelism_tpu_torch.ops.expressions import BinOp, Col
+    e = Col(col)
+    for _ in range(depth):
+        e = BinOp("+", Col(col), e)
+    return e
+
+
+def expr_tile_edges(rng, device) -> str:
+    """K17 bit for bit against its plain version at row counts around its
+    tile (kernels/expr_eval.py `plan_tile`): every expression of
+    `expr_suite` (and each boolean one in mask mode, with a row bound and
+    an AND mask) at 0, 1, 31, T - 1, T, T + 1 and 1,000 rows, and programs
+    of 1, 5 and 64 registers at those counts, 3T + 77 rows and more tiles
+    than the grid holds at once, over columns from row 0 and (unaligned)
+    from row 1. Also holds the
+    wrapper's `_Params` and `smem_bytes` against the library's."""
+    import ctypes
+
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import _build
+    from datafusion_parallelism_tpu_torch.kernels import expr_eval as k17
+    from datafusion_parallelism_tpu_torch.ops.expressions import Col, Not, compile_exprs
+    params = _build.function("dfp_expr_eval_params_bytes", (), _build.I64)()
+    if params != ctypes.sizeof(k17._Params):
+        raise AssertionError(f"Params is {params} bytes, _Params {ctypes.sizeof(k17._Params)}")
+    smem = _build.function("dfp_expr_eval_smem_bytes",
+                           (_build.I32, _build.I32, _build.I32, _build.I32), _build.I64)
+    for args in ((1, 3, 1, 4096), (5, 29, 2, 2560), (64, 256, 32, 256), (7, 100, 1, 1792)):
+        if smem(*args) != k17.smem_bytes(*args):
+            raise AssertionError(f"smem_bytes{args}: library {smem(*args)}, "
+                                 f"wrapper {k17.smem_bytes(*args)}")
+    limits = _build.device_limits(device)
+    t = _expr_table(rng, k17.MAX_TILE + 64, device)
+    and_mask = torch.from_numpy(rng.random(t.capacity) < 0.5).to(device)
+
+    def plan(program, mask):
+        return k17.plan_tile(max(program.n_regs, 1), len(program.code),
+                             1 if mask else len(program.roots), limits.smem_block,
+                             limits.smem_sm)
+
+    def run(table, program, n, mask=None, offset=0):
+        """expr_eval over columns starting `offset` rows in."""
+        cols = [tuple(x[offset:offset + n] for x in table.column(c)) for c in program.cols]
+        scalars = tuple(node.literal().bits() for node in program.scalars)
+        if mask is not None:
+            mask = (torch.tensor(max(n - 3, 0), dtype=torch.int32, device=device),
+                    and_mask[offset:offset + n])
+        got = k17.expr_eval(program, cols, n, scalars, mask, device)
+        with no_launches():
+            want = k17.expr_eval_plain(program, cols, n, scalars, mask, device)
+        max_abs_err(got, want)
+
+    suite = expr_suite()
+    bools = {label for label, _ in suite if any(s in label for s in (
+        "<", "=", "and", "or", "in", "null", "not"))}
+    launches = 0
+    for label, e in suite:
+        program, _ = compile_exprs([e], t)
+        for masked in (False, True) if label in bools else (False,):
+            T = plan(program, masked)[0]
+            for n in (0, 1, 31, T - 1, T, T + 1, 1000):
+                run(t, program, n, masked or None)
+                launches += 1
+    lines = []
+    for regs, e in ((1, Not(Col("b"))), (5, _deep("d2", 4)), (64, _deep("i32", 63))):
+        program, _ = compile_exprs([e], t)
+        if program.n_regs != regs:
+            raise AssertionError(f"a {regs}-register program holds {program.n_regs}")
+        T = plan(program, False)[0]
+        big = 9 * limits.sms * T + 77       # more tiles than 8 blocks an SM take at once
+        wide = _expr_table(rng, big + 1, device)
+        for n in (0, 1, 31, T - 1, T, T + 1, 3 * T + 77, big):
+            for offset in (0, 1):
+                run(wide if n + offset > t.capacity else t, program, n, None, offset)
+                launches += 1
+        lines.append(f"{regs} registers: T = {T}, up to {big} rows")
+        del wide
+    return (f"K17 == plain around its tile: {len(suite)} expressions (and {len(bools)} "
+            f"masks) at 0, 1, 31, T - 1, T, T + 1 and 1,000 rows; " + ", ".join(lines)
+            + f" (columns from row 0 and from row 1); {launches} launches; Params "
+            f"{params} bytes")
 
 
 def phase_size512_kernels(device):
@@ -2021,8 +2171,8 @@ def work(key, args, out):
         reads = (_bytes([match, build_id, probe_idx]) + min(bw.nbytes + bf.nbytes, k * _row_bytes(bw, bf))
                  + min(pw.nbytes + pf.nbytes, k * _row_bytes(pw, pf)))
     elif entry == "gather_rows":
-        words, f64, idx = args[:3]
-        reads = idx.nbytes + min(words.nbytes + f64.nbytes, idx.numel() * _row_bytes(words, f64))
+        # idx and a source row for each row below the count, every row written
+        return gather_work(args), 0
     elif entry == "filter_compact":
         mask, words, f64, out_cap = args
         k = min(int(out[-1]), out_cap)
@@ -2063,6 +2213,17 @@ def work(key, args, out):
         keys, doms, _, _, reqs, cap = args
         ops = cap * int(np.prod(doms)) * len(reqs)
     return reads + _bytes(out), ops
+
+
+def gather_work(args, counted: bool = True) -> int:
+    """The bytes a K5 gather call must move (kernels/filter_compact.py
+    `gather_bytes`): with its count, or (counted=False) as if every row
+    were read, the bound before callers passed counts."""
+    from datafusion_parallelism_tpu_torch.kernels.filter_compact import gather_bytes
+    words, f64, idx = args[:3]
+    n = args[3] if len(args) > 3 and counted else None
+    return gather_bytes(words.shape[0], f64.shape[0], words.shape[1], idx.shape[0],
+                        None if n is None else int(n))
 
 
 K6_ENTRIES = ("radix_sort", "table_sort", "table_sort_oa")
@@ -2164,6 +2325,31 @@ def library_sync_call(key, args):
     return None
 
 
+def k5_k17_detail(key, args, device):
+    """(phase 15's detail, the bound in ms with every row read or None) of
+    a K5 gather or K17 call: the gather's shape, count, layout and the
+    bound before callers passed counts; K17's program, rows, mode and
+    tile."""
+    from datafusion_parallelism_tpu_torch.kernels import _build
+    from datafusion_parallelism_tpu_torch.kernels import expr_eval as k17
+    from datafusion_parallelism_tpu_torch.kernels import filter_compact as k5
+    lim = _build.device_limits(device)
+    if key[1] == "gather_rows":
+        words, f64, idx = args[:3]
+        n = args[3] if len(args) > 3 else None
+        all_rows = gather_work(args, counted=False) / HBM_BYTES_PER_S * 1e3
+        layout = k5.gather_layout(words.shape[1], f64.shape[0], lim.l2_bytes)
+        return (f", W {words.shape[0]}, F {f64.shape[0]}, cap {words.shape[1]}, m "
+                f"{idx.shape[0]}, n {None if n is None else int(n)}, layout {layout}, bound "
+                f"with every row read {all_rows:.3f}"), all_rows
+    program, _, n, _, mask = args[:5]
+    tile = k17.plan_tile(max(program.n_regs, 1), len(program.code),
+                         1 if mask is not None else len(program.roots), lim.smem_block,
+                         lim.smem_sm)[0]
+    return (f", {len(program.code)} instructions over {program.n_regs} registers, {n} rows, "
+            f"{'mask' if mask is not None else 'values'}, tile {tile}"), None
+
+
 def row_copy_shape(key, args) -> str:
     """K11's and K13's shapes, for the phase-15 line ('' for the rest)."""
     if key[1] == "concat_rows":
@@ -2238,6 +2424,9 @@ def phase_replay(device, ctx, sizes):
             sync = library_sync_call(key, args)
             sync_ms = cuda_ms(sync, reps=3) if sync is not None else None
             detail = row_copy_shape(key, args)
+            acc_all = None
+            if key[1] in ("gather_rows", "expr_eval"):
+                detail, acc_all = k5_k17_detail(key, args, device)
             if key[1] in K6_ENTRIES:
                 plan = k6.planned(*args)
                 detail = (f", {args[0].shape[1]} rows, {args[0].shape[0]} words, {plan.bits} "
@@ -2245,9 +2434,10 @@ def phase_replay(device, ctx, sizes):
             del args, lib, sync
             acc = per_kernel.setdefault(kernel_of(key), {
                 "err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                "bound_ms": 0.0, "library_ms": 0.0, "library_sync_ms": None,
-                "library_by_call": {}, "calls": []})
+                "bound_ms": 0.0, "bound_all_rows_ms": 0.0, "library_ms": 0.0,
+                "library_sync_ms": None, "library_by_call": {}, "calls": []})
             b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+            acc["bound_all_rows_ms"] += max(b_ms, o_ms) if acc_all is None else acc_all
             acc["err"] = max(acc["err"], err)
             acc["ms"] += ms
             acc["plain_ms"] += plain_ms
@@ -2901,6 +3091,8 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
                         "library_ms": r["library_ms"],
+                        **({"bound_all_rows_ms": r["bound_all_rows_ms"]}
+                           if name == "filter_compact" else {}),
                         "library_sync_ms": r.get("library_sync_ms"),
                         "library_by_call": r.get("library_by_call", {}), "calls": r["calls"]})
     log(smi)

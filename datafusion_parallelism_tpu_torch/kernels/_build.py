@@ -138,3 +138,23 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
 def stream(device: torch.device) -> int:
     """The current CUDA stream of `device`, as the C launchers take it."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+class DeviceLimits(ctypes.Structure):
+    """The device properties launches are planned by (csrc/device_limits.cu)."""
+    _fields_ = [("smem_block", ctypes.c_longlong), ("smem_sm", ctypes.c_longlong),
+                ("l2_bytes", ctypes.c_longlong), ("sms", ctypes.c_longlong)]
+
+
+@functools.cache
+def _device_limits(index: int) -> DeviceLimits:
+    out = DeviceLimits()
+    check(function("dfp_device_limits", (I32, P))(index, ctypes.byref(out)), "device_limits")
+    return out
+
+
+def device_limits(device: torch.device) -> DeviceLimits:
+    """Shared memory a block may opt into and an SM holds, L2 bytes and SMs
+    of a CUDA device, read from it once."""
+    return _device_limits(device.index if device.index is not None
+                          else torch.cuda.current_device())

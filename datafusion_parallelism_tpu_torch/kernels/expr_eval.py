@@ -8,9 +8,10 @@ jitted program. `ops/expressions.py::compile_exprs` turns expression trees
 into a `Program`: a flat list of typed instructions over per-row registers,
 each holding an 8-byte value and a validity bit. The CUDA kernel is
 `csrc/expr_eval.cu`, whose header says what bounds it on the H100 (the
-bytes of the columns it reads and the outputs it writes) and why it
-interprets the program one thread per row; `expr_eval_plain` below runs the
-same program one instruction at a time with the torch ops of the trees'
+bytes of the columns it reads and the outputs it writes) and how it
+interprets the program over tiles of rows, its registers in shared memory
+(`plan_tile` below sizes the tile); `expr_eval_plain` below runs the same
+program one instruction at a time with the torch ops of the trees'
 `.eval`. On CPU tensors the wrapper runs the plain version; on CUDA tensors
 it launches the kernel or raises.
 
@@ -23,6 +24,7 @@ literal (the bits of a CONST, or a table's offset << 32 | length).
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,6 +51,43 @@ READS = {**{op: () for op in (COL, CONST, SCALAR)},
 
 MAX_CODE, MAX_REGS, MAX_COLS, MAX_OUTS, MAX_SCALARS = 256, 64, 64, 32, 8
 _M32 = 0xFFFFFFFF
+
+# the kernel's tiles: BLOCK threads a block, DEC_BYTES a decoded instruction
+# (csrc/expr_eval.cu `Dec`), at most MAX_TILE rows a tile, sized so that
+# TILE_BLOCKS blocks share an SM's shared memory where they can (each block
+# also holds BLOCK_RESERVE bytes the runtime keeps)
+BLOCK, DEC_BYTES, MAX_TILE, TILE_BLOCKS, BLOCK_RESERVE = 256, 72, 4096, 3, 1024
+
+
+def smem_bytes(n_regs: int, n_code: int, n_roots: int, tile: int) -> int:
+    """The dynamic shared memory of a launch (csrc/expr_eval.cu
+    `smem_bytes`), each part 16-byte aligned: n_regs columns of `tile`
+    8-byte values and one uniform slot per instruction; their 32-bit
+    validity words (one per register and 32 rows, one per instruction) and
+    a scratch word per 32 rows; one decoded instruction per instruction and
+    per root."""
+    values = (8 * (n_regs * tile + n_code) + 15) // 16 * 16
+    words = (4 * ((n_regs + 1) * (tile // 32) + n_code) + 15) // 16 * 16
+    return values + words + (n_code + n_roots) * DEC_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def plan_tile(n_regs: int, n_code: int, n_roots: int, block_limit: int,
+              sm_limit: int) -> Tuple[int, int]:
+    """(rows a tile, dynamic shared memory bytes) of a launch: the largest
+    multiple of BLOCK up to MAX_TILE whose shared memory lets TILE_BLOCKS
+    blocks share an SM (`sm_limit` bytes), else one row a thread (BLOCK
+    rows), which must fit the `block_limit` a block may opt into."""
+    budget = min(block_limit, sm_limit // TILE_BLOCKS - BLOCK_RESERVE)
+    tile = MAX_TILE
+    while tile > BLOCK and smem_bytes(n_regs, n_code, n_roots, tile) > budget:
+        tile -= BLOCK
+    need = smem_bytes(n_regs, n_code, n_roots, tile)
+    if need > block_limit:
+        raise ValueError(f"expr_eval: {n_regs} registers and {n_code} instructions need {need} "
+                         f"bytes of shared memory at {tile} rows a tile; the device grants "
+                         f"{block_limit}")
+    return tile, need
 
 
 @dataclass
@@ -245,28 +284,43 @@ class _Params(ctypes.Structure):
                 ("num_rows", ctypes.c_void_p), ("and_mask", ctypes.c_void_p),
                 ("mask_out", ctypes.c_void_p), ("n", ctypes.c_longlong),
                 ("n_code", ctypes.c_int), ("n_out", ctypes.c_int), ("mask_reg", ctypes.c_int),
-                ("pad", ctypes.c_int), ("scalar_bits", ctypes.c_longlong * MAX_SCALARS),
+                ("n_regs", ctypes.c_int), ("tile", ctypes.c_int), ("pad", ctypes.c_int),
+                ("scalar_bits", ctypes.c_longlong * MAX_SCALARS),
                 ("scalar_valid", ctypes.c_int * MAX_SCALARS),
                 ("cols", _ColRef * MAX_COLS), ("outs", _OutRef * MAX_OUTS)]
 
 
 def expr_eval(program: Program, columns: Sequence[Tuple[torch.Tensor, torch.Tensor]], n: int,
               scalars: Sequence[Tuple[int, bool]], mask=None, device=None):
-    """expr_eval_plain's contract; launches K17 on a CUDA device. The
-    program's instructions and tables reach the card once per program;
+    """expr_eval_plain's contract; launches K17 on a CUDA device, in tiles
+    that `plan_tile` sizes from the program and the device's shared memory.
+    The program's instructions and tables reach the card once per program;
     everything a launch names rides by value in the kernel's parameters."""
     dev = _device(columns, device)
     if dev.type != "cuda":
         return expr_eval_plain(program, columns, n, scalars, mask, device)
+    return _launch(program, columns, n, scalars, mask, dev)
+
+
+def _launch(program: Program, columns, n: int, scalars, mask, dev: torch.device,
+            tile: Optional[int] = None):
+    """One K17 launch over tiles of `tile` rows: plan_tile's, or another
+    where a measurement compares them."""
     if len(program.code) > MAX_CODE or program.n_regs > MAX_REGS:
         raise ValueError(f"expr_eval takes {MAX_CODE} instructions over {MAX_REGS} registers, "
                          f"got {len(program.code)} over {program.n_regs}")
     if (len(columns) != len(program.cols) or len(columns) > MAX_COLS
             or len(program.roots) > MAX_OUTS or len(scalars) > MAX_SCALARS):
         raise ValueError("expr_eval: columns, roots or scalars out of range")
+    if tile is None:
+        limits = _build.device_limits(dev)
+        tile = plan_tile(max(program.n_regs, 1), len(program.code),
+                         1 if mask is not None else len(program.roots), limits.smem_block,
+                         limits.smem_sm)[0]
     p = _Params()
     code, tables = program.device_arrays(dev)
     p.code, p.tables, p.n, p.n_code = code.data_ptr(), tables.data_ptr(), n, len(program.code)
+    p.n_regs, p.tile = program.n_regs, tile
     for k, (v, valid) in enumerate(columns):
         if v.dtype not in DT_OF:
             raise TypeError(f"expr_eval: column {program.cols[k]} of dtype {v.dtype}")

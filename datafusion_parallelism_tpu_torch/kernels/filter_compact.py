@@ -15,7 +15,8 @@ Two entry points, each with its own launch counter:
       written at its rank; rows at or past the survivor count are zeros
   gather_rows(words, f64, idx, n=None)       row j = source row idx[j]
       (clipped into range, as JAX's mode="clip"); with n, rows at or past
-      n are zeros
+      n are zeros and read nothing; its thread layout (`gather_layout`)
+      follows the source's size against the device's L2
 
 Both move the float64 sidecars bit for bit (selections and copies, never
 arithmetic), NaN payloads and denormals included: the SORT build
@@ -32,6 +33,27 @@ import torch
 from . import _build
 
 Rows = Tuple[torch.Tensor, torch.Tensor]
+
+# csrc/filter_compact.cu's gather layouts: one thread per output row and
+# word, or per four output rows and a word
+GATHER_WORD, GATHER_WORD4 = 0, 1
+
+
+def gather_layout(cap: int, F: int, l2_bytes: int) -> int:
+    """The gather's thread layout for a source of `cap` rows (F float64
+    sidecars): GATHER_WORD while one word row of the source (a sidecar row
+    where there is one) fits in the L2, where that layout's random reads
+    hit; GATHER_WORD4 past it."""
+    return GATHER_WORD if cap * (8 if F else 4) <= l2_bytes else GATHER_WORD4
+
+
+def gather_bytes(W: int, F: int, cap: int, m: int, n: Optional[int] = None) -> int:
+    """The bytes a gather of m rows of W words and F sidecars from `cap`
+    source rows must move: idx and a source row read for each row below
+    min(n, m) (no more source bytes than there are), and m rows written."""
+    k = m if n is None else max(0, min(int(n), m))
+    row = 4 * W + 8 * F
+    return 4 * k + min(cap * row, k * row) + m * row
 
 
 def gather_rows_plain(words: torch.Tensor, f64: torch.Tensor, idx: torch.Tensor,
@@ -101,7 +123,9 @@ def filter_compact(mask: torch.Tensor, words: torch.Tensor, f64: torch.Tensor,
 
 def gather_rows(words: torch.Tensor, f64: torch.Tensor, idx: torch.Tensor,
                 n: Optional[torch.Tensor] = None) -> Rows:
-    """gather_rows_plain's contract; launches K5's gather for CUDA tensors."""
+    """gather_rows_plain's contract; launches K5's gather for CUDA tensors,
+    in the layout `gather_layout` picks from the source's size and the
+    device's L2."""
     if not words.is_cuda:
         return gather_rows_plain(words, f64, idx, n)
     dev = words.device
@@ -113,14 +137,22 @@ def gather_rows(words: torch.Tensor, f64: torch.Tensor, idx: torch.Tensor,
             raise TypeError(f"n: dtype {n.dtype}, expected an integer count")
         n = n.to(torch.int64)
         _build.require(n, "n", torch.int64, (), dev)
+    layout = gather_layout(words.shape[1], f64.shape[0], _build.device_limits(dev).l2_bytes)
+    return _gather(words, f64, idx, n, layout)
+
+
+def _gather(words, f64, idx, n, layout: int) -> Rows:
+    """One launch of K5's gather in `layout` (gather_rows', or the other
+    where a measurement compares them), on checked arguments."""
+    dev, m = words.device, idx.shape[0]
     fn = _build.function("dfp_row_gather", (
         _build.P, _build.I32, _build.P, _build.I32, _build.I64, _build.P, _build.I64,
-        _build.P, _build.P, _build.P, _build.P))
+        _build.P, _build.P, _build.P, _build.I32, _build.P))
     out = torch.empty((words.shape[0], m), dtype=torch.int32, device=dev)
     out_f64 = torch.empty((f64.shape[0], m), dtype=torch.float64, device=dev)
     err = fn(words.data_ptr(), words.shape[0], f64.data_ptr(), f64.shape[0], words.shape[1],
              idx.data_ptr(), m, n.data_ptr() if n is not None else None,
-             out.data_ptr(), out_f64.data_ptr(), _build.stream(dev))
+             out.data_ptr(), out_f64.data_ptr(), layout, _build.stream(dev))
     gather_rows.launches += 1
     _build.check(err, "gather_rows")
     return out, out_f64

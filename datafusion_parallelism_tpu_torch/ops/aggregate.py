@@ -279,8 +279,10 @@ def hash_aggregate_counted(t: DeviceTable, group_keys: List[str], aggs: List[Agg
         in_row = in_row & row_filter
     perm = _grouping_perm(t, group_keys, in_row, kernels)
     n_valid = in_row.sum(dtype=torch.int32)
-    # the table in group order, by ONE packed row gather (K5)
-    g_ = pack_table(t, kernels).take_rows(perm, None, kernels)
+    # the table in group order, by ONE packed row gather (K5); rows at or
+    # past n_valid (outside the filter) become zeros unread: K7 reads the
+    # first n_valid rows and the representatives' gather below them
+    g_ = pack_table(t, kernels).take_rows(perm, n_valid, kernels)
     st = unpack_table(g_, t.schema, t.num_rows, kernels)
     words, key_cols = key_words([st.column(k) for k in group_keys])
     reqs, plan = _requests(aggs, st.column)

@@ -557,6 +557,50 @@ def test_hash_aggregate_matches_jax(case, row_filter, agg_tables):
     assert_columns_equal(jout, tout, int(tout.num_rows), float_tol=_float_tols(host, AGGS))
 
 
+# the grouping gather (K5) takes the count of rows in the filter: rows past
+# it come back as zeros, unread; nothing downstream reads them
+GATHER_COUNT_CASES = {
+    # name: (rows in the table, rows kept of the capacity, filter)
+    "none_in_the_filter": (600, 600, "none"),
+    "every_row_of_the_capacity": (1024, 1024, "all"),
+    "data_past_the_count": (600, 1024, "random"),
+}
+
+
+@pytest.mark.parametrize("keys", [["k32"], ["k64", "ks"], ["kf"]], ids=["int32", "int64_string",
+                                                                    "float"])
+@pytest.mark.parametrize("case", sorted(GATHER_COUNT_CASES))
+def test_hash_aggregate_grouping_gather_takes_the_count(case, keys):
+    """A capacity-padded table under a row filter, grouped on the sorted
+    path: n_valid 0, n_valid equal to the capacity, and non-zero rows past
+    the table's rows and outside the filter (the table's 1,024 rows kept
+    at capacity 1,024 with num_rows 600). Equal to the JAX package."""
+    num_rows, kept, kind = GATHER_COUNT_CASES[case]
+    host = _agg_table_host() if kept == 600 else _wide_agg_host(kept)
+    jt, tt = both(host, 1024)
+    if kept != num_rows:
+        jt = jcol.DeviceTable(jt.schema, jt.columns, np.int32(num_rows))
+        tt.num_rows = torch.tensor(num_rows, dtype=torch.int32)
+    rf = {"none": np.zeros(1024, bool), "all": np.ones(1024, bool),
+          "random": np.random.default_rng(11).random(1024) < 0.6}[kind]
+    jout, tout, n = _agg_both((jt, tt), keys, AGGS, None, rf)
+    if kind == "none":
+        assert n == 0
+    assert_columns_equal(jout, tout, int(tout.num_rows), float_tol=_float_tols(host, AGGS))
+
+
+def _wide_agg_host(rows: int):
+    """_agg_table_host's columns at `rows` rows (tiled), every row valid
+    data: a table whose rows fill its capacity, or run past its num_rows."""
+    base = _agg_table_host()
+    reps = -(-rows // base.num_rows)
+    cols = {name: np.tile(v, reps)[:rows] for name, (v, _) in base.columns.items()}
+    valid = {name: np.tile(m, reps)[:rows] for name, (_, m) in base.columns.items()}
+    return jcol.HostTable.from_numpy(
+        cols, dtypes={"kd": jcol.DATE32, "ks": jcol.STRING, "vd": jcol.DECIMAL(2)},
+        dictionaries={"ks": base.schema.field("ks").dictionary}, validity=valid)
+
+
 def test_hash_aggregate_overflowing_out_cap(agg_tables):
     """out_cap below the group count: the true count comes back and all
     kept groups match, the last kept one included, whose counts and sums
