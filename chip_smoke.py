@@ -46,7 +46,14 @@ expression of every path is K17 expr_eval. Phases, one line each:
      ones, part boundaries inside a tile (caps 4097, 1, 3), no sidecar and
      two large parts meeting at an unaligned row; K5's gather in both
      thread layouts: cap 0, m 0, n 0, n > m, idx out of range, words or
-     sidecars only, sources below and above the L2 (2e)
+     sidecars only, sources below and above the L2 (2e); K2 and K3 bit for
+     bit on edge cases: K2 at T = 1, 255, 2^20 and 4 x a capacity past
+     64 M, bits(T) = 25, 28 and 31, n = 0, 1 and not a multiple of the
+     tile, every row in bucket T, a sparse build, one bucket over many
+     tiles, no narrow rows; K3 with total 0, one probe row owning every
+     candidate, out_cap below, equal to and above the total, m = 1, five
+     keys (and_match) and block boundaries inside probe rows' candidates
+     (2f)
   3. the `entry()` twin on the card against the same step on the CPU
   4. Size512 (4,194,304 build and probe rows): kernel path == plain path
      word for word, match count == a numpy count, rows/s of both paths
@@ -115,7 +122,9 @@ expression of every path is K17 expr_eval. Phases, one line each:
      kernel first; K11 and K13: also with their device counts read inside the
      timing, as the kernels read them); each K6 call with its rows, words,
      varying bits, key width and passes, each K11 and K13 call with its
-     shapes and counts
+     shapes and counts, K2's with n, T, R, its digit passes and its bound as
+     counted before its outputs shared storage, K3's with m, T, total,
+     out_cap and key groups
  19. (run after 18) the distributed hash join at P = 8 in process on the one card (the
      all-to-all a copy on the card, not NVLink): Size512 under all eight
      join types partitioned, INNER broadcast and skew_salted, partitioned
@@ -864,6 +873,135 @@ def phase_row_copy_edges(device) -> None:
         del args, got, want
     log("phase 2e ok: K13 == append_rows_plain and K11 == concat_rows_plain bit for bit: "
         + "; ".join(names) + "; " + gather_layout_edges(rng, device))
+
+
+def _csr_build_edges(rng, device):
+    """(name, slot int32[n] on the card, T, rows [R, n]) of K2's edge cases."""
+    import torch
+    from datafusion_parallelism_tpu_torch.utils.columnar import round_capacity
+
+    def on(x):
+        return torch.from_numpy(np.asarray(x).astype(np.int32)).to(device)
+
+    def rows(r, n):
+        return on(rng.integers(-2**31, 2**31, (r, n)))
+
+    big = round_capacity((1 << 26) + 1)          # past 64 M: a multiple of 4 M
+    hot = rng.integers(0, 1 << 24, 1 << 22)
+    hot[rng.random(1 << 22) < 0.5] = 777
+    sparse = np.full(1 << 21, 1 << 30)
+    sparse[: 1 << 17] = rng.integers(0, 1 << 30, 1 << 17)
+    return [
+        ("T = 2^20 (a power of two)", on(rng.integers(0, (1 << 20) + 1, 1 << 18)), 1 << 20,
+         rows(3, 1 << 18)),
+        (f"T = 4 x {big} (a capacity past 64 M; not a power of two, 29 bits)",
+         on(rng.integers(0, 4 * big + 1, big)), 4 * big, rows(1, big)),
+        ("T = 1", on(rng.integers(0, 2, 100_003)), 1, rows(2, 100_003)),
+        ("T = 255 (one digit pass)", on(rng.integers(0, 256, 100_003)), 255, rows(2, 100_003)),
+        ("bits(T) = 25", on(rng.integers(0, (1 << 24) + 1, 1 << 22)), 1 << 24, rows(2, 1 << 22)),
+        ("bits(T) = 28", on(rng.integers(0, (1 << 27) + 1, 1 << 25)), 1 << 27, rows(3, 1 << 25)),
+        ("bits(T) = 31 (T = 2^30), sparse: 6% valid, the rest in bucket T", on(sparse),
+         1 << 30, rows(1, 1 << 21)),
+        ("n = 1", on([5]), 1 << 16, rows(3, 1)),
+        ("n = 0", on(np.zeros(0)), 1 << 16, rows(2, 0)),
+        ("n not a multiple of the tile (5 x 8192 + 77)", on(rng.integers(0, 1 << 18, 41_037)),
+         1 << 18, rows(2, 41_037)),
+        ("every row in bucket T", on(np.full(1 << 20, 1 << 22)), 1 << 22, rows(2, 1 << 20)),
+        ("one bucket spanning many tiles (half the rows)", on(hot), 1 << 24, rows(2, 1 << 22)),
+        ("R = 0 (build_csr's no_rows)", on(rng.integers(0, (1 << 22) + 1, 1 << 20)), 1 << 22,
+         rows(0, 1 << 20)),
+    ]
+
+
+def _probe_edges(rng, device):
+    """(name, build slot, probe slot, probe ok, T, key count, out_cap as a
+    function of the total) of K3's edge cases."""
+    import torch
+
+    def on(x, dtype=torch.int32):
+        return torch.from_numpy(np.asarray(x)).to(dtype).to(device)
+
+    n, m, T = 1 << 20, (1 << 20) + 3, 1 << 22
+    uniform = (on(rng.integers(0, T, n)), on(rng.integers(0, T, m)),
+               on(rng.random(m) < 0.9, torch.bool))
+    one = np.full(m, 5)
+    one[m // 3] = 9
+    hot_b = rng.integers(0, T, n)
+    hot_b[rng.random(n) < 0.01] = 11      # ~10,000 candidates of one key
+    hot_p = rng.integers(0, T, m)
+    hot_p[rng.integers(0, m, 40)] = 11    # ~10,000 candidates each, across many blocks
+    return [
+        ("total 0", *uniform[:2], on(np.zeros(m, bool), torch.bool), T, 1, lambda t: 1000),
+        ("one probe row owns every candidate", on(np.full(n, 9)), on(one),
+         on(np.ones(m, bool), torch.bool), T, 1, lambda t: t),
+        ("out_cap below the total", *uniform, T, 1, lambda t: t // 2 + 1),
+        ("out_cap equal to the total", *uniform, T, 1, lambda t: t),
+        ("out_cap above the total", *uniform, T, 1, lambda t: t + 10_000),
+        ("m = 1", uniform[0], on([int(rng.integers(0, T))]), on([True], torch.bool), T, 1,
+         lambda t: max(t, 1)),
+        ("m = 1 on a hot key", on(np.full(n, 3)), on([3]), on([True], torch.bool), T, 1,
+         lambda t: t),
+        ("five keys (and_match)", *uniform, T, 5, lambda t: t),
+        ("block boundaries inside probe rows' candidates", on(hot_b), on(hot_p),
+         on(np.ones(m, bool), torch.bool), T, 2, lambda t: t),
+    ]
+
+
+def phase_csr_edges(device) -> None:
+    """K2 and K3 against their plain versions bit for bit on seeded edge
+    cases: K2 at T = 1, 255, a power of two and not one (a capacity past
+    64 M), bits(T) = 25, 28 and 31, n = 0, 1 and not a multiple of the
+    tile, every row in bucket T, a sparse build, one bucket over many
+    tiles, R = 0; K3's probe_ranges and expand_ranges with total 0, one
+    probe row owning every candidate, out_cap below, equal to and above the
+    total, m = 1, five keys (two launches, and_match), block boundaries
+    inside probe rows' candidates."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import csr_build as k2
+    from datafusion_parallelism_tpu_torch.kernels import probe_expand as k3
+    rng = np.random.default_rng(210)
+    lines = []
+    for name, slot, T, rows in _csr_build_edges(rng, device):
+        with no_launches():
+            want = k2.csr_build_plain(slot, T, rows)
+        got = k2.csr_build(slot, T, rows)
+        torch.cuda.synchronize()
+        try:
+            max_abs_err(got, want)
+        except AssertionError as e:
+            raise AssertionError(f"K2 {name}: {e}") from None
+        lines.append(f"K2 {name} (n {slot.shape[0]}, T {T}, R {rows.shape[0]}, "
+                     f"passes {k2.digit_passes(T)})")
+        del slot, rows, got, want
+        torch.cuda.empty_cache()
+    for name, bslot, pslot, ok, T, keys, cap_of in _probe_edges(rng, device):
+        n, m = bslot.shape[0], pslot.shape[0]
+        brows = torch.from_numpy(np.stack([rng.integers(0, 2, n) for _ in range(5)]
+                                          + [rng.integers(0, 2**31, n)]).astype(np.int32))
+        _, offsets, _, _, bwords = k2.csr_build(bslot, T, brows.to(device))
+        # the probe's words in the build's layout (words 0-4 values in
+        # {0, 1}, word 5 validity bits); `keys` key columns of one word each
+        pwords = torch.from_numpy(np.stack([rng.integers(0, 2, m) for _ in range(5)]
+                                           + [rng.integers(0, 2**31, m)]).astype(np.int32))
+        pwords = pwords.to(device)
+        compares = [([k], [k], (5, k), (5, k)) for k in range(keys)]
+        with no_launches():
+            want = k3.probe_ranges_plain(pslot, ok, offsets)
+        got = k3.probe_ranges(pslot, ok, offsets)
+        out_cap = cap_of(int(got[3]))
+        with no_launches():
+            want_x = k3.expand_ranges_plain(*want, pwords, bwords, compares, out_cap)
+        got_x = k3.expand_ranges(*got, pwords, bwords, compares, out_cap)
+        torch.cuda.synchronize()
+        try:
+            max_abs_err((got, got_x), (want, want_x))
+        except AssertionError as e:
+            raise AssertionError(f"K3 {name}: {e}") from None
+        lines.append(f"K3 {name} (m {m}, T {T}, total {int(got[3])}, out_cap {out_cap}, "
+                     f"{len(k3.key_groups(compares))} key groups)")
+        del got, want, got_x, want_x
+    log("phase 2f ok: K2 == csr_build_plain and K3 == probe_ranges_plain, "
+        "expand_ranges_plain bit for bit: " + "; ".join(lines))
 
 
 def strategy_join_variants(rng, n, device):
@@ -1916,17 +2054,42 @@ def phase_join_types(device):
     return res
 
 
-def _unique_tensors(x):
-    seen, out = set(), []
-    for t in _flat(x):
-        if hasattr(t, "data_ptr") and (t.data_ptr(), t.nbytes) not in seen:
-            seen.add((t.data_ptr(), t.nbytes))
-            out.append(t)
-    return out
-
-
 def _bytes(x) -> int:
-    return sum(t.nbytes for t in _unique_tensors(x))
+    """The bytes of the tensors in x, a view's bytes once: the union of
+    their byte ranges (K2's counts are a view of start_count[1], its perm
+    one of rows_out[-1])."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.nbytes) for t in _flat(x)
+                   if hasattr(t, "data_ptr") and t.nbytes)
+    total, end = 0, -1
+    for lo, hi in spans:
+        total += max(0, hi - max(lo, end))
+        end = max(end, hi)
+    return total
+
+
+def k2_k3_detail(key, args, out) -> str:
+    """Phase 15's detail of a K2 or K3 call ('' for the rest): K2's n, T, R,
+    digit passes and its bound as counted before its outputs
+    shared storage (each output's bytes); K3's m, T, total, out_cap and key
+    groups."""
+    from datafusion_parallelism_tpu_torch.kernels import csr_build as k2
+    from datafusion_parallelism_tpu_torch.kernels import probe_expand as k3
+    if key[1] == "csr_build":
+        slot, T, rows = args
+        each = sum(t.nbytes for t in _flat([slot, rows, out]))
+        return (f", n {slot.shape[0]}, T {T}, R {rows.shape[0]}, {int((slot == T).sum())} rows "
+                f"in bucket T, digit passes {k2.digit_passes(T)}, bound as counted "
+                f"before (each output's bytes) {each / HBM_BYTES_PER_S * 1e3:.3f}")
+    if key[1] == "probe_ranges":
+        slot, ok, offsets = args
+        return (f", m {slot.shape[0]}, T {offsets.shape[0] - 2}, {int(ok.sum())} rows ok, "
+                f"total {int(out[3])}, {k3.range_tiles(slot.shape[0])} tiles")
+    if key[1] == "expand_ranges":
+        start, _, _, total, _, bwords, compares, out_cap = args
+        return (f", m {start.shape[0]}, total {int(total)}, out_cap {out_cap}, build rows "
+                f"{bwords.shape[1]}, {len(compares)} keys in {len(k3.key_groups(compares))} "
+                f"key groups")
+    return ""
 
 
 def call_key(key, args):
@@ -2413,6 +2576,7 @@ def phase_replay(device, ctx, sizes):
             got = run_call(key, kernel, args)
             err = entry_err(key[1], args, got, want)
             nbytes, ops = work(key, args, got)
+            csr_detail = k2_k3_detail(key, args, got)
             lib = library_call(key, args)
             if lib is not None and key[1] == "gather_rows":
                 max_abs_err(lib(), got)   # the yardstick computes K5's function
@@ -2427,6 +2591,8 @@ def phase_replay(device, ctx, sizes):
             acc_all = None
             if key[1] in ("gather_rows", "expr_eval"):
                 detail, acc_all = k5_k17_detail(key, args, device)
+            if csr_detail:
+                detail = csr_detail
             if key[1] in K6_ENTRIES:
                 plan = k6.planned(*args)
                 detail = (f", {args[0].shape[1]} rows, {args[0].shape[0]} words, {plan.bits} "
@@ -3036,6 +3202,7 @@ def main() -> int:
     phase_strategy_kernels_vs_plain(device)
     phase_radix_edges(device)
     phase_row_copy_edges(device)
+    phase_csr_edges(device)
 
     wrappers = launch_counters()
     for w in wrappers.values():

@@ -38,6 +38,9 @@
 //    first pass of a later chunk reads that chunk through the current
 //    permutation (the only gather, past 64 varying bits).
 //
+// K2 csr_build runs the same pass over its 32-bit bucket ids, with the
+// row count on the device (OsDeviceRows).
+//
 // A status word is 64 bits: bit 63 says that it holds the inclusive prefix
 // of the tiles up to it (else the tile's own count), bits 40-62 the pass
 // (plus one) that wrote it, bits 0-39 the count. Every pass of a sort
@@ -149,6 +152,23 @@ __global__ void __launch_bounds__(OS_BLOCK) pack_hist_kernel(const int32_t* __re
   if (cnt[tid] != 0) atomicAdd(&hist[tid], cnt[tid]);
 }
 
+// The rows a pass sorts: a count the host knows (K6: the grid covers them
+// exactly), or one on the device (K2: its rows ahead of the padding; the
+// grid covers the most there can be, and the blocks past them return).
+struct OsHostRows {
+  i64 n;
+  OsHostRows(i64 rows) : n(rows) {}
+  static constexpr bool EXACT = true;
+  __device__ __forceinline__ i64 get() const { return n; }
+};
+struct OsDeviceRows {
+  const i64* n;
+  static constexpr bool EXACT = false;
+  __device__ __forceinline__ i64 get() const { return *n; }
+};
+// Rows is named, never deduced: K6 passes its count as an i64
+template <class T> struct OsNamed { using type = T; };
+
 // One stable pass by the digit (key >> shift) & (2^width - 1). keys_in is
 // the carried key of position i, or (GATHER) the chunk indexed by row id,
 // read at vals_in[i]; vals_in == nullptr means the row id i;
@@ -157,9 +177,10 @@ __global__ void __launch_bounds__(OS_BLOCK) pack_hist_kernel(const int32_t* __re
 // all rows. Where the next pass sorts by another digit of these keys
 // (next_width > 0, at next_shift), the pass counts it into hist_next. The
 // tile's keys and row ids sit in dynamic shared memory (os_pass_smem).
-template <class K, bool GATHER>
+template <class K, bool GATHER, class Rows = OsHostRows>
 __global__ void __launch_bounds__(OS_BLOCK, 2) onesweep_pass_kernel(
-    const K* __restrict__ keys_in, const int32_t* __restrict__ vals_in, i64 n, int shift,
+    const K* __restrict__ keys_in, const int32_t* __restrict__ vals_in,
+    typename OsNamed<Rows>::type rows, int shift,
     int width, int next_shift, int next_width, uint64_t tag, const int32_t* __restrict__ hist,
     int32_t* __restrict__ hist_next, int* __restrict__ tile_counter, uint64_t* status,
     K* __restrict__ keys_out, int32_t* __restrict__ vals_out) {
@@ -173,6 +194,7 @@ __global__ void __launch_bounds__(OS_BLOCK, 2) onesweep_pass_kernel(
   __shared__ i64 smem[33];
   __shared__ int tile_sh, uniform;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const i64 n = rows.get();
   const unsigned below = (1u << lane) - 1u;
   const unsigned dmask = (1u << width) - 1u;
   const unsigned nmask = (1u << next_width) - 1u;
@@ -186,6 +208,7 @@ __global__ void __launch_bounds__(OS_BLOCK, 2) onesweep_pass_kernel(
   __syncthreads();
   const i64 tile = tile_sh;
   const i64 first = tile * TILE;
+  if (!Rows::EXACT && first >= n) return;  // past the rows on the device
   const i64 valid = n - first;  // rows of the tile: TILE but in the last
   const i64 wbase = first + (i64)warp * (32 * ITEMS);
 

@@ -6,23 +6,29 @@
 // (utils/columnar.py:650-680) and the deferred join body's candidate fetch
 // and key recheck (ops/join.py:277-320).
 //
-// Bound on the H100: random access. Pass 1 reads one 8-byte bucket
-// descriptor per probe row from a table of T+1 buckets (64 MB at T = 2^24,
-// larger than the 50 MB L2); pass 2 reads the build's narrow words at one
-// random position per candidate. The JAX package replicates probe rows
-// with a scatter-max and a cummax over the output; here each output slot
-// finds its probe row itself by a binary search over the candidate bases,
-// so the work per thread is the same whether a probe row owns one
-// candidate or millions (a hot key), and no replicated matrix is written.
+// Bound on the H100: random access. Pass 1 reads each probe row's bucket
+// descriptor from a table of T+2 offsets (537 MB at T = 2^27, past the
+// 50 MB L2); pass 2 reads the build's narrow words at one random position
+// per candidate. The JAX package replicates probe rows with a scatter-max
+// and a cummax over the output; here no replicated matrix is written:
 //
-//   pass 1, one thread per probe row: start, count = start_count[:, slot];
-//           count = 0 for a row out of range or with a null key;
-//   scan:   base = exclusive cumsum of count (scan.cuh), total in int64 —
-//           the JAX int32 cumsum would wrap past 2^31; the wrapper raises;
+//   pass 1, one launch: a block takes the next tile of RANGE_TILE probe
+//           rows, reads start = offsets[s] and the next offset (one 8-byte
+//           neighbourhood: count = offsets[s+1] - offsets[s], 0 for a row
+//           out of range or with a null key), scans the counts in shared
+//           memory and takes the tile's offset by decoupled look-back
+//           (scan.cuh): start, count, base = the exclusive sum of count,
+//           and the total in int64 (the JAX int32 cumsum would wrap past
+//           2^31; the wrapper raises);
 //   pass 2, one thread per output slot j < min(total, out_cap): probe row
-//           i = the last row with base[i] <= j, pos = start[i] + j - base[i];
-//           match = key words equal and both validity bits set. Slots past
-//           min(total, out_cap) read match = 0, probe_idx = build_id = 0.
+//           i = the last row with base[i] <= j, found by a binary search
+//           over the bases (a search a run of slots, with the run's rows
+//           marked in shared memory and a block max-scan, measured slower
+//           on the H100: the slot's build-word reads bound the pass, and
+//           the run's serial phases cost more than the searches, PERF.md);
+//           pos = start[i] + j - base[i]; match = key words equal and both
+//           validity bits set. Slots past min(total, out_cap) read match =
+//           0, probe_idx = build_id = 0.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,6 +41,11 @@ using dfp::i64;
 
 constexpr int MAX_EQ = 8;     // key words compared (4 keys x 2 words)
 constexpr int MAX_KEYS = 4;
+constexpr int RANGE_BLOCK = 256;
+constexpr int RANGE_ITEMS = 16;
+constexpr int RANGE_TILE = RANGE_BLOCK * RANGE_ITEMS;   // probe rows a pass-1 block takes
+
+inline i64 range_tiles(i64 m) { return (m + RANGE_TILE - 1) / RANGE_TILE; }
 
 // The key-recheck plan (ops/join.py `_defer_key_plan`): word rows to compare
 // and, per key column, the validity word row and bit on each side.
@@ -49,15 +60,67 @@ struct KeySpec {
   int vp_bit[MAX_KEYS];
 };
 
-__global__ void probe_ranges_kernel(const int32_t* __restrict__ slot,
-                                    const uint8_t* __restrict__ ok, i64 m,
-                                    const int32_t* __restrict__ start_count, i64 T1,
-                                    int32_t* __restrict__ start, int32_t* __restrict__ count) {
-  const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const int32_t s = slot[i];
-  start[i] = start_count[s];
-  count[i] = ok[i] ? start_count[T1 + s] : 0;
+__global__ void __launch_bounds__(RANGE_BLOCK) probe_ranges_kernel(
+    const int32_t* __restrict__ slot, const uint8_t* __restrict__ ok, i64 m,
+    const int32_t* __restrict__ offsets, uint64_t* status, i64 tiles,
+    int32_t* __restrict__ start, int32_t* __restrict__ count, int32_t* __restrict__ base,
+    i64* __restrict__ total) {
+  __shared__ int32_t cnt[RANGE_TILE + RANGE_TILE / 16];
+  __shared__ i64 smem[33];
+  __shared__ i64 prefix;
+  __shared__ int tile_sh;
+  const int tid = threadIdx.x;
+  const i64 tile = dfp::lookback_tile(status, tiles, &tile_sh);
+  const i64 first = tile * RANGE_TILE;
+  // every descriptor read of the tile in flight at once, rows striped
+  int32_t s[RANGE_ITEMS];
+  bool valid[RANGE_ITEMS];
+#pragma unroll
+  for (int k = 0; k < RANGE_ITEMS; ++k) {
+    const i64 i = first + k * RANGE_BLOCK + tid;
+    s[k] = i < m ? __ldg(slot + i) : 0;
+    valid[k] = i < m && __ldg(ok + i) != 0;
+  }
+  int32_t lo[RANGE_ITEMS], hi[RANGE_ITEMS];
+#pragma unroll
+  for (int k = 0; k < RANGE_ITEMS; ++k) {
+    const i64 i = first + k * RANGE_BLOCK + tid;
+    lo[k] = i < m ? __ldg(offsets + s[k]) : 0;
+    hi[k] = valid[k] ? __ldg(offsets + s[k] + 1) : lo[k];
+  }
+#pragma unroll
+  for (int k = 0; k < RANGE_ITEMS; ++k) {
+    const int j = k * RANGE_BLOCK + tid;
+    const int32_t c = hi[k] - lo[k];
+    cnt[dfp::scan_pad(j)] = c;
+    if (first + j < m) {
+      start[first + j] = lo[k];
+      count[first + j] = c;
+    }
+  }
+  __syncthreads();
+  // thread tid: rows tid * 16 .. +16 of the tile, in order
+  i64 sum = 0;
+#pragma unroll
+  for (int k = 0; k < RANGE_ITEMS; ++k) sum += cnt[dfp::scan_pad(tid * RANGE_ITEMS + k)];
+  i64 agg;
+  const i64 ex = dfp::block_exclusive_scan(sum, smem, &agg);
+  const i64 excl = dfp::lookback_prefix(status, tile, agg, &prefix);
+  i64 run = excl + ex;
+#pragma unroll
+  for (int k = 0; k < RANGE_ITEMS; ++k) {
+    const int j = dfp::scan_pad(tid * RANGE_ITEMS + k);
+    const int32_t c = cnt[j];
+    cnt[j] = (int32_t)run;
+    run += c;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < RANGE_ITEMS; ++k) {
+    const int j = k * RANGE_BLOCK + tid;
+    if (first + j < m) base[first + j] = cnt[dfp::scan_pad(j)];
+  }
+  if (tile == tiles - 1 && tid == 0) *total = excl + agg;
 }
 
 __global__ void probe_expand_kernel(const int32_t* __restrict__ start,
@@ -105,25 +168,22 @@ __global__ void probe_expand_kernel(const int32_t* __restrict__ start,
 
 }  // namespace
 
-extern "C" long long dfp_probe_ranges_scratch_bytes(long long m) {
-  return dfp::scan_scratch_bytes(m);
-}
-
-// Pass 1 + scan. start_count is [2, T1] (T1 = T + 1); total64 is a device
-// int64.
+// Pass 1 with its scan: slot [m] in [0, T], offsets [T+2] (the table's),
+// ok [m] as bytes; start, count, base [m] int32, total64 a device int64;
+// scratch: the look-back's status words and tile counter, 8 bytes a tile
+// of RANGE_TILE rows and 8 more (kernels/probe_expand.py `range_tiles`).
 extern "C" int dfp_probe_ranges(const void* slot, const void* ok, long long m,
-                                const void* start_count, long long T1, void* start,
-                                void* count, void* base, void* total64, void* scratch,
-                                long long scratch_bytes, void* stream) {
+                                const void* offsets, void* start, void* count, void* base,
+                                void* total64, void* scratch, long long scratch_bytes,
+                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (scratch_bytes < dfp::scan_scratch_bytes(m)) return (int)cudaErrorInvalidValue;
-  if (m > 0) {
-    probe_ranges_kernel<<<dfp::grid_for(m, 256), 256, 0, st>>>(
-        (const int32_t*)slot, (const uint8_t*)ok, m, (const int32_t*)start_count, T1,
-        (int32_t*)start, (int32_t*)count);
-  }
-  dfp::exclusive_scan<int32_t, int32_t>((const int32_t*)count, m, (int32_t*)base,
-                                        (i64*)total64, scratch, st);
+  const i64 tiles = range_tiles(m);
+  if (m <= 0 || scratch_bytes < dfp::lookback_scratch_bytes(tiles))
+    return (int)cudaErrorInvalidValue;
+  cudaMemsetAsync(scratch, 0, (size_t)dfp::lookback_scratch_bytes(tiles), st);
+  probe_ranges_kernel<<<(unsigned)tiles, RANGE_BLOCK, 0, st>>>(
+      (const int32_t*)slot, (const uint8_t*)ok, m, (const int32_t*)offsets, (uint64_t*)scratch,
+      tiles, (int32_t*)start, (int32_t*)count, (int32_t*)base, (i64*)total64);
   return (int)cudaGetLastError();
 }
 

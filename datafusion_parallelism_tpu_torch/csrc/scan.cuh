@@ -1,6 +1,7 @@
-// Device-wide exclusive prefix sum, shared by the CSR build (bucket
-// offsets, radix digit offsets), the probe (candidate bases) and the
-// compaction (survivor positions).
+// Device-wide exclusive prefix sums: the three-pass scan of the compactions
+// (survivor positions), K18's counting sort and the SORT and OA probes'
+// candidate bases (K14, K16), and the single-pass look-back scan of the CSR
+// build's padding partition and the CSR probe (candidate bases).
 //
 // Replaces the `jnp.cumsum` calls of the JAX package (hash_table.py:118-119,
 // :287; columnar.py:418-444's survivor count).
@@ -150,6 +151,72 @@ void exclusive_scan(const In* in, i64 n, Out* out, i64* total, void* scratch,
 }
 
 inline unsigned grid_for(i64 n, int block) { return (unsigned)((n + block - 1) / block); }
+
+// ---------------------------------------------------------------------------
+// Single-pass scans by decoupled look-back (Merrill and Garland, "Single-pass
+// Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016): K2's padding
+// partition and K3's candidate bases. A block takes the
+// next tile id from a counter, so a tile only waits on tiles already
+// running; it publishes its aggregate at once, then warp 0 reads the status
+// words of the 32 tiles before it at a time and adds them up to the nearest
+// one that holds its inclusive prefix. A status word is 64 bits: bit 63
+// marks an inclusive prefix, bit 62 an aggregate, bits 0-61 the value (a
+// sum below 2^62: K3's total of m rows' counts, each below 2^31). The
+// counter and the status words start zeroed: one memset of
+// lookback_scratch_bytes.
+// ---------------------------------------------------------------------------
+
+constexpr uint64_t LB_INCLUSIVE = 1ull << 63;
+constexpr uint64_t LB_AGGREGATE = 1ull << 62;
+constexpr uint64_t LB_VALUE = LB_AGGREGATE - 1;
+
+// status words of `tiles` tiles, then the tile counter
+inline i64 lookback_scratch_bytes(i64 tiles) { return (tiles + 1) * (i64)sizeof(uint64_t); }
+
+// The block's tile id, from the counter after the status words (every
+// thread; one atomic).
+__device__ __forceinline__ i64 lookback_tile(uint64_t* status, i64 tiles, int* smem_tile) {
+  if (threadIdx.x == 0) *smem_tile = atomicAdd((int*)(status + tiles), 1);
+  __syncthreads();
+  return *smem_tile;
+}
+
+// The sum of the tiles before `tile`, given this tile's `aggregate` (every
+// thread of the block calls it; the result in every thread).
+__device__ __forceinline__ i64 lookback_prefix(uint64_t* status, i64 tile, i64 aggregate,
+                                               i64* smem_prefix) {
+  volatile uint64_t* vs = status;
+  if (threadIdx.x == 0) {
+    vs[tile] = (tile == 0 ? LB_INCLUSIVE : LB_AGGREGATE) | (uint64_t)aggregate;
+    if (tile == 0) *smem_prefix = 0;
+  }
+  if (tile > 0 && threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    i64 excl = 0;
+    for (i64 t = tile - 1;; t -= 32) {
+      const i64 at = t - lane;
+      uint64_t s = LB_INCLUSIVE;  // before tile 0: an inclusive prefix of 0
+      if (at >= 0) {
+        do {
+          s = vs[at];
+        } while ((s & (LB_INCLUSIVE | LB_AGGREGATE)) == 0);
+      }
+      const unsigned inc = __ballot_sync(0xffffffffu, (s & LB_INCLUSIVE) != 0);
+      // the lanes up to the nearest inclusive one (the lowest lane) count
+      i64 v = (inc == 0u || lane <= __ffs(inc) - 1) ? (i64)(s & LB_VALUE) : 0;
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+      excl += v;
+      if (inc != 0u) break;
+    }
+    if (lane == 0) {
+      vs[tile] = LB_INCLUSIVE | (uint64_t)(excl + aggregate);
+      *smem_prefix = excl;
+    }
+  }
+  __syncthreads();
+  return *smem_prefix;
+}
 
 // ---------------------------------------------------------------------------
 // Device-wide inclusive MAX-scan of int64, in place: the open-addressing

@@ -9,10 +9,12 @@ K16's; its second pass).
 Replaces the JAX package's `hash_table.probe_ranges` / `probe_candidates`
 (CSR branch), `columnar.replicate_rows_exact` and the deferred join body's
 candidate fetch and key recheck (ops/join.py:277-320). The CUDA kernel is
-`csrc/probe_expand.cu`, whose header says what bounds it on the H100 and why
-it runs one thread per output slot; the plain versions below are the same
-functions in torch ops. On CPU tensors the wrappers run the plain versions;
-on CUDA tensors they launch the kernel or raise.
+`csrc/probe_expand.cu`, whose header says what bounds it on the H100: the
+first pass reads one offset pair a probe row and takes its scan in the
+same launch (`range_tiles` blocks), the second runs one thread per output
+slot; the plain versions below are the same functions in torch ops. On
+CPU tensors the wrappers run the plain versions; on CUDA tensors they
+launch the kernel or raise.
 
 Candidate totals are summed in int64: a total of 2^31 or more raises
 OverflowError, where the JAX package's int32 cumsum would wrap.
@@ -28,6 +30,7 @@ import torch
 from . import _build
 
 MAX_EQ_WORDS, MAX_KEYS = 8, 4
+RANGE_TILE = 256 * 16   # probe rows a first-pass block takes (csrc/probe_expand.cu)
 Ranges = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 # one key column of the recheck plan (ops/join.py `_defer_key_plan`):
 # (build word rows, probe word rows, (build validity row, bit),
@@ -43,47 +46,55 @@ def check_total(total: torch.Tensor) -> torch.Tensor:
     return total.to(torch.int32)
 
 
-def probe_ranges_plain(slot: torch.Tensor, ok: torch.Tensor,
-                       start_count: torch.Tensor) -> Ranges:
-    """(start, count, base, total) per probe row: its bucket's descriptor
-    start_count[:, slot], count zeroed where `ok` is False, base the
-    exclusive cumsum of count, total their int32 0-dim sum."""
+def probe_ranges_plain(slot: torch.Tensor, ok: torch.Tensor, offsets: torch.Tensor) -> Ranges:
+    """(start, count, base, total) per probe row: its bucket's start
+    offsets[slot] and count offsets[slot + 1] - offsets[slot] (the table's
+    offsets [T+2]), count zeroed where `ok` is False, base the exclusive
+    cumsum of count, total their int32 0-dim sum."""
     sl = slot.long()
-    start = start_count[0].index_select(0, sl)
-    count = torch.where(ok, start_count[1].index_select(0, sl), 0).to(torch.int32)
+    start = offsets.index_select(0, sl)
+    count = torch.where(ok, offsets.index_select(0, sl + 1) - start, 0).to(torch.int32)
     cum = torch.cumsum(count, 0, dtype=torch.int64)
     total = check_total(cum[-1])
     return start, count, (cum - count).to(torch.int32), total
 
 
-def probe_ranges(slot: torch.Tensor, ok: torch.Tensor, start_count: torch.Tensor) -> Ranges:
-    """probe_ranges_plain's contract; launches K3's first pass and the scan
-    for CUDA tensors."""
+def range_tiles(m: int) -> int:
+    """Blocks of K3's first pass: tiles of RANGE_TILE probe rows, each
+    taking its offset by look-back."""
+    return -(-m // RANGE_TILE)
+
+
+def probe_ranges(slot: torch.Tensor, ok: torch.Tensor, offsets: torch.Tensor) -> Ranges:
+    """probe_ranges_plain's contract; launches K3's first pass (its scan
+    fused) for CUDA tensors."""
     if not slot.is_cuda:
-        return probe_ranges_plain(slot, ok, start_count)
+        return probe_ranges_plain(slot, ok, offsets)
+    return _ranges_launch(slot, ok, offsets)
+
+
+def _ranges_launch(slot: torch.Tensor, ok: torch.Tensor, offsets: torch.Tensor) -> Ranges:
     dev = slot.device
     m = slot.shape[0] if slot.dim() == 1 else -1
-    _build.require(slot, "slot", torch.int32, (m,))
-    _build.require(ok, "ok", torch.bool, (m,), dev)
-    if start_count.dim() != 2 or start_count.shape[0] != 2:
-        raise ValueError(f"start_count: expected [2, T+1], got {tuple(start_count.shape)}")
-    _build.require(start_count, "start_count", torch.int32, None, dev)
+    if offsets.dim() != 1 or offsets.shape[0] < 3:
+        raise ValueError(f"offsets: expected [T+2], got {tuple(offsets.shape)}")
     if m < 1:
         raise ValueError("probe side has no rows")
-    scratch_bytes = _build.function("dfp_probe_ranges_scratch_bytes", (_build.I64,),
-                                    _build.I64)
+    _build.require(slot, "slot", torch.int32, (m,))
+    _build.require(ok, "ok", torch.bool, (m,), dev)
+    _build.require(offsets, "offsets", torch.int32, None, dev)
     fn = _build.function("dfp_probe_ranges", (
-        _build.P, _build.P, _build.I64, _build.P, _build.I64, _build.P, _build.P,
-        _build.P, _build.P, _build.P, _build.I64, _build.P))
+        _build.P, _build.P, _build.I64, _build.P, _build.P, _build.P, _build.P, _build.P,
+        _build.P, _build.I64, _build.P))
     start = torch.empty(m, dtype=torch.int32, device=dev)
     count = torch.empty(m, dtype=torch.int32, device=dev)
     base = torch.empty(m, dtype=torch.int32, device=dev)
     total64 = torch.empty((), dtype=torch.int64, device=dev)
-    nbytes = scratch_bytes(m)
+    nbytes = 8 * (range_tiles(m) + 1)   # look-back status words and the tile counter
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    err = fn(slot.data_ptr(), ok.data_ptr(), m, start_count.data_ptr(), start_count.shape[1],
-             start.data_ptr(), count.data_ptr(), base.data_ptr(), total64.data_ptr(),
-             scratch.data_ptr(), nbytes, _build.stream(dev))
+    err = fn(slot.data_ptr(), ok.data_ptr(), m, offsets.data_ptr(), start.data_ptr(),
+             count.data_ptr(), base.data_ptr(), total64.data_ptr(), scratch.data_ptr(), nbytes,
+             _build.stream(dev))
     probe_ranges.launches += 1
     _build.check(err, "probe_ranges")
     return start, count, base, check_total(total64)

@@ -201,7 +201,7 @@ def table_ranges(table: JoinTable, hashes: torch.Tensor, slot: torch.Tensor,
         return sorted_probe(hashes, ok, table.sorted_hash)
     if table.is_oa:
         return oa_probe(slot, hashes, ok, table.sorted_hash)
-    return probe_ranges(slot, ok, table.start_count)
+    return probe_ranges(slot, ok, table.offsets)
 
 
 def _table_T(table: JoinTable) -> int:

@@ -131,7 +131,7 @@ def test_probe_expand_replicates_like_jax(out_cap):
     # bwords: the build's perm position itself, then a row id row
     perm_pos = torch.arange(CAP, dtype=torch.int32)
     bwords = torch.stack([perm_pos, tt.perm])
-    start, count, base, total = k3.probe_ranges(tht.slot_of(ph, T), ok, tt.start_count)
+    start, count, base, total = k3.probe_ranges(tht.slot_of(ph, T), ok, tt.offsets)
     match, probe_idx, build_id = k3.expand_ranges(
         start, count, base, total, torch.zeros((1, CAP), dtype=torch.int32), bwords,
         [([0], [0], (0, 31), (0, 31))], out_cap)
@@ -149,7 +149,7 @@ def test_probe_expand_replicates_like_jax(out_cap):
 
 
 def test_candidate_total_past_int32_raises():
-    start_count = torch.tensor([[0, 0], [1 << 30, 0]], dtype=torch.int32)
+    offsets = torch.tensor([0, 1 << 30, 1 << 30], dtype=torch.int32)   # bucket 0 of T = 1
     slot = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(OverflowError):
-        k3.probe_ranges(slot, torch.ones(3, dtype=torch.bool), start_count)
+        k3.probe_ranges(slot, torch.ones(3, dtype=torch.bool), offsets)

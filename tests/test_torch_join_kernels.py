@@ -85,12 +85,11 @@ def test_pair_fetch_plain_matches_the_full_fetch_body(case, out_cap):
     T = tht.table_size_for(512)
     tbp, tpp = tcol.pack_table(tb), tcol.pack_table(tp)
     _, bslot = k1.hash_slot_plain(*key_words([tb.column("bk")]), T, tb.num_rows)
-    _, _, perm, start_count, bwords = tjoin.PLAIN.csr_build(bslot, T,
-                                                            tjoin._with_f64_pairs(tbp))
+    _, offsets, perm, _, bwords = tjoin.PLAIN.csr_build(bslot, T, tjoin._with_f64_pairs(tbp))
     np.testing.assert_array_equal(perm.numpy(), _np(table.perm))
     _, pslot = k1.hash_slot_plain(*key_words([tp.column("pk")]), T)
     start, _, base, total = tjoin.PLAIN.probe_ranges(
-        pslot, tp.row_mask() & tp.column("pk")[1], start_count)
+        pslot, tp.row_mask() & tp.column("pk")[1], offsets)
     assert int(total) == int(cr.total)
     keys = tjoin._fetch_keys(tbp.layout, tpp.layout, ["bk"], ["pk"])
     out_b, out_bf, out_p, out_pf, t_idx, t_bid, t_match = k9.pair_fetch_plain(
