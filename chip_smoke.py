@@ -53,7 +53,15 @@ expression of every path is K17 expr_eval. Phases, one line each:
      tiles, no narrow rows; K3 with total 0, one probe row owning every
      candidate, out_cap below, equal to and above the total, m = 1, five
      keys (and_match) and block boundaries inside probe rows' candidates
-     (2f)
+     (2f); K8 and K5's compaction on edge cases, each run twice with the
+     same bits both times: K8 (integers bit for bit, float64 within rtol
+     1e-9) at G = 1, 12 and 64, 33 requests (two launches), num_rows 0, a
+     row filter all False, all-NULL groups, NaN, +-inf and -0.0 in its
+     float64 column, every column but one at an odd offset (staged byte
+     by byte beside a bulk copy), 2^24 + 3 rows; K5 bit for bit at cap 0 (into out_cap
+     0 and 5), out_cap 0, none and all passing, survivors past out_cap, a
+     cap off its 4,096-row tile, out_cap past cap, a mask at an odd offset,
+     NaN payloads and denormals in its sidecars (2g)
   3. the `entry()` twin on the card against the same step on the CPU
   4. Size512 (4,194,304 build and probe rows): kernel path == plain path
      word for word, match count == a numpy count, rows/s of both paths
@@ -119,8 +127,11 @@ expression of every path is K17 expr_eval. Phases, one line each:
      3.35 TB/s; K5's gather: the rows below its count, beside the bound
      with every row read) and, where one PyTorch call computes the same
      function, that call (K5's gather: index_select, checked equal to the
-     kernel first; K11 and K13: also with their device counts read inside the
-     timing, as the kernels read them); each K6 call with its rows, words,
+     kernel first; K5's compaction: the boolean index words[:, mask], its
+     survivors checked equal to the kernel's; K11 and K13: also with their
+     device counts read inside the timing, as the kernels read them), and
+     K8's partial yardstick (one index_add_ or scatter_reduce_ a request
+     over group ids made before the timing); each K6 call with its rows, words,
      varying bits, key width and passes, each K11 and K13 call with its
      shapes and counts, K2's with n, T, R, its digit passes and its bound as
      counted before its outputs shared storage, K3's with m, T, total,
@@ -147,7 +158,8 @@ phase passed; the line before it lists the kernels with their launches
 (in phase 14, K12 and K13 in phase 16, K14-K16 in phase 17, K18 and K19
 in phase 19) and phase 15's (K18, K19: phase 19's) errors, times,
 bounds and library times (`library_sync_ms`: K11's and K13's with the
-counts read inside the timing; `library_by_call`: each call's;
+counts read inside the timing; `library_partial_ms`: K8's partial
+yardstick; `library_by_call`: each call's;
 `bound_all_rows_ms`: K5's bound with every gathered row read). Without a
 CUDA device the script exits non-zero and prints no result.
 """
@@ -1002,6 +1014,202 @@ def phase_csr_edges(device) -> None:
         del got, want, got_x, want_x
     log("phase 2f ok: K2 == csr_build_plain and K3 == probe_ranges_plain, "
         "expand_ranges_plain bit for bit: " + "; ".join(lines))
+
+
+def _agg_requests(rng, cap, device, specials: float = 1e-4):
+    """K8's requests over every input type (int32, int64, float32, float64,
+    bool) and function, some with validity; the float64 column holds NaN,
+    +-inf and -0.0 in a `specials` share of its rows."""
+    import torch
+
+    def on(x):
+        return torch.from_numpy(x).to(device)
+
+    f64 = rng.normal(size=cap) * 1e6
+    at = rng.random(cap) < specials
+    f64[at] = rng.choice([np.nan, np.inf, -np.inf, -0.0, 0.0], int(at.sum()))
+    cols = {"i32": on(rng.integers(-2**31, 2**31, cap).astype(np.int32)),
+            "i64": on(rng.integers(-2**62, 2**62, cap)),
+            "f32": on(rng.normal(size=cap).astype(np.float32)),
+            "f64": on(f64), "b": on(rng.random(cap) < 0.5)}
+    valid = on(rng.random(cap) >= 0.1)
+    return [("count", cols["i32"], valid), ("sum", cols["i32"], None),
+            ("min", cols["i32"], valid), ("max", cols["i32"], valid),
+            ("sum", cols["i64"], valid), ("min", cols["i64"], None), ("max", cols["i64"], valid),
+            ("sum", cols["f32"], valid), ("min", cols["f32"], valid), ("max", cols["f32"], None),
+            ("sum", cols["f64"], valid), ("min", cols["f64"], valid), ("max", cols["f64"], valid),
+            ("count", cols["f64"], None), ("sum", cols["b"], valid), ("max", cols["b"], None)]
+
+
+def _direct_agg_edges(rng, device):
+    """(name, direct_agg's arguments) of K8's edge cases."""
+    import torch
+
+    def on(x):
+        return torch.from_numpy(x).to(device)
+
+    def key(cap, d, null=0.1, is_bool=False):
+        codes = rng.random(cap) < 0.5 if is_bool else rng.integers(0, d, cap).astype(np.int32)
+        return on(codes), on(rng.random(cap) >= null)
+
+    def rows(n):
+        return torch.tensor(n, dtype=torch.int32, device=device)
+
+    cap = 1_000_003
+    reqs = _agg_requests(rng, cap, device)
+    half = on(rng.random(cap) < 0.5)
+    q1 = [key(cap, 2, is_bool=True), key(cap, 3)]
+    cases = [
+        ("G = 1 (no key), row_filter half", ([], [], rows(cap - 5), half, reqs, cap)),
+        ("G = 12 (a bool key x domain 3)", (q1, [2, 3], rows(cap), None, reqs, cap)),
+        ("G = 64 (domains 7 x 7)", ([key(cap, 7), key(cap, 7)], [7, 7], rows(cap - 1), half,
+                                    reqs, cap)),
+        ("33 requests (two launches)", (q1, [2, 3], rows(cap), None, (reqs * 3)[:33], cap)),
+        ("num_rows 0", (q1, [2, 3], rows(0), None, reqs, cap)),
+        ("row_filter all False", (q1, [2, 3], rows(cap), torch.zeros_like(half), reqs, cap)),
+        ("all-NULL groups", ([key(cap, 3, null=1.0), key(cap, 7, null=1.0)], [3, 7], rows(cap),
+                             None, reqs, cap)),
+        ("float64 NaN, +-inf, -0.0 in 5% of the rows",
+         (q1, [2, 3], rows(cap), None, _agg_requests(rng, cap, device, 0.05), cap)),
+    ]
+    # every column a view one element into a tensor of cap + 1 rows, so no
+    # column is 16-byte aligned and each is staged byte by byte beside the
+    # bulk copies of the aligned bool key
+    def odd(x):
+        return on(x)[1:]
+
+    n = 100_003
+    codes = odd(rng.integers(0, 3, n + 1).astype(np.int32))
+    i64, f64 = odd(rng.integers(-2**62, 2**62, n + 1)), odd(rng.normal(size=n + 1) * 1e6)
+    valid = odd(rng.random(n + 1) >= 0.1)
+    cases.append(("columns at an odd offset: key codes, validity, int64 and float64 values",
+                  ([(codes, odd(rng.random(n + 1) >= 0.1)), key(n, 2, is_bool=True)], [3, 2],
+                   rows(n - 7), odd(rng.random(n + 1) < 0.7),
+                   [("sum", i64, valid), ("min", i64, None), ("max", i64, valid),
+                    ("sum", f64, valid), ("min", f64, valid), ("count", f64, valid)], n)))
+    big = (1 << 24) + 3
+    cases.append((f"G = 64 over {big} rows (tiles past the grid)",
+                  ([key(big, 7), key(big, 7)], [7, 7], rows(big), None,
+                   _agg_requests(rng, big, device)[10:], big)))
+    return cases
+
+
+def k8_close(got, want, reqs) -> None:
+    """K8's (rowcount, results) against the plain ones: integers bit for
+    bit; float64 sums within SUM_RTOL + SUM_ATOL_PER_ABS * sum|x| (NaN
+    where NaN, infinities equal), float64 min and max equal as numbers
+    (NaN where NaN: a -0.0 and a 0.0 in one group tie, and the plain
+    version's scatter keeps either)."""
+    import torch
+    max_abs_err(got[0], want[0])
+    for g, w, (func, values, validity) in zip(got[1], want[1], reqs, strict=True):
+        if g.dtype != torch.float64:
+            max_abs_err(g, w)
+            continue
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        if func == "sum":
+            x = values.double().abs()
+            if validity is not None:
+                x = torch.where(validity, x, 0.0)
+            x = torch.where(torch.isfinite(x), x, 0.0)
+            limit = SUM_ATOL_PER_ABS * float(x.sum()) + SUM_RTOL * w.abs()
+            same = same | (torch.isfinite(w) & ((g - w).abs() <= limit))
+        if not bool(same.all()):
+            bad = int((~same).sum())
+            raise AssertionError(f"{func} float64: {bad} groups differ")
+
+
+def _compact_edges(rng, device):
+    """(name, filter_compact's arguments) of K5's compaction edge cases."""
+    import torch
+
+    def case(name, cap, share, W, F, out_cap, offset=0):
+        mask = torch.from_numpy(rng.random(cap + offset) < share).to(device)[offset:]
+        words, f64 = _random_rows(rng, W, F, cap, device)
+        bits = f64.view(torch.int64)
+        bits[:, ::7] = torch.from_numpy(rng.integers(1, 1 << 52, bits[:, ::7].shape)).to(device)
+        return (f"{name} (cap {cap}, W {W}, F {F}, out_cap {out_cap}, {share:.0%} pass)",
+                (mask, words, f64, out_cap))
+
+    tile = 4096
+    return [case("cap 0", 0, 0.5, 3, 1, 0), case("out_cap 0", 10_000, 0.5, 3, 1, 0),
+            case("none pass", 3 * tile + 17, 0.0, 4, 2, 3 * tile + 17),
+            case("all pass", 5 * tile, 1.0, 4, 2, 5 * tile),
+            case("survivors past out_cap", 1_000_003, 0.6, 5, 1, 100_000),
+            case("cap not a multiple of the tile", 37 * tile + 1234, 0.3, 3, 2, 37 * tile + 1234),
+            case("out_cap past cap", 5000, 0.7, 2, 1, 9000),
+            case("the mask a view at an odd offset", 100_003, 0.5, 3, 1, 100_003, offset=1),
+            case("NaN payloads and denormals in the sidecars only", 50_000, 0.5, 0, 3, 50_000),
+            case(f"1% of {(1 << 24) + 3} rows", (1 << 24) + 3, 0.01, 10, 0, 1 << 22)]
+
+
+def phase_agg_compact_edges(device) -> None:
+    """K8 and K5's compaction against their plain versions on seeded edge
+    cases, each run twice with the same bits both times: K8 (integers bit
+    for bit, float64 within rtol 1e-9, k8_close) at G = 1, 12 and 64, 33
+    requests, num_rows 0, a row filter all False, all-NULL groups, NaN,
+    +-inf and -0.0, columns at an odd offset (not 16-byte aligned); K5 bit
+    for bit (sidecars as their bits) at cap 0, out_cap 0, none and all
+    passing, survivors past out_cap, a cap that is not a multiple of the
+    tile, an unaligned mask, NaN payloads and denormals; its scratch bytes
+    == kernels/filter_compact.py's plan; K8's warps' request sets
+    (kernels/direct_agg.py's launch_plans, read from the kernel's host
+    code) == warp_sets."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import _agg, _build
+    from datafusion_parallelism_tpu_torch.kernels import direct_agg as k8
+    from datafusion_parallelism_tpu_torch.kernels import filter_compact as k5
+    rng = np.random.default_rng(811)
+    lines = []
+    for name, args in _direct_agg_edges(rng, device):
+        with no_launches():
+            want = k8.direct_agg_plain(*args)
+        got, again = k8.direct_agg(*args), k8.direct_agg(*args)
+        plans = k8.launch_plans(*args)
+        torch.cuda.synchronize()
+        try:
+            k8_close(got, want, args[4])
+            max_abs_err(got, again)
+            for plan, group in zip(plans, _agg.request_groups(args[4]), strict=True):
+                R = len(group) + 1   # the warps' request sets: the kernel's == the mirror's
+                order, start = k8.warp_sets([k8.request_kind(f, v) for f, v, _ in group]
+                                            + [k8.request_kind("count", None)])
+                if list(plan[4:13]) != start or list(plan[13:13 + R]) != order:
+                    raise AssertionError(f"warp sets {plan[4:13 + R]}, warp_sets: {start} "
+                                         f"{order}")
+        except AssertionError as e:
+            raise AssertionError(f"K8 {name}: {e}") from None
+        lines.append(f"K8 {name} (cap {args[5]}, G {k8.n_groups_of(args[1])}, "
+                     f"{len(args[4])} requests)")
+        del args, got, again, want
+    scratch = _build.function("dfp_filter_compact_scratch_bytes", (_build.I64, _build.I64),
+                              _build.I64)
+    for name, args in _compact_edges(rng, device):
+        cap = args[0].shape[0]
+        if scratch(cap, args[3]) != k5.compact_scratch_bytes(cap):
+            raise AssertionError(f"K5 {name}: scratch {scratch(cap, args[3])} bytes, the plan "
+                                 f"says {k5.compact_scratch_bytes(cap)}")
+        with no_launches():
+            want = k5.filter_compact_plain(*args)
+        got, again = k5.filter_compact(*args), k5.filter_compact(*args)
+        torch.cuda.synchronize()
+        try:
+            max_abs_err(got, want)
+            max_abs_err(got, again)
+        except AssertionError as e:
+            raise AssertionError(f"K5 {name}: {e}") from None
+        lines.append(f"K5 {name}: {int(got[2])} survivors")
+        del args, got, again, want
+    # cap 0 into out_cap 5: zeros and a count of 0 (filter_compact_plain
+    # cannot gather from no rows)
+    words, f64 = _random_rows(rng, 3, 1, 0, device)
+    out, out_f64, n = k5.filter_compact(torch.zeros(0, dtype=torch.bool, device=device), words,
+                                        f64, 5)
+    if int(n) != 0 or out.shape != (3, 5) or out.any() or out_f64.view(torch.int64).any():
+        raise AssertionError(f"K5 cap 0, out_cap 5: n {int(n)}, {out.tolist()}")
+    lines.append("K5 cap 0 into out_cap 5: zeros, 0 survivors")
+    log("phase 2g ok: K8 == direct_agg_plain and K5 == filter_compact_plain, the same bits "
+        "twice: " + "; ".join(lines))
 
 
 def strategy_join_variants(rng, n, device):
@@ -2398,7 +2606,9 @@ def library_call(key, args):
     fits 63 bits (packed before the timing, pack_key_plain); K5's row
     gather is index_select of the words and of the float64 sidecars (with
     the indices clamped first where any lies outside the rows, as K5
-    clips), then torch.where past `n` where it is given; K10 is index_fill_
+    clips), then torch.where past `n` where it is given; K5's compaction is
+    the boolean index words[:, mask], f64[:, mask] (the host reads the count
+    inside); K10 is index_fill_
     at the matched ids (selected inside the timing, as K10 selects them),
     K11 torch.cat of the valid prefixes, K13 a slice copy_ (the device
     counts of these two read before the timing; library_sync_call reads
@@ -2434,6 +2644,12 @@ def library_call(key, args):
             ok = torch.arange(idx.shape[0], device=idx.device) < n
             return torch.where(ok, out, 0), torch.where(ok, out_f64, 0.0)
         return gather
+    if entry == "filter_compact":
+        # a boolean index of the words and sidecars (the host reads the
+        # survivor count inside: the index must size its output); no zero
+        # tail, no out_cap
+        mask, words, f64, _ = args
+        return lambda: (words[:, mask], f64[:, mask])
     if entry in ("match_flags", "match_flags_acc"):
         # index_fill_ at the matched ids, selected inside the timing
         match, build_id, probe_idx, bcap, mcap = args[:5]
@@ -2460,6 +2676,55 @@ def library_call(key, args):
         return lambda: (acc[:, lo:lo + k].copy_(words[:, :k]),
                         acc_f64[:, lo:lo + k].copy_(f64[:, :k]))
     return None
+
+
+def partial_call(key, args):
+    """A partial yardstick, not the same function, or None: K8 is one
+    index_add_ (counts, sums) or scatter_reduce_ (min, max) a request over
+    group ids made before the timing (rows outside the filter or NULL in a
+    dump slot G)."""
+    import torch
+    if key[1] != "direct_agg":
+        return None
+    from datafusion_parallelism_tpu_torch.kernels import _agg
+    from datafusion_parallelism_tpu_torch.kernels import direct_agg as k8
+    keys, doms, num_rows, row_filter, reqs, cap = args
+    G = k8.n_groups_of(doms)
+    gid = k8._group_ids(keys, doms, num_rows, row_filter, cap)
+    prepared = []
+    for func, values, validity in reqs:
+        acc = _agg.acc_dtype(func, values)
+        g = gid if validity is None else torch.where(validity, gid, G)
+        prepared.append((func, acc, g, torch.ones_like(g) if func == "count" else values.to(acc)))
+
+    def run():
+        out = []
+        for func, acc, g, x in prepared:
+            o = torch.zeros(G + 1, dtype=acc, device=gid.device)
+            out.append(o.index_add_(0, g, x) if func in ("count", "sum") else
+                       o.scatter_reduce_(0, g, x, "amin" if func == "min" else "amax"))
+        return out
+    return run
+
+
+def agg_compact_detail(key, args, out, device) -> str:
+    """Phase 15's detail of a K8 or K5 compaction call ('' for the rest):
+    K8's cap, rows, groups, requests, staged bytes and launch plans; K5's
+    cap, words, sidecars, out_cap, survivors and tiles."""
+    from datafusion_parallelism_tpu_torch.kernels import direct_agg as k8
+    from datafusion_parallelism_tpu_torch.kernels import filter_compact as k5
+    if key[1] == "direct_agg":
+        keys, doms, num_rows, row_filter, reqs, cap = args
+        # (T, shared bytes, blocks, blocks an SM) of each launch
+        plans = [p[:4] for p in k8.launch_plans(*args)]
+        return (f", cap {cap}, num_rows {int(num_rows)}, G {k8.n_groups_of(doms)}, R "
+                f"{len(reqs) + 1}, {'a' if row_filter is not None else 'no'} row filter, "
+                f"{k8.stream_bytes(keys, reqs, row_filter)} staged bytes a row, plans {plans}")
+    if key[1] == "filter_compact":
+        mask, words, f64, out_cap = args
+        return (f", cap {mask.shape[0]}, W {words.shape[0]}, F {f64.shape[0]}, out_cap "
+                f"{out_cap}, {int(out[2])} survivors, {k5.compact_tiles(mask.shape[0])} tiles")
+    return ""
 
 
 def library_sync_call(key, args):
@@ -2576,15 +2841,21 @@ def phase_replay(device, ctx, sizes):
             got = run_call(key, kernel, args)
             err = entry_err(key[1], args, got, want)
             nbytes, ops = work(key, args, got)
-            csr_detail = k2_k3_detail(key, args, got)
+            csr_detail = k2_k3_detail(key, args, got) or agg_compact_detail(key, args, got,
+                                                                            device)
             lib = library_call(key, args)
+            partial = partial_call(key, args)
             if lib is not None and key[1] == "gather_rows":
                 max_abs_err(lib(), got)   # the yardstick computes K5's function
+            if key[1] == "filter_compact":   # ... and the survivors of its compaction
+                k = min(int(got[2]), args[3])
+                max_abs_err(tuple(t[:, :k] for t in lib()), tuple(t[:, :k] for t in got[:2]))
             del got, want
             ms = cuda_ms(kernel, *args, reps=3)
             with no_launches():
                 plain_ms = cuda_ms(plain, *args, reps=1)
             lib_ms = cuda_ms(lib, reps=3) if lib is not None else None
+            partial_ms = cuda_ms(partial, reps=3) if partial is not None else None
             sync = library_sync_call(key, args)
             sync_ms = cuda_ms(sync, reps=3) if sync is not None else None
             detail = row_copy_shape(key, args)
@@ -2597,11 +2868,12 @@ def phase_replay(device, ctx, sizes):
                 plan = k6.planned(*args)
                 detail = (f", {args[0].shape[1]} rows, {args[0].shape[0]} words, {plan.bits} "
                           f"varying bits, {plan.key_bits}-bit key, {len(plan.passes)} passes")
-            del args, lib, sync
+            del args, lib, sync, partial
             acc = per_kernel.setdefault(kernel_of(key), {
                 "err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                 "bound_ms": 0.0, "bound_all_rows_ms": 0.0, "library_ms": 0.0,
-                "library_sync_ms": None, "library_by_call": {}, "calls": []})
+                "library_sync_ms": None, "library_partial_ms": None, "library_by_call": {},
+                "calls": []})
             b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
             acc["bound_all_rows_ms"] += max(b_ms, o_ms) if acc_all is None else acc_all
             acc["err"] = max(acc["err"], err)
@@ -2614,6 +2886,8 @@ def phase_replay(device, ctx, sizes):
                                  else acc["library_ms"] + lib_ms)
             if sync_ms is not None:
                 acc["library_sync_ms"] = (acc["library_sync_ms"] or 0.0) + sync_ms
+            if partial_ms is not None:
+                acc["library_partial_ms"] = (acc["library_partial_ms"] or 0.0) + partial_ms
             where = ("(ooc)" if phase == 16 else f"({strategy})" if strategy else "")
             call = f"{key[0]}.{key[1]}@Q{q}" + where
             acc["calls"].append(call)
@@ -2624,13 +2898,16 @@ def phase_replay(device, ctx, sizes):
                          + (f"/{lib_ms:.3f}" if lib_ms is not None else "")
                          + (f" (counts read inside: {sync_ms:.3f})" if sync_ms is not None
                             else "")
+                         + (f" (partial yardstick: {partial_ms:.3f})" if partial_ms is not None
+                            else "")
                          + f" bound {max(b_ms, o_ms):.3f}")
         del rec
     log("phase 15 ok: the largest phase-14 call of every entry point, phase 16's largest "
         "K12, K13 and K10 accumulate calls and phase 17's largest K14-K16 and SORT/OA "
         "build sorts, captured by rerunning their queries, == their plain "
         "versions (K9-K17 bit for bit); ms kernel/plain[/library] (median of 3 / one run / "
-        "median of 3; K5's gather library == the kernel) and bound: " + "; ".join(lines)
+        "median of 3; K5's gather library == the kernel, its compaction's == the kernel's "
+        "survivors) and bound: " + "; ".join(lines)
         + "; bytes allocated before each rerun: " + ", ".join(held))
     return per_kernel
 
@@ -3203,6 +3480,7 @@ def main() -> int:
     phase_radix_edges(device)
     phase_row_copy_edges(device)
     phase_csr_edges(device)
+    phase_agg_compact_edges(device)
 
     wrappers = launch_counters()
     for w in wrappers.values():
@@ -3261,6 +3539,7 @@ def main() -> int:
                         **({"bound_all_rows_ms": r["bound_all_rows_ms"]}
                            if name == "filter_compact" else {}),
                         "library_sync_ms": r.get("library_sync_ms"),
+                        "library_partial_ms": r.get("library_partial_ms"),
                         "library_by_call": r.get("library_by_call", {}), "calls": r["calls"]})
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
-// Device-wide exclusive prefix sums: the three-pass scan of the compactions
-// (survivor positions), K18's counting sort and the SORT and OA probes'
-// candidate bases (K14, K16), and the single-pass look-back scan of the CSR
-// build's padding partition and the CSR probe (candidate bases).
+// Device-wide exclusive prefix sums: the three-pass scan of K4's and K7's
+// compactions (survivor positions), K18's counting sort and the SORT and
+// OA probes' candidate bases (K14, K16), and the single-pass look-back scan
+// of the CSR build's padding partition, the CSR probe (candidate bases)
+// and K5's compaction (each tile's base).
 //
 // Replaces the `jnp.cumsum` calls of the JAX package (hash_table.py:118-119,
 // :287; columnar.py:418-444's survivor count).

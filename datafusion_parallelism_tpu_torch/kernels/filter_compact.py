@@ -11,8 +11,10 @@ raise.
 
 Two entry points, each with its own launch counter:
 
-  filter_compact(mask, words, f64, out_cap)  flag scan, each survivor
-      written at its rank; rows at or past the survivor count are zeros
+  filter_compact(mask, words, f64, out_cap)  one pass over tiles of
+      COMPACT_TILE rows (a decoupled look-back gives each its base), each
+      survivor written at its rank; rows at or past the survivor count are
+      zeros
   gather_rows(words, f64, idx, n=None)       row j = source row idx[j]
       (clipped into range, as JAX's mode="clip"); with n, rows at or past
       n are zeros and read nothing; its thread layout (`gather_layout`)
@@ -37,6 +39,19 @@ Rows = Tuple[torch.Tensor, torch.Tensor]
 # csrc/filter_compact.cu's gather layouts: one thread per output row and
 # word, or per four output rows and a word
 GATHER_WORD, GATHER_WORD4 = 0, 1
+# rows a block of csrc/filter_compact.cu's compaction takes (FC_TILE)
+COMPACT_TILE = 4096
+
+
+def compact_tiles(cap: int) -> int:
+    """The tiles of COMPACT_TILE rows K5's compaction takes, a block each."""
+    return -(-cap // COMPACT_TILE)
+
+
+def compact_scratch_bytes(cap: int) -> int:
+    """K5's compaction scratch: a look-back status word a tile and the
+    tile counter (scan.cuh `lookback_scratch_bytes`), zeroed by one memset."""
+    return (compact_tiles(cap) + 1) * 8
 
 
 def gather_layout(cap: int, F: int, l2_bytes: int) -> int:

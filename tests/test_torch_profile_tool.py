@@ -123,3 +123,32 @@ def test_profile_sql_stages_cover_every_kernel_and_run_a_query():
     sql = "SELECT j, sum(x) AS s FROM a LEFT JOIN b ON k = j GROUP BY j ORDER BY j"
     assert (ctx.sql(sql, kernels=join, chain=chain).collect().to_pylist()
             == ctx.sql(sql).collect().to_pylist())
+
+
+def test_profile_sql_splits_k5_by_entry_point():
+    """tools/profile_sql.py splits K5's stage into its compaction and its
+    row gather by the names of the device kernels each entry point
+    launches; the compaction's memset is the rest of the stage."""
+    import profile_sql
+    ev = [
+        _x("user_annotation", "query", 0, 100),
+        _x("user_annotation", "stage:filter_compact", 10, 20),
+        _x("user_annotation", "stage:filter_compact", 40, 20),
+        _x("cuda_runtime", "cudaLaunchKernel", 12, 1, corr=1),
+        _x("cuda_runtime", "cudaLaunchKernel", 14, 1, corr=2),
+        _x("cuda_runtime", "cudaLaunchKernel", 15, 1, corr=4),
+        _x("cuda_runtime", "cudaLaunchKernel", 45, 1, corr=3),
+        _x("gpu_memset", "Memset (Device)", 13, 2, corr=1),
+        _x("kernel", "(anonymous namespace)::compact_kernel(unsigned char const*, long)", 16, 30,
+           corr=2),
+        _x("kernel", "void (anonymous namespace)::zero_tail_kernel(long const*, long)", 47, 3,
+           corr=4),
+        _x("kernel", "(anonymous namespace)::row_gather_kernel(int const*, int)", 50, 40, corr=3),
+    ]
+    res = profile_join.breakdown({"traceEvents": ev}, 1, profile_sql.STAGES, "query")
+    assert res["stage_ms"]["filter_compact"] == pytest.approx(0.075)
+    assert profile_sql.k5_split(res["stage_ms"]["filter_compact"], res["kernel_ms"]) == \
+        pytest.approx({"compaction": 0.033, "gather": 0.040, "other": 0.002})
+    assert profile_sql.bare_name("void (anonymous namespace)::row_gather_word4_kernel<4>(int "
+                                 "const*, long)") == "row_gather_word4_kernel"
+    assert profile_sql.bare_name("compact_scatter_kernel(int*)") == "compact_scatter_kernel"

@@ -17,6 +17,7 @@ stage holds it. Per join, it prints:
   stage_ms     device ms of K1-K4 and of the glue (device time only: K3's
                host read of the candidate total is not in it)
   top          the device kernels that took the most time
+  kernel_ms    device ms of every kernel (and copy, memset) by name
 
 The full result goes to --out as JSON. Needs a CUDA device.
 """
@@ -108,7 +109,8 @@ def breakdown(trace: dict, iters: int, stage_names=JoinKernels._fields,
             "busy_ms": statistics.median(busy),
             "busy_share": statistics.median(b / w for b, w in zip(busy, windows)),
             "stage_ms": {k: v / 1e3 / iters for k, v in stage_us.items()},
-            "top": [(name[:100], us / 1e3 / iters) for name, us in top]}
+            "top": [(name[:100], us / 1e3 / iters) for name, us in top],
+            "kernel_ms": {name: us / 1e3 / iters for name, us in kernel_us.items()}}
 
 
 def profile(run, iters: int, trace_path: str, stage_names=JoinKernels._fields,
