@@ -61,7 +61,15 @@ expression of every path is K17 expr_eval. Phases, one line each:
      by byte beside a bulk copy), 2^24 + 3 rows; K5 bit for bit at cap 0 (into out_cap
      0 and 5), out_cap 0, none and all passing, survivors past out_cap, a
      cap off its 4,096-row tile, out_cap past cap, a mask at an odd offset,
-     NaN payloads and denormals in its sidecars (2g)
+     NaN payloads and denormals in its sidecars (2g); K7 (starts, sizes,
+     the group count and integers bit for bit, float64 sums within rtol
+     1e-9, each run twice with the same bits) at n_valid 0, 1 and a tile
+     +-1, a capacity off its tile, one group over 2^24 + 3 rows, a group
+     across one tile edge, groups dropped with the last kept one ending on
+     a tile edge and at a window edge, out_cap 0 and above the group
+     count, float keys with -0.0, NaN and NULLs, a 17-column key with 33
+     requests, every input type, 4,473 valid rows in 2^25; its scratch
+     bytes == kernels/segment_agg.py's layout (2h)
   3. the `entry()` twin on the card against the same step on the CPU
   4. Size512 (4,194,304 build and probe rows): kernel path == plain path
      word for word, match count == a numpy count, rows/s of both paths
@@ -117,21 +125,24 @@ expression of every path is K17 expr_eval. Phases, one line each:
  18. (run after 13) ROADMAP queue 3's four refusals at their smallest
      inputs (a 32-branch CASE, WHEREs of 33 and 65 disjuncts, joins on 5
      keys, 34 aggregate requests, GROUP BY 17 columns) through
-     SessionContext on the card: each == the CPU session's rows and the
-     JAX package's answer
+     SessionContext on the card: each == the CPU session's rows, the same
+     rows on a second run on the card, and == the JAX package's answer
  15. (run after 17) the largest call of every kernel entry point recorded
      in phase 14, the largest K12 pack and unpack, K13 and K10 accumulate
      calls of phase 16 and the largest K14-K16 and SORT/OA build-sort
      calls of phase 17, replayed through the kernel and its
-     plain version: equal, and timed beside its bound (bytes moved at
-     3.35 TB/s; K5's gather: the rows below its count, beside the bound
-     with every row read) and, where one PyTorch call computes the same
+     plain version: equal (K7 run twice, the same bits), and timed beside
+     its bound (bytes moved at 3.35 TB/s; K5's gather: the rows below its
+     count, and K7: its inputs below n_valid and its outputs, each beside
+     the bound with every row read) and, where one PyTorch call computes the same
      function, that call (K5's gather: index_select, checked equal to the
      kernel first; K5's compaction: the boolean index words[:, mask], its
      survivors checked equal to the kernel's; K11 and K13: also with their
      device counts read inside the timing, as the kernels read them), and
      K8's partial yardstick (one index_add_ or scatter_reduce_ a request
-     over group ids made before the timing); each K6 call with its rows, words,
+     over group ids made before the timing) and K7's (unique_consecutive
+     of the key words with its counts, one segment_reduce a float
+     request); each K6 call with its rows, words,
      varying bits, key width and passes, each K11 and K13 call with its
      shapes and counts, K2's with n, T, R, its digit passes and its bound as
      counted before its outputs shared storage, K3's with m, T, total,
@@ -158,9 +169,10 @@ phase passed; the line before it lists the kernels with their launches
 (in phase 14, K12 and K13 in phase 16, K14-K16 in phase 17, K18 and K19
 in phase 19) and phase 15's (K18, K19: phase 19's) errors, times,
 bounds and library times (`library_sync_ms`: K11's and K13's with the
-counts read inside the timing; `library_partial_ms`: K8's partial
-yardstick; `library_by_call`: each call's;
-`bound_all_rows_ms`: K5's bound with every gathered row read). Without a
+counts read inside the timing; `library_partial_ms`: K8's and K7's
+partial yardsticks; `library_by_call`: each call's;
+`bound_all_rows_ms`: K5's bound with every gathered row read, K7's with
+every byte of its arguments and outputs). Without a
 CUDA device the script exits non-zero and prints no result.
 """
 
@@ -247,6 +259,7 @@ OOC_ENV = {"DFP_STREAM_ROW_THRESHOLD": str((1 << 26) // 10),
            "DFP_GRACE_RESIDENT_CEILING": str((96 << 20) // 10)}
 ROOFLINE_N = 4_194_304                # benches/roofline.py's N
 K7_ROWS = 16_777_216
+K7_FEW_ROWS = 4473                    # Q18's outer grouping at SF10 (2^25 seeded rows)
 TPCH_SF = 10
 ORACLE_WORKERS = 3                    # processes computing the numpy oracle in phase 14
 LINEITEM_CAP = 67_108_864
@@ -1212,6 +1225,121 @@ def phase_agg_compact_edges(device) -> None:
         "twice: " + "; ".join(lines))
 
 
+def _k7_edges(rng, device):
+    """(name, segment_agg's arguments) of K7's edge cases, over its tile of
+    kernels/segment_agg.py TILE_ROWS rows: sorted keys in runs of given
+    sizes, every input type with count, sum, min and max (_agg_requests)."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels.segment_agg import TILE_ROWS as tile
+    from datafusion_parallelism_tpu_torch.ops.hashing import key_words
+
+    def on(x):
+        return torch.from_numpy(x).to(device)
+
+    def runs(cap, nv, sizes):
+        """An int32 key over the first nv rows in runs of `sizes` (the last
+        run takes the rest), zeros past them."""
+        key = np.zeros(cap, np.int32)
+        ids = np.repeat(np.arange(len(sizes)), sizes)[:nv]
+        key[:len(ids)] = ids * 3 - 7
+        key[len(ids):nv] = len(sizes) * 3 - 7
+        return key
+
+    def small(nv):
+        return rng.integers(1, 6, max(nv, 1)).tolist()
+
+    def case(name, cap, nv, key_cols, out_cap, reqs=None):
+        words, cols = key_words(key_cols)
+        reqs = _agg_requests(rng, cap, device) if reqs is None else reqs
+        return (f"{name} (cap {cap}, n_valid {nv}, out_cap {out_cap}, {len(key_cols)} key "
+                f"columns, {len(reqs)} requests)",
+                (words, cols, torch.tensor(nv, dtype=torch.int32, device=device), reqs, out_cap))
+
+    def int_case(name, cap, nv, sizes, out_cap=None):
+        ones = torch.ones(cap, dtype=torch.bool, device=device)
+        return case(name, cap, nv, [(on(runs(cap, nv, sizes)), ones)],
+                    cap if out_cap is None else out_cap)
+
+    cases = [int_case("n_valid 0", 3 * tile + 5, 0, [5]),
+             int_case("n_valid 1", 3 * tile + 5, 1, [5])]
+    for d in (-1, 0, 1):
+        cases.append(int_case(f"n_valid a tile {d:+d}", 3 * tile, tile + d, small(tile + d)))
+    cap = 37 * tile + 1234
+    cases.append(int_case("a capacity not a multiple of the tile", cap, cap, small(cap)))
+    cap = (1 << 24) + 3
+    cases.append(int_case("one group over every row (the longest carry chain)", cap, cap, [cap]))
+    cases.append(int_case("a group crossing exactly one tile edge", 4 * tile, 4 * tile - 2,
+                          [tile - 7, 20] + small(3 * tile)))
+    cases.append(int_case("groups dropped, the last kept ending on a tile edge", 3 * tile,
+                          3 * tile - 5, [tile - 10, 6, 4] + small(2 * tile), out_cap=3))
+    cases.append(int_case("groups dropped at a window edge", 40 * tile, 40 * tile,
+                          [32 * tile - 3] + small(8 * tile), out_cap=1))
+    cases.append(int_case("out_cap 0", 2 * tile, 2 * tile - 3, small(2 * tile), out_cap=0))
+    cases.append(int_case("out_cap above the group count", 2 * tile, 2 * tile, [40] * 200,
+                          out_cap=300))
+    # float keys: -0.0 and 0.0 in one run, NaNs each their own group, NULLs last
+    cap = 3 * tile + 11
+    f = np.sort(rng.choice(np.array([-1.5, 0.0, 2.0, np.inf]), cap))
+    f[(f == 0) & (rng.random(cap) < 0.5)] = -0.0
+    f[-300:-100] = np.nan
+    valid = np.arange(cap) < cap - 100
+    cases.append(case("float64 and float32 keys: -0.0 == 0.0, NaN != NaN, NULL == NULL", cap,
+                      cap, [(on(f), on(valid)), (on(f.astype(np.float32)), on(valid))], cap))
+    # 17 columns, functions of the group (some NULL on some groups), 33 requests
+    cap = 2 * tile + 17
+    key = runs(cap, cap, small(cap))
+    cols = [(on(key), torch.ones(cap, dtype=torch.bool, device=device))]
+    cols += [(on((key * c % 11).astype(np.int32)), on(key % (c + 2) != 0)) for c in range(1, 17)]
+    cases.append(case("a 17-column key and 33 requests", cap, cap - 3, cols, cap,
+                      (_agg_requests(rng, cap, device) * 3)[:33]))
+    cases.append(int_case("every input type, groups of ~50", 5 * tile, 5 * tile - 1,
+                          rng.integers(1, 100, 5 * tile).tolist()))
+    cases.append(int_case(f"{K7_FEW_ROWS} valid rows in a capacity of 2^25", 1 << 25, K7_FEW_ROWS,
+                          rng.integers(1, 14, K7_FEW_ROWS).tolist()))
+    return cases
+
+
+def k7_close(got, want, reqs) -> None:
+    """K7's (starts, sizes, results, n_groups) against the plain ones:
+    starts, sizes and the group count bit for bit, the results as
+    k8_close compares them."""
+    max_abs_err((got[0], got[3]), (want[0], want[3]))
+    k8_close(got[1:3], want[1:3], reqs)
+
+
+def phase_segment_agg_edges(device) -> None:
+    """K7 against segment_agg_plain on seeded edge cases (_k7_edges), each
+    run twice with the same bits both times: starts, sizes, the group count
+    and integer results bit for bit, float64 sums within rtol 1e-9
+    (k7_close); the kernel's scratch bytes == kernels/segment_agg.py's
+    scratch_layout."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import _agg, _build
+    from datafusion_parallelism_tpu_torch.kernels import segment_agg as k7
+    rng = np.random.default_rng(712)
+    scratch = _build.function("dfp_segment_agg_scratch_bytes", (_build.I64, _build.I32),
+                              _build.I64)
+    lines = []
+    for name, args in _k7_edges(rng, device):
+        n = args[0].shape[1]
+        for group in _agg.request_groups(args[3]):
+            if scratch(n, len(group)) != k7.scratch_layout(n, len(group))[1]:
+                raise AssertionError(f"K7 {name}: scratch {scratch(n, len(group))} bytes, the "
+                                     f"plan says {k7.scratch_layout(n, len(group))[1]}")
+        with no_launches():
+            want = k7.segment_agg_plain(*args)
+        got, again = k7.segment_agg(*args), k7.segment_agg(*args)
+        torch.cuda.synchronize()
+        try:
+            k7_close(got, want, args[3])
+            max_abs_err(got, again)
+        except AssertionError as e:
+            raise AssertionError(f"K7 {name}: {e}") from None
+        lines.append(f"{name}: {int(got[3])} groups")
+        del args, got, again, want
+    log("phase 2h ok: K7 == segment_agg_plain, the same bits twice: " + "; ".join(lines))
+
+
 def strategy_join_variants(rng, n, device):
     """Joins under SORT and OA, every stage run through the kernel and its
     plain version (Checked), equal to the plain path word for word."""
@@ -1765,9 +1893,10 @@ def entry_err(entry: str, args, got, want) -> float:
 
 
 def check_calls(record, reps: int = 3, timed: bool = True):
-    """Each recorded call run through the kernel and its plain version:
-    {kernel name: [max error, kernel ms, plain ms]} (times summed over the
-    calls, CUDA events, median of `reps`)."""
+    """Each recorded call run through the kernel and its plain version (K7
+    twice, the same bits both times): {kernel name: [max error, kernel ms,
+    plain ms]} (times summed over the calls, CUDA events, median of
+    `reps`)."""
     from datafusion_parallelism_tpu_torch.kernels.chain import KERNEL_OF, KERNELS, PLAIN
     out = {}
     for entry, calls in record.items():
@@ -1776,7 +1905,11 @@ def check_calls(record, reps: int = 3, timed: bool = True):
         kernel, plain = getattr(KERNELS, entry), getattr(PLAIN, entry)
         acc = out.setdefault(KERNEL_OF[entry], [0.0, 0.0, 0.0])
         for args in calls:
-            acc[0] = max(acc[0], entry_err(entry, args, kernel(*args), plain(*args)))
+            got = kernel(*args)
+            acc[0] = max(acc[0], entry_err(entry, args, got, plain(*args)))
+            if entry == "segment_agg":   # float64 sums: the same bits every run
+                max_abs_err(got, kernel(*args))
+            del got
             if timed:
                 acc[1] += cuda_ms(kernel, *args, reps=reps)
                 acc[2] += cuda_ms(plain, *args, reps=reps)
@@ -1987,8 +2120,11 @@ def phase_agg_kernels_vs_plain(device):
                            rng.integers(0, 1 << 20, n).astype(np.int32)).to(device))[0])):
         words, cols = key_words([(key, ones)])
         args = (words, cols, n_valid, reqs, n)
+        got = k7.segment_agg(*args)
         errs["segment_agg"][0] = max(errs["segment_agg"][0], entry_err(
-            "segment_agg", args, k7.segment_agg(*args), k7.segment_agg_plain(*args)))
+            "segment_agg", args, got, k7.segment_agg_plain(*args)))
+        max_abs_err(got, k7.segment_agg(*args))
+        del got
         k7_ms[label] = cuda_ms(k7.segment_agg, *args, reps=5)
     ratio = k7_ms["one group"] / k7_ms["uniform keys"]
     if ratio > 3:
@@ -2577,6 +2713,8 @@ def work(key, args, out):
         return 2 * k * _row_bytes(words, f64) + 12, 0
     elif entry == "match_flags":
         reads = _bytes(args[:3])
+    elif entry == "segment_agg":
+        return k7_work(*args), 0
     else:
         reads = _bytes(args)
     ops = 0
@@ -2584,6 +2722,22 @@ def work(key, args, out):
         keys, doms, _, _, reqs, cap = args
         ops = cap * int(np.prod(doms)) * len(reqs)
     return reads + _bytes(out), ops
+
+
+def k7_work(words, cols, n_valid, reqs, out_cap) -> int:
+    """The bytes a K7 call must move: each word row the key's columns name
+    (values and validity) and each distinct request input (values, except
+    for a count, and validity) read once below n_valid; starts, sizes, one
+    accumulator row a request and the group count written whole."""
+    n = words.shape[1]
+    k = max(0, min(int(n_valid), n))
+    rows = {r for _, rs, (vrow, _) in cols for r in (*rs, vrow)}
+    inputs = {}
+    for func, values, validity in reqs:
+        for t in ((values,) if func != "count" else ()) + ((validity,) if validity is not None
+                                                           else ()):
+            inputs[(t.data_ptr(), t.element_size())] = t.element_size()
+    return 4 * k * len(rows) + k * sum(inputs.values()) + out_cap * (4 + 8 + 8 * len(reqs)) + 8
 
 
 def gather_work(args, counted: bool = True) -> int:
@@ -2682,8 +2836,22 @@ def partial_call(key, args):
     """A partial yardstick, not the same function, or None: K8 is one
     index_add_ (counts, sums) or scatter_reduce_ (min, max) a request over
     group ids made before the timing (rows outside the filter or NULL in a
-    dump slot G)."""
+    dump slot G); K7 is torch.unique_consecutive of the key's word columns
+    below n_valid (read before the timing) with their counts, then one
+    torch.segment_reduce a request whose input is floating (its only
+    types), validity ignored."""
     import torch
+    if key[1] == "segment_agg":
+        words, _, n_valid, reqs, _ = args
+        k = int(n_valid)
+        kw = words[:, :k]
+        floats = [(func, values[:k]) for func, values, _ in reqs
+                  if func != "count" and values.is_floating_point()]
+
+        def segments():
+            counts = torch.unique_consecutive(kw, dim=1, return_counts=True)[1]
+            return [torch.segment_reduce(v, func, lengths=counts) for func, v in floats]
+        return segments
     if key[1] != "direct_agg":
         return None
     from datafusion_parallelism_tpu_torch.kernels import _agg
@@ -2778,6 +2946,17 @@ def k5_k17_detail(key, args, device):
             f"{'mask' if mask is not None else 'values'}, tile {tile}"), None
 
 
+def k7_detail(args, out_bytes: int):
+    """(phase 15's detail, the bound in ms with every byte of the arguments
+    and outputs moved, as counted before) of a K7 call: its capacity, key
+    word rows and columns, valid rows, out_cap and requests."""
+    words, cols, n_valid, reqs, out_cap = args
+    all_rows = (_bytes(args) + out_bytes) / HBM_BYTES_PER_S * 1e3
+    return (f", cap {words.shape[1]}, {words.shape[0]} key words in {len(cols)} columns, "
+            f"n_valid {int(n_valid)}, out_cap {out_cap}, {len(reqs)} requests, bound with "
+            f"every row read {all_rows:.3f}"), all_rows
+
+
 def row_copy_shape(key, args) -> str:
     """K11's and K13's shapes, for the phase-15 line ('' for the rest)."""
     if key[1] == "concat_rows":
@@ -2840,7 +3019,10 @@ def phase_replay(device, ctx, sizes):
                 want = run_call(key, plain, args)
             got = run_call(key, kernel, args)
             err = entry_err(key[1], args, got, want)
+            if key[1] == "segment_agg":   # float64 sums: the same bits every run
+                max_abs_err(got, run_call(key, kernel, args))
             nbytes, ops = work(key, args, got)
+            out_bytes = _bytes(got)
             csr_detail = k2_k3_detail(key, args, got) or agg_compact_detail(key, args, got,
                                                                             device)
             lib = library_call(key, args)
@@ -2862,6 +3044,8 @@ def phase_replay(device, ctx, sizes):
             acc_all = None
             if key[1] in ("gather_rows", "expr_eval"):
                 detail, acc_all = k5_k17_detail(key, args, device)
+            if key[1] == "segment_agg":
+                detail, acc_all = k7_detail(args, out_bytes)
             if csr_detail:
                 detail = csr_detail
             if key[1] in K6_ENTRIES:
@@ -3104,7 +3288,8 @@ def phase_strategies(run, oracle):
 def phase_queue3(device):
     """ROADMAP queue 3's four refusals at their smallest inputs through
     SessionContext on the card: each result == the CPU session's (the
-    plain versions) and == the JAX package's answer (QUEUE3_JAX)."""
+    plain versions), the same on a second run on the card, and == the JAX
+    package's answer (QUEUE3_JAX)."""
     from datafusion_parallelism_tpu_torch import SessionContext
     lines = []
     for name, (tables, sql, what) in queue3_cases().items():
@@ -3118,15 +3303,19 @@ def phase_queue3(device):
             if dev == device:
                 after = kernel_launches()
                 launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+                again = ctx.sql(sql).collect().to_pylist()
         got, want = rows[str(device)], rows["cpu"]
         if sorted(map(repr, got)) != sorted(map(repr, want)):
             raise AssertionError(f"{name}: the card's rows differ from the CPU's")
+        if repr(again) != repr(got):   # float64 sums: the same bits every run
+            raise AssertionError(f"{name}: the card's rows differ between two runs")
         answer = queue3_answer(got, what)
         if answer != QUEUE3_JAX[name]:
             raise AssertionError(f"{name}: {answer}, the JAX package {QUEUE3_JAX[name]}")
         lines.append(f"{name} {answer} (launches {launched})")
     log("phase 18 ok: ROADMAP queue 3's refusals at their smallest inputs on the card, each "
-        "== the CPU session's rows and the JAX package's answer: " + "; ".join(lines))
+        "== the CPU session's rows (the card's twice) and the JAX package's answer: "
+        + "; ".join(lines))
 
 
 DIST_P = 8                            # partitions of phase 19's in-process mesh
@@ -3481,6 +3670,7 @@ def main() -> int:
     phase_row_copy_edges(device)
     phase_csr_edges(device)
     phase_agg_compact_edges(device)
+    phase_segment_agg_edges(device)
 
     wrappers = launch_counters()
     for w in wrappers.values():
@@ -3537,7 +3727,7 @@ def main() -> int:
                         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
                         "library_ms": r["library_ms"],
                         **({"bound_all_rows_ms": r["bound_all_rows_ms"]}
-                           if name == "filter_compact" else {}),
+                           if name in ("filter_compact", "segment_agg") else {}),
                         "library_sync_ms": r.get("library_sync_ms"),
                         "library_partial_ms": r.get("library_partial_ms"),
                         "library_by_call": r.get("library_by_call", {}), "calls": r["calls"]})

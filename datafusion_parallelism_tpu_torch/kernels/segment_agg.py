@@ -5,10 +5,12 @@ Replaces the sorted path of the JAX package's `hash_aggregate_counted`
 (ops/aggregate.py:338-432: value-compare boundary flags with NULL == NULL,
 `compaction_indices` of the boundaries, SUM/COUNT/AVG as prefix-sum
 differences, MIN/MAX as a sorted scatter). The CUDA kernel is
-`csrc/segment_agg.cu`, whose header says what bounds it on the H100 and how
-its reduction stays independent of group sizes; the plain version below is
-the same function in torch ops. On CPU tensors the wrapper runs the plain
-version; on CUDA tensors it launches the kernel or raises.
+`csrc/segment_agg.cu`: one pass by decoupled look-back over tiles of
+TILE_ROWS rows, whose work follows the rows below n_valid, then a zero
+tail; its header says what bounds it on the H100 and how float64 sums keep
+their bits from run to run. The plain version below is the same function
+in torch ops. On CPU tensors the wrapper runs the plain version; on CUDA
+tensors it launches the kernel or raises.
 
 The group key comes as K1 reads one (kernels/hash_slot.py): an int32 word
 matrix and, per key column, its kind (ops.hashing's KIND_*), word rows and
@@ -26,10 +28,31 @@ import torch
 
 from ..ops.hashing import KIND_F32, KIND_F64, KIND_I32
 from . import _agg, _build
-from .hash_slot import KeyCol, col_groups
+from .hash_slot import MAX_KEY_COLUMNS, KeyCol, col_groups
 from .hash_slot import _spec as key_spec
 
 Result = Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], torch.Tensor]
+
+# csrc/segment_agg.cu's pass: rows a tile (SA_TILE), tiles a window whose
+# values fold in a fixed order (SA_WINDOW), key specs of 16 columns a
+# launch (MAX_SPECS)
+TILE_ROWS = 4096
+WINDOW = 32
+MAX_KEY_SPECS = 8
+
+
+def scratch_layout(n: int, n_aggs: int) -> Tuple[int, int]:
+    """(bytes zeroed by the launch's memset, scratch bytes) of a launch over
+    n rows and n_aggs requests: the group counts' look-back status words and
+    the tile counter (scan.cuh), a value state word a tile, then the tiles'
+    published values and each window's inclusive values, one slot a request
+    and one for the segment starts, each part from a 256-byte boundary."""
+    def align(b):
+        return -(-b // 256) * 256
+    tiles = -(-n // TILE_ROWS)
+    windows = -(-tiles // WINDOW)
+    zeroed = (tiles + 1) * 8 + tiles * 4
+    return zeroed, align(zeroed) + align((n_aggs + 1) * tiles * 8) + align((n_aggs + 1) * windows * 8)
 
 
 def _key_values(words: torch.Tensor, kind: int, rows) -> torch.Tensor:
@@ -89,21 +112,40 @@ def segment_agg_plain(words: torch.Tensor, cols: Sequence[KeyCol], n_valid: torc
     return starts, sizes, results, n_groups
 
 
+def check_args(words: torch.Tensor, cols: Sequence[KeyCol], n_valid: torch.Tensor,
+               out_cap: int):
+    """The wrapper's host-side checks of the key and the sizes: words a
+    contiguous int32 [R, n], n_valid an int32 0-dim count on its device,
+    0 <= out_cap < 2^31, every key column inside the matrix and at most
+    MAX_KEY_SPECS runs of 16 key columns; raises as `_build.require` does.
+    Returns the key specs, one a run (kernels/hash_slot.py `_spec`)."""
+    if words.dim() != 2:
+        raise ValueError(f"words: expected [R, n], got {tuple(words.shape)}")
+    if words.dtype != torch.int32:
+        raise TypeError(f"words: dtype {words.dtype}, expected torch.int32")
+    if not words.is_contiguous():
+        raise ValueError("words: must be contiguous")
+    if n_valid.dtype != torch.int32 or n_valid.dim() != 0 or n_valid.device != words.device:
+        raise ValueError(f"n_valid: expected an int32 0-dim count on {words.device}, got "
+                         f"{n_valid.dtype} {tuple(n_valid.shape)} on {n_valid.device}")
+    if not 0 <= out_cap < 2**31:
+        raise ValueError(f"out_cap {out_cap} out of range")
+    groups = col_groups(cols)
+    if len(groups) > MAX_KEY_SPECS:
+        raise ValueError(f"{len(cols)} key columns; K7 takes at most "
+                         f"{MAX_KEY_SPECS * MAX_KEY_COLUMNS}")
+    return [key_spec(g, words.shape[0]) for g in groups]
+
+
 def segment_agg(words: torch.Tensor, cols: Sequence[KeyCol], n_valid: torch.Tensor,
                 reqs: Sequence[_agg.Request], out_cap: int) -> Result:
     """segment_agg_plain's contract; launches K7 for CUDA tensors: once per
-    run of at most 32 requests (_agg.request_groups), each over the key's
-    columns 16 at a time (their boundaries ORed)."""
+    run of at most 32 requests (_agg.request_groups), each over the whole
+    key (its columns 16 at a time, folded in the kernel)."""
     if not words.is_cuda:
         return segment_agg_plain(words, cols, n_valid, reqs, out_cap)
-    if words.dim() != 2:
-        raise ValueError(f"words: expected [R, n], got {tuple(words.shape)}")
-    _build.require(words, "words", torch.int32)
+    specs = check_args(words, cols, n_valid, out_cap)
     dev, n = words.device, words.shape[1]
-    _build.require(n_valid, "n_valid", torch.int32, (), dev)
-    if not 0 <= out_cap < 2**31:
-        raise ValueError(f"out_cap {out_cap} out of range")
-    specs = [key_spec(g, words.shape[0]) for g in col_groups(cols)]
     keys = (ctypes.c_int * sum(len(s) for s in specs))(*[x for s in specs for x in s])
     scratch_bytes = _build.function("dfp_segment_agg_scratch_bytes",
                                     (_build.I64, _build.I32), _build.I64)

@@ -147,8 +147,37 @@ def test_profile_sql_splits_k5_by_entry_point():
     ]
     res = profile_join.breakdown({"traceEvents": ev}, 1, profile_sql.STAGES, "query")
     assert res["stage_ms"]["filter_compact"] == pytest.approx(0.075)
-    assert profile_sql.k5_split(res["stage_ms"]["filter_compact"], res["kernel_ms"]) == \
+    assert profile_sql.stage_split("filter_compact", res["stage_ms"]["filter_compact"],
+                                   res["kernel_ms"]) == \
         pytest.approx({"compaction": 0.033, "gather": 0.040, "other": 0.002})
     assert profile_sql.bare_name("void (anonymous namespace)::row_gather_word4_kernel<4>(int "
                                  "const*, long)") == "row_gather_word4_kernel"
     assert profile_sql.bare_name("compact_scatter_kernel(int*)") == "compact_scatter_kernel"
+
+
+def test_profile_sql_splits_k7_into_its_pass_and_zero_tail():
+    """tools/profile_sql.py splits K7's stage into its one pass and its zero
+    tail by their kernels' names (K5's zero tail, of another name, stays
+    out); the status memset is the rest of the stage."""
+    import profile_sql
+    ev = [
+        _x("user_annotation", "query", 0, 100),
+        _x("user_annotation", "stage:segment_agg", 10, 60),
+        _x("user_annotation", "stage:filter_compact", 80, 10),
+        _x("cuda_runtime", "cudaLaunchKernel", 12, 1, corr=1),
+        _x("cuda_runtime", "cudaLaunchKernel", 14, 1, corr=2),
+        _x("cuda_runtime", "cudaLaunchKernel", 15, 1, corr=3),
+        _x("cuda_runtime", "cudaLaunchKernel", 82, 1, corr=4),
+        _x("gpu_memset", "Memset (Device)", 13, 1, corr=1),
+        _x("kernel", "(anonymous namespace)::seg_pass_kernel((anonymous namespace)::KeySpecs, "
+           "dfp::(anonymous namespace)::AggSpec, (anonymous namespace)::Pass)", 16, 20, corr=2),
+        _x("kernel", "(anonymous namespace)::seg_zero_tail_kernel(long long const*, long long)",
+           40, 9, corr=3),
+        _x("kernel", "void (anonymous namespace)::zero_tail_kernel(long const*, long)", 85, 3,
+           corr=4),
+    ]
+    res = profile_join.breakdown({"traceEvents": ev}, 1, profile_sql.STAGES, "query")
+    assert res["stage_ms"]["segment_agg"] == pytest.approx(0.030)
+    assert profile_sql.stage_split("segment_agg", res["stage_ms"]["segment_agg"],
+                                   res["kernel_ms"]) == \
+        pytest.approx({"pass": 0.020, "zero tail": 0.009, "other": 0.001})

@@ -14,8 +14,9 @@ launched it, or to the plain torch glue (masks, row bounds, the capacity
 checks) when no wrapper did. Per query it prints, as
 `tools/profile_join.py` does for the join: the window from collect()'s
 start to its last device work, the device busy time and share, and device
-ms per kernel and of the glue, and K5's stage split by its kernels' names
-into its compaction and its row gather; then the sums over the queries.
+ms per kernel and of the glue, K5's stage split by its kernels' names
+into its compaction and its row gather, and K7's into its pass and its
+zero tail; then the sums over the queries.
 The full result goes to --out as JSON. Needs a CUDA device.
 """
 
@@ -48,9 +49,12 @@ from datafusion_parallelism_tpu_torch.tpch import QUERIES  # noqa: E402
 STAGES = tuple(k for k in chip_smoke.KERNEL_INFO if k not in chip_smoke.DIST_KERNELS)
 
 
-# K5's device kernels by entry point (csrc/filter_compact.cu)
-K5_KERNELS = {"compaction": ("compact_kernel", "zero_tail_kernel"),
-              "gather": ("row_gather_kernel", "row_gather_word4_kernel")}
+# the stages split by the names of their device kernels: K5's by entry
+# point (csrc/filter_compact.cu), K7's into its pass and its zero tail
+# (csrc/segment_agg.cu)
+SPLITS = {"filter_compact": {"compaction": ("compact_kernel", "zero_tail_kernel"),
+                             "gather": ("row_gather_kernel", "row_gather_word4_kernel")},
+          "segment_agg": {"pass": ("seg_pass_kernel",), "zero tail": ("seg_zero_tail_kernel",)}}
 
 
 def bare_name(name: str) -> str:
@@ -61,13 +65,12 @@ def bare_name(name: str) -> str:
     return m.group(1) if m else name
 
 
-def k5_split(stage_ms: float, kernel_ms: dict) -> dict:
-    """K5's stage (`stage_ms`, device ms) as the device ms of its compaction
-    kernels and of its row gather kernels, read from the device ms by
-    kernel name (kernel_ms); `other` is the rest of the stage (the
-    compaction's memsets)."""
+def stage_split(stage: str, stage_ms: float, kernel_ms: dict) -> dict:
+    """A stage of SPLITS (`stage_ms`, device ms) as the device ms of each of
+    its parts' kernels, read from the device ms by kernel name (kernel_ms);
+    `other` is the rest of the stage (memsets)."""
     split = {part: sum(ms for name, ms in kernel_ms.items() if bare_name(name) in names)
-             for part, names in K5_KERNELS.items()}
+             for part, names in SPLITS[stage].items()}
     split["other"] = stage_ms - sum(split.values())
     return split
 
@@ -109,30 +112,35 @@ def main() -> int:
     join, chain = staged()
     result = {"card": smi, "sf": chip_smoke.TPCH_SF, "queries": {}}
     total = {k: 0.0 for k in ("window_ms", "busy_ms")}
-    stage_total, k5_total = {}, {}
+    stage_total = {}
+    split_total = {stage: {} for stage in SPLITS}
     for q in args.query or sorted(QUERIES):
         handle = ctx.sql(QUERIES[q], kernels=join, chain=chain)
         handle.collect()   # settles the capacities
         res = profile_join.profile(handle.collect, 3, trace_path, STAGES, "query")
-        res["k5_split"] = k5_split(res["stage_ms"]["filter_compact"], res.pop("kernel_ms"))
+        kernel_ms = res.pop("kernel_ms")
+        res["splits"] = {stage: stage_split(stage, res["stage_ms"][stage], kernel_ms)
+                         for stage in SPLITS}
         result["queries"][q] = res
         profile_join.report(f"Q{q}", res, "query")
-        print("  K5: " + ", ".join(f"{k} {v:.3f}" for k, v in res["k5_split"].items()) + " ms",
-              flush=True)
+        for stage, split in res["splits"].items():
+            print(f"  {stage}: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + " ms",
+                  flush=True)
+            for k, v in split.items():
+                split_total[stage][k] = split_total[stage].get(k, 0.0) + v
         for k in total:
             total[k] += res[k]
         for k, v in res["stage_ms"].items():
             stage_total[k] = stage_total.get(k, 0.0) + v
-        for k, v in res["k5_split"].items():
-            k5_total[k] = k5_total.get(k, 0.0) + v
     os.remove(trace_path)
     result["sum"] = {**total, "busy_share": total["busy_ms"] / total["window_ms"],
-                     "stage_ms": stage_total, "k5_split": k5_total}
+                     "stage_ms": stage_total, "splits": split_total}
     print(f"sum over {len(result['queries'])} queries: window {total['window_ms']:.3f} ms, "
           f"device busy {total['busy_ms']:.3f} ms, busy share "
           f"{result['sum']['busy_share']:.3f}; device ms by stage: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stage_total.items())
-          + "; K5: " + ", ".join(f"{k} {v:.3f}" for k, v in k5_total.items()), flush=True)
+          + "".join(f"; {stage}: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                    for stage, split in split_total.items()), flush=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     return 0
