@@ -480,7 +480,7 @@ __device__ __forceinline__ void slot_carry(const Pass& p, TileSmem& sm, int a, i
     default: CALL(OP_FIRST); break;                            \
   }
 
-template <class D>
+template <class D, int SKIP = 0>
 __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs keys,
                                                                        AggSpec spec, Pass p) {
   constexpr int THREADS = D::THREADS, ITEMS = D::ITEMS;
@@ -516,7 +516,11 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
   const i64 i0 = first + (i64)tid * ITEMS;
   uint32_t fl = 0;
   if (i0 < nv) {
-    for (int k = 0; k < keys.n; ++k) fl |= key_diff<ITEMS>(p.words, p.n, sk[k], i0);
+    if constexpr ((SKIP & 8) != 0) {
+      fl = 0x11111u & ((1u << (ITEMS + 1)) - 1u);
+    } else {
+      for (int k = 0; k < keys.n; ++k) fl |= key_diff<ITEMS>(p.words, p.n, sk[k], i0);
+    }
     if (i0 == 0) fl |= 1u;
     const i64 in = nv - i0;  // rows of bits 0..ITEMS below n_valid
     if (in <= ITEMS) fl &= (1u << in) - 1u;
@@ -524,7 +528,9 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
   const int cnt = __popc(fl & ((1u << ITEMS) - 1u));
   i64 tile_cnt;
   const i64 excl = dfp::block_exclusive_scan(cnt, cscan, &tile_cnt);
-  const i64 prefix = dfp::lookback_prefix(p.cstatus, tile, tile_cnt, &prefix_sh);
+  i64 prefix;
+  if constexpr ((SKIP & 2) != 0) prefix = tile * (D::TILE / 4);
+  else prefix = dfp::lookback_prefix(p.cstatus, tile, tile_cnt, &prefix_sh);
   if (tid == 0 && nv <= first + D::TILE) *p.n_groups = prefix + tile_cnt;
   const i64 gbase = prefix + excl;
   // the kept boundaries (group < out_cap): those that open sum-type segments
@@ -543,10 +549,12 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
     }
   }
 
-  for (int a = 0; a <= A; ++a) {
+  if constexpr ((SKIP & 4) == 0) {
+    for (int a = 0; a <= A; ++a) {
 #define SA_PASS(OPC) slot_pass<OPC, D>(p, sa, sm, a, i0, nv, fl, fs, gbase)
-    SA_FOR_OP(slot_op(sa, a), SA_PASS)
+      SA_FOR_OP(slot_op(sa, a), SA_PASS)
 #undef SA_PASS
+    }
   }
   __syncthreads();
 
@@ -564,14 +572,14 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
     const i64 base = tile / SA_WINDOW * SA_WINDOW;
     const int m = (int)(tile - base);
     uint32_t st = 0;
-    if (tid < m) {
+    if (tid < m && (SKIP & 1) == 0) {
       do {
         st = vs[base + tid];
       } while ((st & VS_AGG) == 0u);
     }
     const unsigned fm = __ballot_sync(0xffffffffu, (st & VS_FLAG) != 0u);
     const unsigned sm_mask = __ballot_sync(0xffffffffu, (st & VS_FLAG_S) != 0u);
-    if (base > 0 && sm_mask == 0u) {  // the window before's inclusive values are needed
+    if (base > 0 && sm_mask == 0u && (SKIP & 1) == 0) {  // the window before's inclusive values are needed
       if (tid == 0) {
         while ((vs[base - 1] & VS_INC) == 0u) {
         }
@@ -580,6 +588,10 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
     }
     __threadfence();
     for (int a = 0; a <= A; ++a) {
+      if constexpr ((SKIP & 1) != 0) {
+        if (tid == 0) sm.carry[a] = 0;
+        continue;
+      }
 #define SA_CARRY(OPC) slot_carry<OPC>(p, sm, a, base, m, fm, sm_mask)
       SA_FOR_OP(slot_op(sa, a), SA_CARRY)
 #undef SA_CARRY
@@ -651,9 +663,14 @@ using Design3 = Design<256, 8, 3>;
 using Design4 = Design<256, 16, 2>;
 using Design5 = Design<128, 16, 4>;
 using Design6 = Design<128, 8, 4>;
-constexpr int N_DESIGNS = 7;
+using Design7 = Design<512, 16, 1>;
+// designs 8-11: design 1 with parts left out, to time them (wrong results):
+// 8 the carries' look-back, 9 also the group counts', 10 also the
+// requests' passes, 11 also the key reads
+constexpr int N_DESIGNS = 12;
 const int DESIGN_TILE[N_DESIGNS] = {Design0::TILE, Design1::TILE, Design2::TILE, Design3::TILE,
-                                    Design4::TILE, Design5::TILE, Design6::TILE};
+                                    Design4::TILE, Design5::TILE, Design6::TILE, Design7::TILE,
+                                    Design1::TILE, Design1::TILE, Design1::TILE, Design1::TILE};
 int g_design = 0;
 
 struct Layout {
@@ -676,10 +693,10 @@ Layout layout(i64 n, int n_aggs) {
   return l;
 }
 
-template <class D>
+template <class D, int SKIP = 0>
 void launch_pass(i64 tiles, const KeySpecs& ks, const AggSpec& spec, const Pass& p,
                  cudaStream_t st) {
-  seg_pass_kernel<D><<<(unsigned)tiles, D::THREADS, 0, st>>>(ks, spec, p);
+  seg_pass_kernel<D, SKIP><<<(unsigned)tiles, D::THREADS, 0, st>>>(ks, spec, p);
 }
 
 }  // namespace
@@ -747,6 +764,11 @@ extern "C" int dfp_segment_agg(const void* words, long long n, const int* keys, 
       case 4: launch_pass<Design4>(l.tiles, ks, *spec, p, st); break;
       case 5: launch_pass<Design5>(l.tiles, ks, *spec, p, st); break;
       case 6: launch_pass<Design6>(l.tiles, ks, *spec, p, st); break;
+      case 7: launch_pass<Design7>(l.tiles, ks, *spec, p, st); break;
+      case 8: launch_pass<Design1, 1>(l.tiles, ks, *spec, p, st); break;
+      case 9: launch_pass<Design1, 3>(l.tiles, ks, *spec, p, st); break;
+      case 10: launch_pass<Design1, 7>(l.tiles, ks, *spec, p, st); break;
+      case 11: launch_pass<Design1, 15>(l.tiles, ks, *spec, p, st); break;
       default: launch_pass<Design0>(l.tiles, ks, *spec, p, st); break;
     }
   }
