@@ -141,7 +141,10 @@ def k7_cell(torch, args, explore: bool) -> dict:
             "library_partial_ms": cuda_ms(sm.partial_call(ENTRY, args))}
     if explore:
         from profile_csr_call import launch_split
-        cell["launches"] = launch_split(torch, k7.segment_agg, args)
+        try:
+            cell["launches"] = launch_split(torch, k7.segment_agg, args)
+        except RuntimeError:   # a profiled call that lost activities: once more
+            cell["launches"] = launch_split(torch, k7.segment_agg, args)
     return cell
 
 
