@@ -375,6 +375,7 @@ __device__ __forceinline__ void block_seg_scan(int f, long long v, ScanSmem& sm,
 
 struct TileSmem {
   ScanSmem scan;
+  ScanSmem scan2[2];             // the v2 passes' scans, one a slot in turn
   long long tile_v[SA_SLOTS];    // the tile's value after its last boundary, a slot
   int tile_f[SA_SLOTS];          // ... and whether it has a boundary
   long long head_v[SA_SLOTS];    // the group that entered the tile: its value in the tile,
@@ -452,6 +453,170 @@ __device__ __forceinline__ void slot_pass(const Pass& p, const AggSpec& s, TileS
   }
 }
 
+// Request a's raw value of each of the thread's rows as its accumulator
+// bits (the row index for the segment starts), and a bit a row where it
+// counts (valid and below n_valid); not yet the identity where it does not.
+template <int ITEMS>
+__device__ __forceinline__ void load_raw(const AggSpec& s, int a, i64 i0, int cnt,
+                                         long long (&v)[ITEMS], uint32_t& ok) {
+  const uint32_t in = cnt >= 32 ? ~0u : (1u << cnt) - 1u;
+  if (a == s.n) {
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) v[k] = i0 + k;
+    ok = in;
+    return;
+  }
+  ok = in;
+  if (s.valid[a] != nullptr) {
+    uint8_t m[ITEMS];
+    load_run<ITEMS>((const uint8_t*)s.valid[a], i0, cnt, m);
+    uint32_t bits = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) bits |= (m[k] ? 1u : 0u) << k;
+    ok &= bits;
+  }
+  if (s.func[a] == 0) {  // count: an int64 sum of 0/1
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) v[k] = 1;
+    return;
+  }
+  const void* p = s.vals[a];
+  switch (s.in_type[a]) {
+    case 0: {
+      int32_t x[ITEMS];
+      load_run<ITEMS>((const int32_t*)p, i0, cnt, x);
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) v[k] = (long long)x[k];
+      break;
+    }
+    case 2: {
+      float x[ITEMS];
+      load_run<ITEMS>((const float*)p, i0, cnt, x);
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) v[k] = dfp::dbits((double)x[k]);
+      break;
+    }
+    case 4: {
+      uint8_t x[ITEMS];
+      load_run<ITEMS>((const uint8_t*)p, i0, cnt, x);
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) v[k] = (long long)x[k];
+      break;
+    }
+    default: {  // int64, and float64 bits as they are
+      long long x[ITEMS];
+      load_run<ITEMS>((const long long*)p, i0, cnt, x);
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) v[k] = x[k];
+      break;
+    }
+  }
+}
+
+// block_seg_scan without its closing barrier: successive scans alternate
+// between two ScanSmem, and the two barriers of the next scan order this
+// one's reads before a later scan's writes to the same buffer.
+template <int OP, int THREADS>
+__device__ __forceinline__ void block_seg_scan2(int f, long long v, ScanSmem& sm, int& ef,
+                                                long long& ev, int& tf, long long& tv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int NW = THREADS / 32;
+  warp_seg_scan<OP>(f, v);
+  int lf = __shfl_up_sync(0xffffffffu, f, 1);
+  long long lv = __shfl_up_sync(0xffffffffu, v, 1);
+  if (lane == 0) {
+    lf = 0;
+    lv = ident<OP>();
+  }
+  if (lane == 31) {
+    sm.f[warp] = f;
+    sm.v[warp] = v;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int wf = lane < NW ? sm.f[lane] : 0;
+    long long wv = lane < NW ? sm.v[lane] : ident<OP>();
+    warp_seg_scan<OP>(wf, wv);
+    int xf = __shfl_up_sync(0xffffffffu, wf, 1);
+    long long xv = __shfl_up_sync(0xffffffffu, wv, 1);
+    if (lane == 0) {
+      xf = 0;
+      xv = ident<OP>();
+    }
+    if (lane < NW) {
+      sm.f[lane] = xf;
+      sm.v[lane] = xv;
+    }
+    if (lane == NW - 1) {
+      sm.f[32] = wf;
+      sm.v[32] = wv;
+    }
+  }
+  __syncthreads();
+  const int pf = sm.f[warp];
+  const long long pv = sm.v[warp];
+  tf = sm.f[32];
+  tv = sm.v[32];
+  ef = lf | pf;
+  ev = lf ? lv : comb<OP>(pv, lv);
+}
+
+// slot_pass over values loaded beforehand (raw bits, `ok` the rows that
+// count): each row's value in its segment by a select, a segment written
+// where its last row is.
+template <int OP, class D>
+__device__ __forceinline__ void slot_pass2(const Pass& p, TileSmem& sm, int a, i64 i0, i64 nv,
+                                           uint32_t fl, uint32_t fs, i64 gbase,
+                                           const long long (&raw)[D::ITEMS], uint32_t ok) {
+  constexpr int ITEMS = D::ITEMS;
+  constexpr uint32_t ALL = (1u << ITEMS) - 1u;
+  const uint32_t rel = sum_like(OP) ? fs : fl;
+  const int cnt = (int)(nv - i0 < 0 ? 0 : (nv - i0 < ITEMS ? nv - i0 : ITEMS));
+  const uint32_t own = rel & ALL;
+  const int first = own ? __ffs(own) - 1 : ITEMS;  // the first segment opened here
+  // rows that end a segment: the next row opens one, or is past n_valid
+  uint32_t ends = (rel >> 1) & ALL;
+  if (cnt > 0 && i0 + ITEMS >= nv) ends |= 1u << (cnt - 1);
+  ends &= cnt >= 32 ? ~0u : (1u << cnt) - 1u;
+  long long run = ident<OP>(), head = ident<OP>();
+  bool head_ends = false;
+  int head_k = 0;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const long long x = ((ok >> k) & 1u) ? raw[k] : ident<OP>();
+    run = ((own >> k) & 1u) ? x : comb<OP>(run, x);
+    if ((ends >> k) & 1u) {
+      if (k < first) {
+        head = run;
+        head_ends = true;
+        head_k = k;
+      } else {
+        emit<OP>(p, a, gbase + __popc(fl & ((2u << k) - 1u)) - 1, run, i0 + k);
+      }
+    }
+  }
+  if (first == ITEMS) head = run;
+  int ef, tf;
+  long long ev, tv;
+  block_seg_scan2<OP, D::THREADS>(first < ITEMS ? 1 : 0, run, sm.scan2[a & 1], ef, ev, tf, tv);
+  if (head_ends) {
+    const long long val = comb<OP>(ev, head);
+    const i64 g = gbase + __popc(fl & ((2u << head_k) - 1u)) - 1;
+    if (ef) {
+      emit<OP>(p, a, g, val, i0 + head_k);
+    } else {  // the group that entered the tile: one thread a slot
+      sm.head_v[a] = val;
+      sm.head_g[a] = g;
+      sm.head_last[a] = i0 + head_k;
+      sm.head_has[a] = 1;
+    }
+  }
+  if (threadIdx.x == 0) {
+    sm.tile_f[a] = tf;
+    sm.tile_v[a] = tv;
+  }
+}
+
 // Warp 0: the value that enters the tile of slot a, from the published
 // values of the m tiles before it in its window (lanes 0..m-1) and, where
 // none of them has a boundary, the window before's inclusive value.
@@ -480,7 +645,7 @@ __device__ __forceinline__ void slot_carry(const Pass& p, TileSmem& sm, int a, i
     default: CALL(OP_FIRST); break;                            \
   }
 
-template <class D, int SKIP = 0>
+template <class D, int SKIP = 0, bool V2 = false>
 __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs keys,
                                                                        AggSpec spec, Pass p) {
   constexpr int THREADS = D::THREADS, ITEMS = D::ITEMS;
@@ -526,6 +691,11 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
     if (in <= ITEMS) fl &= (1u << in) - 1u;
   }
   const int cnt = __popc(fl & ((1u << ITEMS) - 1u));
+  // v2: the first slot's values are on their way during the scans
+  const int rows_in = (int)(nv - i0 < 0 ? 0 : (nv - i0 < ITEMS ? nv - i0 : ITEMS));
+  long long next[ITEMS];
+  uint32_t next_ok = 0;
+  if constexpr (V2) load_raw<ITEMS>(sa, 0, i0, rows_in, next, next_ok);
   i64 tile_cnt;
   const i64 excl = dfp::block_exclusive_scan(cnt, cscan, &tile_cnt);
   i64 prefix;
@@ -549,7 +719,18 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
     }
   }
 
-  if constexpr ((SKIP & 4) == 0) {
+  if constexpr (V2) {
+    for (int a = 0; a <= A; ++a) {
+      long long raw[ITEMS];
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) raw[k] = next[k];
+      const uint32_t ok = next_ok;
+      if (a < A) load_raw<ITEMS>(sa, a + 1, i0, rows_in, next, next_ok);  // the next slot's
+#define SA_PASS2(OPC) slot_pass2<OPC, D>(p, sm, a, i0, nv, fl, fs, gbase, raw, ok)
+      SA_FOR_OP(slot_op(sa, a), SA_PASS2)
+#undef SA_PASS2
+    }
+  } else if constexpr ((SKIP & 4) == 0) {
     for (int a = 0; a <= A; ++a) {
 #define SA_PASS(OPC) slot_pass<OPC, D>(p, sa, sm, a, i0, nv, fl, fs, gbase)
       SA_FOR_OP(slot_op(sa, a), SA_PASS)
@@ -621,31 +802,33 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
   }
 }
 
-// Outputs at and past kept = min(*n_groups, out_cap) become zeros: a
-// thread takes four groups of starts, sizes and every request's row,
-// 16-byte stores where they are aligned, element by element where not.
+// Outputs at and past kept = min(*n_groups, out_cap) become zeros: a warp
+// takes 128 groups, and each of its 16-byte stores covers 512 contiguous
+// bytes (whole sectors) where the groups are all past kept and aligned;
+// element by element where not.
 __global__ void seg_zero_tail_kernel(const i64* __restrict__ n_groups, i64 out_cap, int A,
                                      int32_t* __restrict__ starts, long long* __restrict__ sizes,
                                      long long* __restrict__ out) {
-  const i64 g0 = 4 * ((i64)blockIdx.x * blockDim.x + threadIdx.x);
+  const int lane = threadIdx.x & 31;
+  const i64 c0 = ((i64)blockIdx.x * blockDim.x + threadIdx.x) / 32 * 128;
   const i64 ng = *n_groups;
   const i64 lo = ng < out_cap ? ng : out_cap;
-  if (g0 >= out_cap || g0 + 4 <= lo) return;
-  const bool vec = g0 >= lo && g0 + 4 <= out_cap && (out_cap & 3) == 0 &&
+  if (c0 >= out_cap || c0 + 128 <= lo) return;
+  const bool vec = c0 >= lo && c0 + 128 <= out_cap && (out_cap & 1) == 0 &&
                    (((uintptr_t)starts | (uintptr_t)sizes | (uintptr_t)out) & 15) == 0;
   const uint4 z = make_uint4(0, 0, 0, 0);
   if (vec) {
-    *(uint4*)(starts + g0) = z;
-    *(uint4*)(sizes + g0) = z;
-    *(uint4*)(sizes + g0 + 2) = z;
+    *(uint4*)(starts + c0 + 4 * lane) = z;
+    *(uint4*)(sizes + c0 + 2 * lane) = z;
+    *(uint4*)(sizes + c0 + 64 + 2 * lane) = z;
     for (int a = 0; a < A; ++a) {
-      *(uint4*)(out + (i64)a * out_cap + g0) = z;
-      *(uint4*)(out + (i64)a * out_cap + g0 + 2) = z;
+      *(uint4*)(out + (i64)a * out_cap + c0 + 2 * lane) = z;
+      *(uint4*)(out + (i64)a * out_cap + c0 + 64 + 2 * lane) = z;
     }
     return;
   }
-  const i64 b = g0 + 4 < out_cap ? g0 + 4 : out_cap;
-  for (i64 g = g0 < lo ? lo : g0; g < b; ++g) {
+  for (i64 g = c0 + lane; g < c0 + 128 && g < out_cap; g += 32) {
+    if (g < lo) continue;
     starts[g] = 0;
     sizes[g] = 0;
     for (int a = 0; a < A; ++a) out[(i64)a * out_cap + g] = 0;
@@ -655,22 +838,15 @@ __global__ void seg_zero_tail_kernel(const i64* __restrict__ n_groups, i64 out_c
 i64 align256(i64 b) { return (b + 255) / 256 * 256; }
 
 // The designs a launch may take (the first by default); the rows a tile of
-// each.
+// each. Designs 0-3 run the first pass of the requests, 4-7 the second
+// (values loaded a slot ahead, selects, one barrier less a scan).
 using Design0 = Design<512, 8, 1>;
 using Design1 = Design<512, 8, 2>;
-using Design2 = Design<256, 8, 2>;
-using Design3 = Design<256, 8, 3>;
 using Design4 = Design<256, 16, 2>;
-using Design5 = Design<128, 16, 4>;
-using Design6 = Design<128, 8, 4>;
 using Design7 = Design<512, 16, 1>;
-// designs 8-11: design 1 with parts left out, to time them (wrong results):
-// 8 the carries' look-back, 9 also the group counts', 10 also the
-// requests' passes, 11 also the key reads
-constexpr int N_DESIGNS = 12;
-const int DESIGN_TILE[N_DESIGNS] = {Design0::TILE, Design1::TILE, Design2::TILE, Design3::TILE,
-                                    Design4::TILE, Design5::TILE, Design6::TILE, Design7::TILE,
-                                    Design1::TILE, Design1::TILE, Design1::TILE, Design1::TILE};
+constexpr int N_DESIGNS = 8;
+const int DESIGN_TILE[N_DESIGNS] = {Design0::TILE, Design1::TILE, Design4::TILE, Design7::TILE,
+                                    Design0::TILE, Design1::TILE, Design4::TILE, Design7::TILE};
 int g_design = 0;
 
 struct Layout {
@@ -693,10 +869,10 @@ Layout layout(i64 n, int n_aggs) {
   return l;
 }
 
-template <class D, int SKIP = 0>
+template <class D, bool V2>
 void launch_pass(i64 tiles, const KeySpecs& ks, const AggSpec& spec, const Pass& p,
                  cudaStream_t st) {
-  seg_pass_kernel<D, SKIP><<<(unsigned)tiles, D::THREADS, 0, st>>>(ks, spec, p);
+  seg_pass_kernel<D, 0, V2><<<(unsigned)tiles, D::THREADS, 0, st>>>(ks, spec, p);
 }
 
 }  // namespace
@@ -758,18 +934,14 @@ extern "C" int dfp_segment_agg(const void* words, long long n, const int* keys, 
     p.vagg = (long long*)(base + l.vagg);
     p.vinc = (long long*)(base + l.vinc);
     switch (g_design) {
-      case 1: launch_pass<Design1>(l.tiles, ks, *spec, p, st); break;
-      case 2: launch_pass<Design2>(l.tiles, ks, *spec, p, st); break;
-      case 3: launch_pass<Design3>(l.tiles, ks, *spec, p, st); break;
-      case 4: launch_pass<Design4>(l.tiles, ks, *spec, p, st); break;
-      case 5: launch_pass<Design5>(l.tiles, ks, *spec, p, st); break;
-      case 6: launch_pass<Design6>(l.tiles, ks, *spec, p, st); break;
-      case 7: launch_pass<Design7>(l.tiles, ks, *spec, p, st); break;
-      case 8: launch_pass<Design1, 1>(l.tiles, ks, *spec, p, st); break;
-      case 9: launch_pass<Design1, 3>(l.tiles, ks, *spec, p, st); break;
-      case 10: launch_pass<Design1, 7>(l.tiles, ks, *spec, p, st); break;
-      case 11: launch_pass<Design1, 15>(l.tiles, ks, *spec, p, st); break;
-      default: launch_pass<Design0>(l.tiles, ks, *spec, p, st); break;
+      case 1: launch_pass<Design1, false>(l.tiles, ks, *spec, p, st); break;
+      case 2: launch_pass<Design4, false>(l.tiles, ks, *spec, p, st); break;
+      case 3: launch_pass<Design7, false>(l.tiles, ks, *spec, p, st); break;
+      case 4: launch_pass<Design0, true>(l.tiles, ks, *spec, p, st); break;
+      case 5: launch_pass<Design1, true>(l.tiles, ks, *spec, p, st); break;
+      case 6: launch_pass<Design4, true>(l.tiles, ks, *spec, p, st); break;
+      case 7: launch_pass<Design7, true>(l.tiles, ks, *spec, p, st); break;
+      default: launch_pass<Design0, false>(l.tiles, ks, *spec, p, st); break;
     }
   }
   if (out_cap > 0) {
