@@ -66,14 +66,12 @@ using dfp::i64;
 constexpr int MAX_COLS = 16;     // as K1's spec (kernels/hash_slot.py)
 constexpr int MAX_SPECS = 8;     // key specs a launch takes (128 columns)
 constexpr int SA_WINDOW = 32;    // tiles that fold each other's values (one warp)
-
-// A block's threads, the consecutive rows a thread takes, and the blocks an
-// SM should hold (__launch_bounds__).
-template <int THREADS_, int ITEMS_, int MINB_>
-struct Design {
-  static constexpr int THREADS = THREADS_, ITEMS = ITEMS_, MINB = MINB_;
-  static constexpr int TILE = THREADS * ITEMS;
-};
+// 512 threads of 16 rows: against 8 rows a thread, 256-thread blocks, two
+// blocks an SM and a pass that loads a request ahead, the fastest at Q18's
+// lineitem grouping and over one group (PERF.md)
+constexpr int SA_THREADS = 512;
+constexpr int SA_ITEMS = 16;     // consecutive rows a thread takes
+constexpr int SA_TILE = SA_THREADS * SA_ITEMS;
 constexpr int SA_SLOTS = dfp::MAX_AGGS + 1;   // the requests and the segment starts
 
 // the segment starts: the first row of a segment (a != NONE keeps a)
@@ -375,7 +373,6 @@ __device__ __forceinline__ void block_seg_scan(int f, long long v, ScanSmem& sm,
 
 struct TileSmem {
   ScanSmem scan;
-  ScanSmem scan2[2];             // the v2 passes' scans, one a slot in turn
   long long tile_v[SA_SLOTS];    // the tile's value after its last boundary, a slot
   int tile_f[SA_SLOTS];          // ... and whether it has a boundary
   long long head_v[SA_SLOTS];    // the group that entered the tile: its value in the tile,
@@ -389,11 +386,11 @@ struct TileSmem {
 // `rel` are the boundaries that open its segments (bit ITEMS: the row
 // after the thread's), `fl` every group boundary, gbase the groups opened
 // before the thread's rows.
-template <int OP, class D>
+template <int OP>
 __device__ __forceinline__ void slot_pass(const Pass& p, const AggSpec& s, TileSmem& sm, int a,
                                           i64 i0, i64 nv, uint32_t fl, uint32_t fs, i64 gbase) {
   const uint32_t rel = sum_like(OP) ? fs : fl;
-  constexpr int ITEMS = D::ITEMS;
+  constexpr int ITEMS = SA_ITEMS;
   const int cnt = (int)(nv - i0 < 0 ? 0 : (nv - i0 < ITEMS ? nv - i0 : ITEMS));
   long long run = ident<OP>(), head = ident<OP>();
   bool seen = false, head_ends = false;
@@ -435,7 +432,7 @@ __device__ __forceinline__ void slot_pass(const Pass& p, const AggSpec& s, TileS
   }
   int ef, tf;
   long long ev, tv;
-  block_seg_scan<OP, D::THREADS>(seen ? 1 : 0, seen ? run : head, sm.scan, ef, ev, tf, tv);
+  block_seg_scan<OP, SA_THREADS>(seen ? 1 : 0, seen ? run : head, sm.scan, ef, ev, tf, tv);
   if (head_ends) {
     const long long val = comb<OP>(ev, head);
     if (ef) {
@@ -444,170 +441,6 @@ __device__ __forceinline__ void slot_pass(const Pass& p, const AggSpec& s, TileS
       sm.head_v[a] = val;
       sm.head_g[a] = head_g;
       sm.head_last[a] = head_last;
-      sm.head_has[a] = 1;
-    }
-  }
-  if (threadIdx.x == 0) {
-    sm.tile_f[a] = tf;
-    sm.tile_v[a] = tv;
-  }
-}
-
-// Request a's raw value of each of the thread's rows as its accumulator
-// bits (the row index for the segment starts), and a bit a row where it
-// counts (valid and below n_valid); not yet the identity where it does not.
-template <int ITEMS>
-__device__ __forceinline__ void load_raw(const AggSpec& s, int a, i64 i0, int cnt,
-                                         long long (&v)[ITEMS], uint32_t& ok) {
-  const uint32_t in = cnt >= 32 ? ~0u : (1u << cnt) - 1u;
-  if (a == s.n) {
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) v[k] = i0 + k;
-    ok = in;
-    return;
-  }
-  ok = in;
-  if (s.valid[a] != nullptr) {
-    uint8_t m[ITEMS];
-    load_run<ITEMS>((const uint8_t*)s.valid[a], i0, cnt, m);
-    uint32_t bits = 0;
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) bits |= (m[k] ? 1u : 0u) << k;
-    ok &= bits;
-  }
-  if (s.func[a] == 0) {  // count: an int64 sum of 0/1
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) v[k] = 1;
-    return;
-  }
-  const void* p = s.vals[a];
-  switch (s.in_type[a]) {
-    case 0: {
-      int32_t x[ITEMS];
-      load_run<ITEMS>((const int32_t*)p, i0, cnt, x);
-#pragma unroll
-      for (int k = 0; k < ITEMS; ++k) v[k] = (long long)x[k];
-      break;
-    }
-    case 2: {
-      float x[ITEMS];
-      load_run<ITEMS>((const float*)p, i0, cnt, x);
-#pragma unroll
-      for (int k = 0; k < ITEMS; ++k) v[k] = dfp::dbits((double)x[k]);
-      break;
-    }
-    case 4: {
-      uint8_t x[ITEMS];
-      load_run<ITEMS>((const uint8_t*)p, i0, cnt, x);
-#pragma unroll
-      for (int k = 0; k < ITEMS; ++k) v[k] = (long long)x[k];
-      break;
-    }
-    default: {  // int64, and float64 bits as they are
-      long long x[ITEMS];
-      load_run<ITEMS>((const long long*)p, i0, cnt, x);
-#pragma unroll
-      for (int k = 0; k < ITEMS; ++k) v[k] = x[k];
-      break;
-    }
-  }
-}
-
-// block_seg_scan without its closing barrier: successive scans alternate
-// between two ScanSmem, and the two barriers of the next scan order this
-// one's reads before a later scan's writes to the same buffer.
-template <int OP, int THREADS>
-__device__ __forceinline__ void block_seg_scan2(int f, long long v, ScanSmem& sm, int& ef,
-                                                long long& ev, int& tf, long long& tv) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int NW = THREADS / 32;
-  warp_seg_scan<OP>(f, v);
-  int lf = __shfl_up_sync(0xffffffffu, f, 1);
-  long long lv = __shfl_up_sync(0xffffffffu, v, 1);
-  if (lane == 0) {
-    lf = 0;
-    lv = ident<OP>();
-  }
-  if (lane == 31) {
-    sm.f[warp] = f;
-    sm.v[warp] = v;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int wf = lane < NW ? sm.f[lane] : 0;
-    long long wv = lane < NW ? sm.v[lane] : ident<OP>();
-    warp_seg_scan<OP>(wf, wv);
-    int xf = __shfl_up_sync(0xffffffffu, wf, 1);
-    long long xv = __shfl_up_sync(0xffffffffu, wv, 1);
-    if (lane == 0) {
-      xf = 0;
-      xv = ident<OP>();
-    }
-    if (lane < NW) {
-      sm.f[lane] = xf;
-      sm.v[lane] = xv;
-    }
-    if (lane == NW - 1) {
-      sm.f[32] = wf;
-      sm.v[32] = wv;
-    }
-  }
-  __syncthreads();
-  const int pf = sm.f[warp];
-  const long long pv = sm.v[warp];
-  tf = sm.f[32];
-  tv = sm.v[32];
-  ef = lf | pf;
-  ev = lf ? lv : comb<OP>(pv, lv);
-}
-
-// slot_pass over values loaded beforehand (raw bits, `ok` the rows that
-// count): each row's value in its segment by a select, a segment written
-// where its last row is.
-template <int OP, class D>
-__device__ __forceinline__ void slot_pass2(const Pass& p, TileSmem& sm, int a, i64 i0, i64 nv,
-                                           uint32_t fl, uint32_t fs, i64 gbase,
-                                           const long long (&raw)[D::ITEMS], uint32_t ok) {
-  constexpr int ITEMS = D::ITEMS;
-  constexpr uint32_t ALL = (1u << ITEMS) - 1u;
-  const uint32_t rel = sum_like(OP) ? fs : fl;
-  const int cnt = (int)(nv - i0 < 0 ? 0 : (nv - i0 < ITEMS ? nv - i0 : ITEMS));
-  const uint32_t own = rel & ALL;
-  const int first = own ? __ffs(own) - 1 : ITEMS;  // the first segment opened here
-  // rows that end a segment: the next row opens one, or is past n_valid
-  uint32_t ends = (rel >> 1) & ALL;
-  if (cnt > 0 && i0 + ITEMS >= nv) ends |= 1u << (cnt - 1);
-  ends &= cnt >= 32 ? ~0u : (1u << cnt) - 1u;
-  long long run = ident<OP>(), head = ident<OP>();
-  bool head_ends = false;
-  int head_k = 0;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const long long x = ((ok >> k) & 1u) ? raw[k] : ident<OP>();
-    run = ((own >> k) & 1u) ? x : comb<OP>(run, x);
-    if ((ends >> k) & 1u) {
-      if (k < first) {
-        head = run;
-        head_ends = true;
-        head_k = k;
-      } else {
-        emit<OP>(p, a, gbase + __popc(fl & ((2u << k) - 1u)) - 1, run, i0 + k);
-      }
-    }
-  }
-  if (first == ITEMS) head = run;
-  int ef, tf;
-  long long ev, tv;
-  block_seg_scan2<OP, D::THREADS>(first < ITEMS ? 1 : 0, run, sm.scan2[a & 1], ef, ev, tf, tv);
-  if (head_ends) {
-    const long long val = comb<OP>(ev, head);
-    const i64 g = gbase + __popc(fl & ((2u << head_k) - 1u)) - 1;
-    if (ef) {
-      emit<OP>(p, a, g, val, i0 + head_k);
-    } else {  // the group that entered the tile: one thread a slot
-      sm.head_v[a] = val;
-      sm.head_g[a] = g;
-      sm.head_last[a] = i0 + head_k;
       sm.head_has[a] = 1;
     }
   }
@@ -645,10 +478,9 @@ __device__ __forceinline__ void slot_carry(const Pass& p, TileSmem& sm, int a, i
     default: CALL(OP_FIRST); break;                            \
   }
 
-template <class D, int SKIP = 0, bool V2 = false>
-__global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs keys,
-                                                                       AggSpec spec, Pass p) {
-  constexpr int THREADS = D::THREADS, ITEMS = D::ITEMS;
+__global__ void __launch_bounds__(SA_THREADS) seg_pass_kernel(KeySpecs keys, AggSpec spec,
+                                                              Pass p) {
+  constexpr int THREADS = SA_THREADS, ITEMS = SA_ITEMS;
   __shared__ KeySpec sk[MAX_SPECS];
   __shared__ AggSpec sa;
   __shared__ TileSmem sm;
@@ -659,7 +491,7 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
   const i64 tile = dfp::lookback_tile(p.cstatus, p.tiles, &tile_sh);
   i64 nv = *p.n_valid;
   nv = nv < 0 ? 0 : (nv > p.n ? p.n : nv);
-  const i64 first = tile * D::TILE;
+  const i64 first = tile * SA_TILE;
   if (first >= nv) {  // no later valid tile looks back at this one
     if (tile == 0 && tid == 0) *p.n_groups = 0;
     return;
@@ -681,27 +513,16 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
   const i64 i0 = first + (i64)tid * ITEMS;
   uint32_t fl = 0;
   if (i0 < nv) {
-    if constexpr ((SKIP & 8) != 0) {
-      fl = 0x11111u & ((1u << (ITEMS + 1)) - 1u);
-    } else {
-      for (int k = 0; k < keys.n; ++k) fl |= key_diff<ITEMS>(p.words, p.n, sk[k], i0);
-    }
+    for (int k = 0; k < keys.n; ++k) fl |= key_diff<ITEMS>(p.words, p.n, sk[k], i0);
     if (i0 == 0) fl |= 1u;
     const i64 in = nv - i0;  // rows of bits 0..ITEMS below n_valid
     if (in <= ITEMS) fl &= (1u << in) - 1u;
   }
   const int cnt = __popc(fl & ((1u << ITEMS) - 1u));
-  // v2: the first slot's values are on their way during the scans
-  const int rows_in = (int)(nv - i0 < 0 ? 0 : (nv - i0 < ITEMS ? nv - i0 : ITEMS));
-  long long next[ITEMS];
-  uint32_t next_ok = 0;
-  if constexpr (V2) load_raw<ITEMS>(sa, 0, i0, rows_in, next, next_ok);
   i64 tile_cnt;
   const i64 excl = dfp::block_exclusive_scan(cnt, cscan, &tile_cnt);
-  i64 prefix;
-  if constexpr ((SKIP & 2) != 0) prefix = tile * (D::TILE / 4);
-  else prefix = dfp::lookback_prefix(p.cstatus, tile, tile_cnt, &prefix_sh);
-  if (tid == 0 && nv <= first + D::TILE) *p.n_groups = prefix + tile_cnt;
+  const i64 prefix = dfp::lookback_prefix(p.cstatus, tile, tile_cnt, &prefix_sh);
+  if (tid == 0 && nv <= first + SA_TILE) *p.n_groups = prefix + tile_cnt;
   const i64 gbase = prefix + excl;
   // the kept boundaries (group < out_cap): those that open sum-type segments
   uint32_t fs = 0;
@@ -719,23 +540,10 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
     }
   }
 
-  if constexpr (V2) {
-    for (int a = 0; a <= A; ++a) {
-      long long raw[ITEMS];
-#pragma unroll
-      for (int k = 0; k < ITEMS; ++k) raw[k] = next[k];
-      const uint32_t ok = next_ok;
-      if (a < A) load_raw<ITEMS>(sa, a + 1, i0, rows_in, next, next_ok);  // the next slot's
-#define SA_PASS2(OPC) slot_pass2<OPC, D>(p, sm, a, i0, nv, fl, fs, gbase, raw, ok)
-      SA_FOR_OP(slot_op(sa, a), SA_PASS2)
-#undef SA_PASS2
-    }
-  } else if constexpr ((SKIP & 4) == 0) {
-    for (int a = 0; a <= A; ++a) {
-#define SA_PASS(OPC) slot_pass<OPC, D>(p, sa, sm, a, i0, nv, fl, fs, gbase)
-      SA_FOR_OP(slot_op(sa, a), SA_PASS)
+  for (int a = 0; a <= A; ++a) {
+#define SA_PASS(OPC) slot_pass<OPC>(p, sa, sm, a, i0, nv, fl, fs, gbase)
+    SA_FOR_OP(slot_op(sa, a), SA_PASS)
 #undef SA_PASS
-    }
   }
   __syncthreads();
 
@@ -753,14 +561,14 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
     const i64 base = tile / SA_WINDOW * SA_WINDOW;
     const int m = (int)(tile - base);
     uint32_t st = 0;
-    if (tid < m && (SKIP & 1) == 0) {
+    if (tid < m) {
       do {
         st = vs[base + tid];
       } while ((st & VS_AGG) == 0u);
     }
     const unsigned fm = __ballot_sync(0xffffffffu, (st & VS_FLAG) != 0u);
     const unsigned sm_mask = __ballot_sync(0xffffffffu, (st & VS_FLAG_S) != 0u);
-    if (base > 0 && sm_mask == 0u && (SKIP & 1) == 0) {  // the window before's inclusive values are needed
+    if (base > 0 && sm_mask == 0u) {  // the window before's inclusive values are needed
       if (tid == 0) {
         while ((vs[base - 1] & VS_INC) == 0u) {
         }
@@ -769,10 +577,6 @@ __global__ void __launch_bounds__(D::THREADS, D::MINB) seg_pass_kernel(KeySpecs 
     }
     __threadfence();
     for (int a = 0; a <= A; ++a) {
-      if constexpr ((SKIP & 1) != 0) {
-        if (tid == 0) sm.carry[a] = 0;
-        continue;
-      }
 #define SA_CARRY(OPC) slot_carry<OPC>(p, sm, a, base, m, fm, sm_mask)
       SA_FOR_OP(slot_op(sa, a), SA_CARRY)
 #undef SA_CARRY
@@ -837,18 +641,6 @@ __global__ void seg_zero_tail_kernel(const i64* __restrict__ n_groups, i64 out_c
 
 i64 align256(i64 b) { return (b + 255) / 256 * 256; }
 
-// The designs a launch may take (the first by default); the rows a tile of
-// each. Designs 0-3 run the first pass of the requests, 4-7 the second
-// (values loaded a slot ahead, selects, one barrier less a scan).
-using Design0 = Design<512, 8, 1>;
-using Design1 = Design<512, 8, 2>;
-using Design4 = Design<256, 16, 2>;
-using Design7 = Design<512, 16, 1>;
-constexpr int N_DESIGNS = 8;
-const int DESIGN_TILE[N_DESIGNS] = {Design0::TILE, Design1::TILE, Design4::TILE, Design7::TILE,
-                                    Design0::TILE, Design1::TILE, Design4::TILE, Design7::TILE};
-int g_design = 0;
-
 struct Layout {
   i64 tiles, windows, memset_bytes, vstate, vagg, vinc, bytes;
 };
@@ -857,9 +649,8 @@ struct Layout {
 // value state word a tile (both zeroed by one memset), then the tiles'
 // published values and the windows' inclusive values, A + 1 slots each.
 Layout layout(i64 n, int n_aggs) {
-  const i64 tile = DESIGN_TILE[g_design];
   Layout l;
-  l.tiles = (n + tile - 1) / tile;
+  l.tiles = (n + SA_TILE - 1) / SA_TILE;
   l.windows = (l.tiles + SA_WINDOW - 1) / SA_WINDOW;
   l.vstate = dfp::lookback_scratch_bytes(l.tiles);
   l.memset_bytes = l.vstate + l.tiles * 4;
@@ -869,21 +660,7 @@ Layout layout(i64 n, int n_aggs) {
   return l;
 }
 
-template <class D, bool V2>
-void launch_pass(i64 tiles, const KeySpecs& ks, const AggSpec& spec, const Pass& p,
-                 cudaStream_t st) {
-  seg_pass_kernel<D, 0, V2><<<(unsigned)tiles, D::THREADS, 0, st>>>(ks, spec, p);
-}
-
 }  // namespace
-
-// Picks the design later launches take; returns the rows of its tile, or
-// 0 (and keeps the design) for one out of range.
-extern "C" int dfp_segment_agg_design(int design) {
-  if (design < 0 || design >= N_DESIGNS) return 0;
-  g_design = design;
-  return DESIGN_TILE[design];
-}
 
 extern "C" long long dfp_segment_agg_scratch_bytes(long long n, int n_aggs) {
   return layout(n, n_aggs).bytes;
@@ -933,16 +710,7 @@ extern "C" int dfp_segment_agg(const void* words, long long n, const int* keys, 
     p.vstate = (uint32_t*)(base + l.vstate);
     p.vagg = (long long*)(base + l.vagg);
     p.vinc = (long long*)(base + l.vinc);
-    switch (g_design) {
-      case 1: launch_pass<Design1, false>(l.tiles, ks, *spec, p, st); break;
-      case 2: launch_pass<Design4, false>(l.tiles, ks, *spec, p, st); break;
-      case 3: launch_pass<Design7, false>(l.tiles, ks, *spec, p, st); break;
-      case 4: launch_pass<Design0, true>(l.tiles, ks, *spec, p, st); break;
-      case 5: launch_pass<Design1, true>(l.tiles, ks, *spec, p, st); break;
-      case 6: launch_pass<Design4, true>(l.tiles, ks, *spec, p, st); break;
-      case 7: launch_pass<Design7, true>(l.tiles, ks, *spec, p, st); break;
-      default: launch_pass<Design0, false>(l.tiles, ks, *spec, p, st); break;
-    }
+    seg_pass_kernel<<<(unsigned)l.tiles, SA_THREADS, 0, st>>>(ks, *spec, p);
   }
   if (out_cap > 0) {
     seg_zero_tail_kernel<<<dfp::grid_for(out_cap, 4 * 256), 256, 0, st>>>(

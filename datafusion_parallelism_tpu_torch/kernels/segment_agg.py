@@ -36,7 +36,7 @@ Result = Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], torch.Tensor]
 # csrc/segment_agg.cu's pass: rows a tile (SA_TILE), tiles a window whose
 # values fold in a fixed order (SA_WINDOW), key specs of 16 columns a
 # launch (MAX_SPECS)
-TILE_ROWS = 4096
+TILE_ROWS = 8192
 WINDOW = 32
 MAX_KEY_SPECS = 8
 

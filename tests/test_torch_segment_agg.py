@@ -415,7 +415,7 @@ REPLAY_CASES = {
                                               (4, 4, 2)),
     "a 17-column key": (120, 111, [2, 9, 30] * 5, 120, 17, True, (4, 2, 2)),
     "the kernel's tile, groups of ~4": (3 * TILE + 5, 3 * TILE, [4, 3, 5] * TILE, 3 * TILE, 1,
-                                        True, (8, 512, 32)),
+                                        True, (16, 512, 32)),
 }
 
 

@@ -163,33 +163,6 @@ def run_cells(torch, captured: dict, g, device, explore: bool) -> dict:
             for name, args in cell_args(torch, captured, g, device).items()}
 
 
-def designs(torch, cells: dict) -> dict:
-    """{design: {cell: (ms, equal to plain and the same bits twice)}} for
-    each tile design the library offers (dfp_segment_agg_design), the
-    default last."""
-    from datafusion_parallelism_tpu_torch.kernels import _build
-    from datafusion_parallelism_tpu_torch.kernels import segment_agg as k7
-    sm = smoke()
-    pick = _build.function("dfp_segment_agg_design", (_build.I32,), _build.I32)
-    out = {}
-    d = 1
-    while True:
-        tile = pick(d)
-        if tile == 0:
-            break
-        res = {}
-        for name, args in cells.items():
-            got, again = k7.segment_agg(*args), k7.segment_agg(*args)
-            ok = (agrees(sm.entry_err, "segment_agg", args, got, k7.segment_agg_plain(*args))
-                  and agrees(sm.max_abs_err, got, again))
-            del got, again
-            res[name] = (cuda_ms(lambda: k7.segment_agg(*args)), ok)
-        out[f"design {d} (tile {tile})"] = res
-        d += 1
-    pick(0)
-    return out
-
-
 def to_device(torch, x, device, _seen=None):
     """A captured call's arguments with every tensor on `device`; a tensor
     that appears twice is moved once."""
@@ -214,12 +187,8 @@ def child(root: str, calls: str, seed: int, explore: bool) -> dict:
     device = torch.device("cuda", 0)
     g = torch.Generator(device=device).manual_seed(seed)
     captured = to_device(torch, torch.load(calls, weights_only=False), device)
-    args = cell_args(torch, captured, g, device)
-    res = {"root": os.path.abspath(root),
-           "cells": {name: k7_cell(torch, a, explore) for name, a in args.items()}}
-    if explore:
-        res["designs"] = designs(torch, args)
-    return res
+    return {"root": os.path.abspath(root),
+            "cells": run_cells(torch, captured, g, device, explore)}
 
 
 def save_calls(path: str) -> None:
