@@ -52,7 +52,8 @@ def scratch_layout(n: int, n_aggs: int) -> Tuple[int, int]:
     tiles = -(-n // TILE_ROWS)
     windows = -(-tiles // WINDOW)
     zeroed = (tiles + 1) * 8 + tiles * 4
-    return zeroed, align(zeroed) + align((n_aggs + 1) * tiles * 8) + align((n_aggs + 1) * windows * 8)
+    slots = n_aggs + 1
+    return zeroed, align(zeroed) + align(slots * tiles * 8) + align(slots * windows * 8)
 
 
 def _key_values(words: torch.Tensor, kind: int, rows) -> torch.Tensor:

@@ -40,12 +40,14 @@ limit; also written to --out. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import statistics
 import subprocess
 import sys
+
+from bench_agg_compact import agrees, cuda_ms, smoke
+from profile_agg_compact_call import to_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
@@ -56,31 +58,6 @@ ENTRY = ("chain", "segment_agg")
 SYNTHETIC = {"Q18-shaped: 2^26 rows, groups of ~4, int64 sum": (False, 4),
              "one group over 2^26 rows, int64 sum": (False, 0),
              "4,473 valid rows in 2^25, groups of ~7, int64 sum": (True, 7)}
-
-
-def smoke():
-    """This checkout's chip_smoke.py, by its path (a parent run imports the
-    parent's package, but the checks and yardsticks stay these)."""
-    if "bench_smoke" not in sys.modules:
-        spec = importlib.util.spec_from_file_location("bench_smoke",
-                                                      os.path.join(REPO, "chip_smoke.py"))
-        module = importlib.util.module_from_spec(spec)
-        sys.modules["bench_smoke"] = module
-        spec.loader.exec_module(module)
-    return sys.modules["bench_smoke"]
-
-
-def cuda_ms(fn) -> float:
-    return smoke().cuda_ms(fn, reps=20)
-
-
-def agrees(check, *args) -> bool:
-    """Whether chip_smoke's check passes (it raises where not)."""
-    try:
-        check(*args)
-        return True
-    except AssertionError:
-        return False
 
 
 def capture(torch, sf: float, device) -> dict:
@@ -161,19 +138,6 @@ def cell_args(torch, captured: dict, g, device) -> dict:
 def run_cells(torch, captured: dict, g, device, explore: bool) -> dict:
     return {name: k7_cell(torch, args, explore)
             for name, args in cell_args(torch, captured, g, device).items()}
-
-
-def to_device(torch, x, device, _seen=None):
-    """A captured call's arguments with every tensor on `device`; a tensor
-    that appears twice is moved once."""
-    seen = {} if _seen is None else _seen
-    if isinstance(x, torch.Tensor):
-        if id(x) not in seen:
-            seen[id(x)] = x.to(device)
-        return seen[id(x)]
-    if isinstance(x, (list, tuple)):
-        return type(x)(to_device(torch, y, device, seen) for y in x)
-    return x
 
 
 def child(root: str, calls: str, seed: int, explore: bool) -> dict:
