@@ -125,19 +125,14 @@ def k7_cell(torch, args, explore: bool) -> dict:
     return cell
 
 
-def cell_args(torch, captured: dict, g, device) -> dict:
-    """{cell: segment_agg's arguments}: the captured calls, then the
-    synthetic ones made from `g` on `device`."""
-    args = dict(captured)
+def run_cells(torch, captured: dict, g, device, explore: bool) -> dict:
+    """Every cell: the captured calls, then the synthetic ones made from
+    `g` on `device`."""
+    cells = {label: k7_cell(torch, args, explore) for label, args in captured.items()}
     for name, (few, group) in SYNTHETIC.items():
         cap, rows = (FEW_CAP, FEW_ROWS) if few else (BIG, BIG)
-        args[name] = synthetic(torch, g, device, cap, rows, group)
-    return args
-
-
-def run_cells(torch, captured: dict, g, device, explore: bool) -> dict:
-    return {name: k7_cell(torch, args, explore)
-            for name, args in cell_args(torch, captured, g, device).items()}
+        cells[name] = k7_cell(torch, synthetic(torch, g, device, cap, rows, group), explore)
+    return cells
 
 
 def child(root: str, calls: str, seed: int, explore: bool) -> dict:
