@@ -50,10 +50,15 @@ expression of every path is K17 expr_eval. Phases, one line each:
      bit on edge cases: K2 at T = 1, 255, 2^20 and 4 x a capacity past
      64 M, bits(T) = 25, 28 and 31, n = 0, 1 and not a multiple of the
      tile, every row in bucket T, a sparse build, one bucket over many
-     tiles, no narrow rows; K3 with total 0, one probe row owning every
-     candidate, out_cap below, equal to and above the total, m = 1, five
-     keys (and_match) and block boundaries inside probe rows' candidates
-     (2f); K8 and K5's compaction on edge cases, each run twice with the
+     tiles, no narrow rows, and its row-major rows; K3's two passes with
+     total 0, one probe row owning every candidate, out_cap below, equal
+     to and above the total, m = 1, a hot key, five keys (and_match) and
+     block boundaries inside probe rows' candidates, the second pass over
+     word-major and row-major build rows, twice with the same bits; K4
+     with n_match 0, every slot a match, total 0, total past out_cap, no
+     total, an out_cap off its tile, 70 build columns (two launches) and
+     every column kind with nulls (NaN payloads, -0.0, denormals, int64
+     extremes), twice with the same bits (2f); K8 and K5's compaction on edge cases, each run twice with the
      same bits both times: K8 (integers bit for bit, float64 within rtol
      1e-9) at G = 1, 12 and 64, 33 requests (two launches), num_rows 0, a
      row filter all False, all-NULL groups, NaN, +-inf and -0.0 in its
@@ -75,7 +80,8 @@ expression of every path is K17 expr_eval. Phases, one line each:
      word for word, match count == a numpy count, rows/s of both paths
   5. a TPC-H SF10-shaped orders x lineitem join on an int64 key, run ->
      check overflow -> grow -> rerun, kernel path == plain path
-  6. every kernel of the join launched during phases 3-5
+  6. every kernel of the join launched during phases 3-5, and K12's pack
+     and unpack not once (the deferred join reads the column buffers)
   7. K1-K4 against their plain versions at the SF10-shaped join's shapes,
      exact, and timed
   8. K5-K8 against their plain versions on seeded inputs through the
@@ -1003,7 +1009,13 @@ def phase_csr_edges(device) -> None:
         n, m = bslot.shape[0], pslot.shape[0]
         brows = torch.from_numpy(np.stack([rng.integers(0, 2, n) for _ in range(5)]
                                           + [rng.integers(0, 2**31, n)]).astype(np.int32))
-        _, offsets, _, _, bwords = k2.csr_build(bslot, T, brows.to(device))
+        brows = brows.to(device)
+        _, offsets, _, _, bwords = k2.csr_build(bslot, T, brows)
+        # the same rows row-major (7 words padded to 8), as the deferred
+        # join's K2 writes them, and equal to the plain version's
+        rm = k2.csr_build(bslot, T, brows, True)
+        with no_launches():
+            max_abs_err(rm, k2.csr_build_plain(bslot, T, brows, True))
         # the probe's words in the build's layout (words 0-4 values in
         # {0, 1}, word 5 validity bits); `keys` key columns of one word each
         pwords = torch.from_numpy(np.stack([rng.integers(0, 2, m) for _ in range(5)]
@@ -1016,17 +1028,96 @@ def phase_csr_edges(device) -> None:
         out_cap = cap_of(int(got[3]))
         with no_launches():
             want_x = k3.expand_ranges_plain(*want, pwords, bwords, compares, out_cap)
-        got_x = k3.expand_ranges(*got, pwords, bwords, compares, out_cap)
+        try:
+            for layout, rows in (("word-major", bwords), ("row-major", rm[4])):
+                got_x = k3.expand_ranges(*got, pwords, rows, compares, out_cap)
+                again = k3.expand_ranges(*got, pwords, rows, compares, out_cap)
+                torch.cuda.synchronize()
+                max_abs_err((got, got_x), (want, want_x))
+                max_abs_err(again, got_x)
+        except AssertionError as e:
+            raise AssertionError(f"K3 {name} ({layout}): {e}") from None
+        lines.append(f"K3 {name} (m {m}, T {T}, total {int(got[3])}, out_cap {out_cap}, "
+                     f"{len(k3.key_groups(compares))} key groups, both layouts)")
+        del got, want, got_x, want_x, again, rm
+    lines += k4_edges(rng, device)
+    log("phase 2f ok: K2 == csr_build_plain (both layouts), K3 == probe_ranges_plain, "
+        "expand_ranges_plain (both layouts) and K4 == compact_gather_plain bit for bit, "
+        "the same bits twice: " + "; ".join(lines))
+
+
+def _k4_columns(rng, cap, device, n_cols=None):
+    """(values, validity) columns on the card: every kind the port holds
+    (float64 with NaN payloads, -0.0 and denormals, int64 extremes, int32,
+    float32 with NaN, bool) with 10% nulls, or `n_cols` int32 columns."""
+    import torch
+
+    def col(v):
+        return (torch.from_numpy(np.ascontiguousarray(v)).to(device),
+                torch.from_numpy(rng.random(cap) >= 0.1).to(device))
+    if n_cols is not None:
+        return [col(rng.integers(-2**31, 2**31, cap).astype(np.int32)) for _ in range(n_cols)]
+    f64 = rng.normal(size=cap)
+    f64[rng.random(cap) < 0.01] = -0.0
+    f64[rng.random(cap) < 0.01] = 5e-324
+    bits = f64.view(np.uint64)
+    bits[rng.random(cap) < 0.01] = 0x7FF8000000000000 | 0xBEEF
+    i64 = rng.integers(-2**63, 2**63 - 1, cap, dtype=np.int64)
+    i64[rng.random(cap) < 0.01] = -2**63
+    f32 = rng.normal(size=cap).astype(np.float32)
+    f32[rng.random(cap) < 0.01] = np.nan
+    return [col(f64), col(i64), col(rng.integers(-2**31, 2**31, cap).astype(np.int32)),
+            col(f32), col(rng.random(cap) < 0.5)]
+
+
+def k4_edges(rng, device):
+    """K4 against its plain version bit for bit, each run twice with the
+    same bits: n_match 0, n_match = out_cap (every slot a match), total 0,
+    total past out_cap, no total, an out_cap off the kernel's tile and
+    tail, a side past the descriptor table (70 columns: two launches), and
+    every column kind with nulls on both sides."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import compact_gather as k4
+    lines = []
+    bcap, pcap = 1 << 20, (1 << 20) + 5
+    kinds_b, kinds_p = _k4_columns(rng, bcap, device), _k4_columns(rng, pcap, device)
+
+    def slots(out_cap, total, share):
+        j = np.arange(out_cap)
+        match = (j < total) & (rng.random(out_cap) < share)
+        bid = np.where(j < total, rng.integers(0, bcap, out_cap), 0).astype(np.int32)
+        pid = np.where(j < total, np.sort(rng.integers(0, pcap, out_cap)), 0).astype(np.int32)
+        return [torch.from_numpy(x).to(device) for x in (match, bid, pid)]
+
+    cases = [("n_match 0", 1 << 21, 1 << 20, 0.0, kinds_b, kinds_p),
+             ("every slot a match (n_match = out_cap)", 1 << 21, 1 << 21, 1.0, kinds_b, kinds_p),
+             ("total 0", 1 << 20, 0, 0.5, kinds_b, kinds_p),
+             ("total past out_cap", 1 << 21, (1 << 21) + 999, 0.6, kinds_b, kinds_p),
+             ("no total", 1 << 21, None, 0.3, kinds_b, kinds_p),
+             ("out_cap off the tile (1,000,003)", 1_000_003, 900_001, 0.5, kinds_b, kinds_p),
+             ("70 build columns (two launches)", 1 << 20, 1 << 19, 0.5,
+              _k4_columns(rng, bcap, device, 70), kinds_p)]
+    for name, out_cap, total, share, bcols, pcols in cases:
+        match, bid, pid = slots(out_cap, out_cap if total is None else min(total, out_cap),
+                                share)
+        t = None if total is None else torch.tensor(total, dtype=torch.int32, device=device)
+        args = (match, bid, pid, bcols, pcols, t)
+        with no_launches():
+            want = k4.compact_gather_plain(*args)
+        before = k4.compact_gather.launches
+        got = k4.compact_gather(*args)
+        again = k4.compact_gather(*args)
         torch.cuda.synchronize()
         try:
-            max_abs_err((got, got_x), (want, want_x))
+            max_abs_err(got, want)
+            max_abs_err(again, got)
         except AssertionError as e:
-            raise AssertionError(f"K3 {name}: {e}") from None
-        lines.append(f"K3 {name} (m {m}, T {T}, total {int(got[3])}, out_cap {out_cap}, "
-                     f"{len(k3.key_groups(compares))} key groups)")
-        del got, want, got_x, want_x
-    log("phase 2f ok: K2 == csr_build_plain and K3 == probe_ranges_plain, "
-        "expand_ranges_plain bit for bit: " + "; ".join(lines))
+            raise AssertionError(f"K4 {name}: {e}") from None
+        launches = (k4.compact_gather.launches - before) // 2
+        lines.append(f"K4 {name} (out_cap {out_cap}, n_match {int(got[-1])}, "
+                     f"{len(bcols)} + {len(pcols)} columns, {launches} launches)")
+        del got, want, again
+    return lines
 
 
 def _agg_requests(rng, cap, device, specials: float = 1e-4):
@@ -2411,28 +2502,37 @@ def _bytes(x) -> int:
     return total
 
 
-def k2_k3_detail(key, args, out) -> str:
-    """Phase 15's detail of a K2 or K3 call ('' for the rest): K2's n, T, R,
-    digit passes and its bound as counted before its outputs
-    shared storage (each output's bytes); K3's m, T, total, out_cap and key
-    groups."""
+def join_detail(key, args, out) -> str:
+    """Phase 15's detail of a K2, K3 or K4 call ('' for the rest): K2's n,
+    T, R, layout, digit passes and its bound as counted before its outputs
+    shared storage (each output's bytes); K3's m, T, total, out_cap, build
+    rows' layout and key groups; K4's out_cap, total, n_match and
+    columns."""
     from datafusion_parallelism_tpu_torch.kernels import csr_build as k2
     from datafusion_parallelism_tpu_torch.kernels import probe_expand as k3
     if key[1] == "csr_build":
-        slot, T, rows = args
+        slot, T, rows = args[:3]
         each = sum(t.nbytes for t in _flat([slot, rows, out]))
-        return (f", n {slot.shape[0]}, T {T}, R {rows.shape[0]}, {int((slot == T).sum())} rows "
-                f"in bucket T, digit passes {k2.digit_passes(T)}, bound as counted "
-                f"before (each output's bytes) {each / HBM_BYTES_PER_S * 1e3:.3f}")
+        layout = "row-major" if len(args) > 3 and args[3] else "word-major"
+        return (f", n {slot.shape[0]}, T {T}, R {rows.shape[0]} ({layout}), "
+                f"{int((slot == T).sum())} rows in bucket T, digit passes "
+                f"{k2.digit_passes(T)}, bound as counted before (each output's bytes) "
+                f"{each / HBM_BYTES_PER_S * 1e3:.3f}")
     if key[1] == "probe_ranges":
         slot, ok, offsets = args
         return (f", m {slot.shape[0]}, T {offsets.shape[0] - 2}, {int(ok.sum())} rows ok, "
                 f"total {int(out[3])}, {k3.range_tiles(slot.shape[0])} tiles")
     if key[1] == "expand_ranges":
         start, _, _, total, _, bwords, compares, out_cap = args
+        layout = "word-major" if bwords.is_contiguous() else f"row-major {bwords.stride()[1]}"
         return (f", m {start.shape[0]}, total {int(total)}, out_cap {out_cap}, build rows "
-                f"{bwords.shape[1]}, {len(compares)} keys in {len(k3.key_groups(compares))} "
-                f"key groups")
+                f"{bwords.shape[1]} ({layout}), {len(compares)} keys in "
+                f"{len(k3.key_groups(compares))} key groups")
+    if key[1] == "compact_gather":
+        match, _, _, bcols, pcols, total = args
+        return (f", out_cap {match.shape[0]}, total {None if total is None else int(total)}, "
+                f"n_match {int(out[-1])}, "
+                f"{len(bcols)} build and {len(pcols)} probe columns")
     return ""
 
 
@@ -2673,10 +2773,10 @@ def work(key, args, out):
         reads = _bytes([home, hashes, ok]) + min(slots.nbytes,
                                                  8 * (int(ok.sum()) + int(out[3])))
     elif entry == "compact_gather":
-        match, build_id, probe_idx, bw, bf, pw, pf = args
-        k = int(out[-1])
-        reads = (_bytes([match, build_id, probe_idx]) + min(bw.nbytes + bf.nbytes, k * _row_bytes(bw, bf))
-                 + min(pw.nbytes + pf.nbytes, k * _row_bytes(pw, pf)))
+        match, _, _, build_cols, probe_cols, total = args
+        out_cap = match.shape[0]
+        k = out_cap if total is None else min(int(total), out_cap)
+        return k4_bytes(out_cap, k, int(out[-1]), build_cols, probe_cols), 0
     elif entry == "gather_rows":
         # idx and a source row for each row below the count, every row written
         return gather_work(args), 0
@@ -2722,6 +2822,15 @@ def work(key, args, out):
         keys, doms, _, _, reqs, cap = args
         ops = cap * int(np.prod(doms)) * len(reqs)
     return reads + _bytes(out), ops
+
+
+def k4_bytes(out_cap: int, k: int, n_match: int, build_cols, probe_cols) -> int:
+    """The bytes a K4 call must move: the match flags of the k candidate
+    slots below min(total, out_cap), the two ids of each match, each
+    match's values and validity of every column of both sides read once,
+    every output column (values and validity) written whole, the count."""
+    row = sum(v.element_size() + 1 for v, _ in list(build_cols) + list(probe_cols))
+    return k + 8 * n_match + row * (n_match + out_cap) + 8
 
 
 def k7_work(words, cols, n_valid, reqs, out_cap) -> int:
@@ -3023,7 +3132,7 @@ def phase_replay(device, ctx, sizes):
                 max_abs_err(got, run_call(key, kernel, args))
             nbytes, ops = work(key, args, got)
             out_bytes = _bytes(got)
-            csr_detail = k2_k3_detail(key, args, got) or agg_compact_detail(key, args, got,
+            csr_detail = join_detail(key, args, got) or agg_compact_detail(key, args, got,
                                                                             device)
             lib = library_call(key, args)
             partial = partial_call(key, args)
@@ -3646,6 +3755,12 @@ def launch_counters():
             "compact_gather": compact_gather.compact_gather}
 
 
+def pack_counters():
+    """K12's entry points, which the deferred INNER join no longer reaches."""
+    from datafusion_parallelism_tpu_torch.kernels import pack_rows
+    return {"pack_rows": pack_rows.pack_rows, "unpack_rows": pack_rows.unpack_rows}
+
+
 def agg_counters():
     """The chain's launch counters: K5-K8's, K1's and K12's entry points
     (K13 serves the out-of-core path only)."""
@@ -3675,6 +3790,8 @@ def main() -> int:
     wrappers = launch_counters()
     for w in wrappers.values():
         w.launches = 0
+    k12 = pack_counters()
+    k12_before = {name: w.launches for name, w in k12.items()}
     phase_entry(device)
     phase_size512(device)
     _, sf10 = phase_sf10(device)
@@ -3682,7 +3799,10 @@ def main() -> int:
     missing = [name for name, n in launches.items() if n < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    log(f"phase 6 ok: launches during phases 3-5: {launches}")
+    packed = {name: w.launches - k12_before[name] for name, w in k12.items()}
+    if any(packed.values()):
+        raise AssertionError(f"the deferred INNER join launched K12: {packed}")
+    log(f"phase 6 ok: launches during phases 3-5: {launches}; K12 {packed}")
     phase_sf10_kernels(*sf10)
     del sf10
 

@@ -34,6 +34,11 @@
 //     coalesced writes. (Scattering them from inside the last pass, as
 //     the pass writes each row id, measured slower on the H100: its reads
 //     wait on the pass's writes, tools/bench_csr_join.py --explore);
+//   * on request the gather writes the rows row-major instead, each row's
+//     words and its row id padded to 4 or 8 words (16 or 32 bytes, one
+//     aligned unit), perm then a buffer of its own: the deferred join's
+//     recheck (K3's second pass) reads a candidate's words in one load,
+//     where a word-major row costs a 32-byte sector a word;
 //   * the T side: the last pass also writes its sorted
 //     keys (the padding's, T, implied past the count); a fill writes every
 //     bucket's offset, start and count once and reads nothing T-sized: a
@@ -46,8 +51,8 @@
 //     Counting into the counts by atomics, then one look-back scan over
 //     them, measured slower at every shape (tools/bench_csr_join.py,
 //     PERF.md).
-// counts is start_count's second row and perm rows_out's last: the wrapper
-// returns views, so nothing is written twice.
+// counts is start_count's second row and perm (word-major) rows_out's
+// last: the wrapper returns views, so nothing is written twice.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -299,6 +304,34 @@ __global__ void __launch_bounds__(256) rows_gather_kernel(const int32_t* __restr
     if (j0 + 256 * u < n) rows_out[w * n + j0 + 256 * u] = v[u];
 }
 
+// Row-major rows: out[j * RW + w] = rows[w][perm[j]] for w < R, perm[j]
+// at w = R, zeros up to RW; a thread four output rows 256 apart, every
+// word read issued before the rows are stored, one 16-byte store a 4-word
+// unit
+template <int RW>
+__global__ void __launch_bounds__(256) rows_gather_rm_kernel(const int32_t* __restrict__ rows,
+                                                             int R, i64 n,
+                                                             const int32_t* __restrict__ perm,
+                                                             int32_t* __restrict__ out) {
+  const i64 j0 = (i64)blockIdx.x * 1024 + threadIdx.x;
+  int32_t p[4], v[4][RW];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) p[u] = j0 + 256 * u < n ? __ldg(perm + j0 + 256 * u) : 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int w = 0; w < RW; ++w)
+      v[u][w] = w < R && j0 + 256 * u < n ? __ldg(rows + w * n + p[u]) : w == R ? p[u] : 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (j0 + 256 * u >= n) continue;
+    int4* dst = (int4*)(out + (j0 + 256 * u) * RW);
+#pragma unroll
+    for (int q = 0; q < RW / 4; ++q)
+      dst[q] = make_int4(v[u][4 * q], v[u][4 * q + 1], v[u][4 * q + 2], v[u][4 * q + 3]);
+  }
+}
+
 struct CsrScratch {
   dfp::OneSweepScratch os;
   int32_t* first;      // the fill's tile bounds
@@ -347,13 +380,16 @@ extern "C" long long dfp_csr_build_scratch_bytes(long long n, long long T, int n
 // slot [n] in [0, T] (T = nulls and padding); rows [n_rows, n] narrow words;
 // pass_width[n_passes] the digits of the sort, least significant first,
 // covering the bits of T (kernels/csr_build.py `digit_passes`). Out:
-// offsets [T+2], start_count [2, T+1] (the
-// second row the counts), rows_out [n_rows + 1, n] in perm order, the last
-// row the row id (the perm).
+// offsets [T+2], start_count [2, T+1] (the second row the counts), perm
+// [n], and the narrow rows in perm order with the row id after them:
+// row_words 0, rows_out [n_rows + 1, n] word-major, perm its last row;
+// row_words 4 or 8 (at least n_rows + 1), rows_out [n, row_words]
+// row-major, 16-byte aligned, the words past the row id zeros.
 extern "C" int dfp_csr_build(const void* slot, long long n, long long T, const void* rows,
                              int n_rows, const int* pass_width, int n_passes,
-                             void* offsets, void* start_count, void* rows_out, void* scratch,
-                             long long scratch_bytes, void* stream) {
+                             void* offsets, void* start_count, void* perm_out, void* rows_out,
+                             int row_words, void* scratch, long long scratch_bytes,
+                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int bits = 0;
   while ((1LL << bits) <= T) ++bits;  // the largest key is T
@@ -363,13 +399,16 @@ extern "C" int dfp_csr_build(const void* slot, long long n, long long T, const v
     covered += pass_width[p];
   }
   if (T < 1 || covered != bits || n_rows < 0) return (int)cudaErrorInvalidValue;
+  if (row_words != 0 && ((row_words != 4 && row_words != 8) || n_rows + 1 > row_words ||
+                         ((uintptr_t)rows_out & 15) != 0))
+    return (int)cudaErrorInvalidValue;
   const CsrScratch s = csr_carve((char*)scratch, n, T, n_passes);
   if (scratch_bytes < s.bytes) return (int)cudaErrorInvalidValue;
   const int32_t* sl = (const int32_t*)slot;
   int32_t* off = (int32_t*)offsets;
   int32_t* start = (int32_t*)start_count;
   int32_t* counts = start + (T + 1);
-  int32_t* perm = (int32_t*)rows_out + (i64)n_rows * n;
+  int32_t* perm = (int32_t*)perm_out;
   uint32_t* keys_a = (uint32_t*)s.os.keys_a;
   uint32_t* keys_b = (uint32_t*)s.os.keys_b;
   cudaMemsetAsync(scratch, 0, (size_t)s.os.zero_bytes, st);
@@ -395,7 +434,13 @@ extern "C" int dfp_csr_build(const void* slot, long long n, long long T, const v
     kin = kout;
     vin = vout;
   }
-  if (n > 0 && n_rows > 0)
+  if (n > 0 && row_words == 4)
+    rows_gather_rm_kernel<4><<<dfp::grid_for(n, 1024), 256, 0, st>>>(
+        (const int32_t*)rows, n_rows, n, perm, (int32_t*)rows_out);
+  else if (n > 0 && row_words == 8)
+    rows_gather_rm_kernel<8><<<dfp::grid_for(n, 1024), 256, 0, st>>>(
+        (const int32_t*)rows, n_rows, n, perm, (int32_t*)rows_out);
+  else if (n > 0 && n_rows > 0)
     rows_gather_kernel<<<dim3(dfp::grid_for(n, 1024), (unsigned)n_rows), 256, 0, st>>>(
         (const int32_t*)rows, n, perm, (int32_t*)rows_out);
   // the sorted keys: kin's first *valid, then T (n == 0: none is read)

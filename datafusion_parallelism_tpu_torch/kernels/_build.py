@@ -120,9 +120,10 @@ def check(err: int, name: str) -> None:
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
-            device: torch.device = None) -> None:
+            device: torch.device = None, contiguous: bool = True) -> None:
     """Raise unless `t` is a contiguous CUDA tensor of this dtype (and shape
-    and device, where given): what every kernel of the library takes."""
+    and device, where given): what every kernel of the library takes (a
+    kernel that reads through strides checks them itself: contiguous=False)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -131,7 +132,7 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 

@@ -11,10 +11,19 @@ Replaces the JAX package's `hash_table.probe_ranges` / `probe_candidates`
 candidate fetch and key recheck (ops/join.py:277-320). The CUDA kernel is
 `csrc/probe_expand.cu`, whose header says what bounds it on the H100: the
 first pass reads one offset pair a probe row and takes its scan in the
-same launch (`range_tiles` blocks), the second runs one thread per output
-slot; the plain versions below are the same functions in torch ops. On
-CPU tensors the wrappers run the plain versions; on CUDA tensors they
-launch the kernel or raise.
+same launch (`range_tiles` blocks), the second takes a tile of 1,024
+output slots a block (the rows owning each tile's first slot from a launch
+before it, each slot's row by marks and a max-scan over the tile's bases
+in shared memory) and reads each candidate's build row in one load where
+the rows are row-major; the plain
+versions below are the same functions in torch ops. On CPU tensors the
+wrappers run the plain versions; on CUDA tensors they launch the kernel or
+raise.
+
+The build rows `bwords` [R+1, n] (word k of table position r at
+bwords[k, r], the row id last) are word-major (contiguous), or the view
+of a row-major [n, 4 or 8] buffer that K2 writes for the deferred join
+(kernels/csr_build.py `row_major`): strides (1, 4 or 8), 16-byte aligned.
 
 Candidate totals are summed in int64: a total of 2^31 or more raises
 OverflowError, where the JAX package's int32 cumsum would wrap.
@@ -31,6 +40,7 @@ from . import _build
 
 MAX_EQ_WORDS, MAX_KEYS = 8, 4
 RANGE_TILE = 256 * 16   # probe rows a first-pass block takes (csrc/probe_expand.cu)
+ROW_MAJOR_WORDS = (4, 8)   # the padded widths of row-major build rows
 Ranges = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 # one key column of the recheck plan (ops/join.py `_defer_key_plan`):
 # (build word rows, probe word rows, (build validity row, bit),
@@ -119,8 +129,9 @@ def expand_ranges_plain(start, count, base, total, pwords, bwords, compares, out
     Probe row i owns slots [base[i], base[i]+count[i]); slot j's candidate
     is table position pos = start[i] + j - base[i]. `pwords` [*, m] are the
     probe's narrow word rows, `bwords` [*, cap] the build's in table order
-    with the build row id last. match = keys equal and both valid; past
-    min(total, out_cap) match is False and probe_idx = build_id = 0."""
+    with the build row id last, in either layout (`build_strides`). match
+    = keys equal and both valid; past min(total, out_cap) match is False
+    and probe_idx = build_id = 0."""
     m, dev = start.shape[0], start.device
     j = torch.arange(out_cap, dtype=torch.int64, device=dev)
     # replicate_rows_exact: each non-empty segment's first slot gets its
@@ -171,12 +182,27 @@ def _spec(compares: Sequence[Compare]):
     return (ctypes.c_int * len(fields))(*fields)
 
 
+def build_strides(bwords: torch.Tensor) -> Tuple[int, int]:
+    """(word stride, row stride) of the build rows: word-major (contiguous)
+    or row-major (strides (1, 4 or 8), 16-byte aligned, the words within
+    the padded row); raises on any other layout."""
+    if bwords.is_contiguous():
+        return bwords.stride()
+    wstride, rstride = bwords.stride()
+    if (wstride != 1 or rstride not in ROW_MAJOR_WORDS or bwords.shape[0] > rstride
+            or bwords.data_ptr() % 16):
+        raise ValueError(f"bwords: strides {bwords.stride()} are neither word-major nor "
+                         f"row-major rows of {ROW_MAJOR_WORDS} words, 16-byte aligned")
+    return wstride, rstride
+
+
 def _check_expand(start, pwords, bwords, compares, out_cap):
     dev, m = start.device, start.shape[0]
     if pwords.dim() != 2 or bwords.dim() != 2:
         raise ValueError("pwords and bwords are [rows, n] word matrices")
     _build.require(pwords, "pwords", torch.int32, (pwords.shape[0], m), dev)
-    _build.require(bwords, "bwords", torch.int32, None, dev)
+    _build.require(bwords, "bwords", torch.int32, None, dev, contiguous=False)
+    build_strides(bwords)
     for bw, pw, (bvr, _), (pvr, _) in compares:
         if max(bw + [bvr]) >= bwords.shape[0] - 1 or max(pw + [pvr]) >= pwords.shape[0]:
             raise ValueError("recheck plan names a word row the matrices lack")
@@ -199,19 +225,24 @@ def expand_ranges(start, count, base, total, pwords, bwords, compares, out_cap):
         raise ValueError("probe side has no rows")
     specs = _check_expand(start, pwords, bwords, compares, out_cap)
     dev = start.device
+    scratch_bytes = _build.function("dfp_probe_expand_scratch_bytes", (_build.I64,),
+                                    _build.I64)
     fn = _build.function("dfp_probe_expand", (
         _build.P, _build.P, _build.P, _build.I64, _build.P, _build.I64, _build.P,
-        _build.I64, _build.I32, ctypes.POINTER(ctypes.c_int), _build.I64, _build.I32,
-        _build.P, _build.P, _build.P, _build.P))
+        _build.I64, _build.I64, _build.I32, _build.I64, ctypes.POINTER(ctypes.c_int),
+        _build.I64, _build.I32, _build.P, _build.P, _build.P, _build.P, _build.I64, _build.P))
+    wstride, rstride = build_strides(bwords)
+    nbytes = scratch_bytes(out_cap)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     total64 = total.to(torch.int64)
     match = torch.empty(out_cap, dtype=torch.bool, device=dev)
     probe_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
     build_id = torch.empty(out_cap, dtype=torch.int32, device=dev)
     for k, spec in enumerate(specs):
         err = fn(start.data_ptr(), base.data_ptr(), total64.data_ptr(), m, pwords.data_ptr(),
-                 m, bwords.data_ptr(), bwords.shape[1], bwords.shape[0], spec, out_cap,
-                 int(k > 0), match.data_ptr(), probe_idx.data_ptr(), build_id.data_ptr(),
-                 _build.stream(dev))
+                 m, bwords.data_ptr(), wstride, rstride, bwords.shape[0], bwords.shape[1],
+                 spec, out_cap, int(k > 0), match.data_ptr(), probe_idx.data_ptr(),
+                 build_id.data_ptr(), scratch.data_ptr(), nbytes, _build.stream(dev))
         expand_ranges.launches += 1
         _build.check(err, "expand_ranges")
     return match, probe_idx, build_id

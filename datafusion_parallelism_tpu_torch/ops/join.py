@@ -5,9 +5,10 @@ Counterpart of `datafusion_parallelism_tpu/ops/join.py`. Two paths, as in
 the JAX package:
 
   * deferred (no residual, not a late-materialized INNER join, keys whose
-    packed words compare bit for bit): only the key words, the validity
-    word and the row id travel through the candidate stage; full rows are
-    gathered once, at the matches (JAX ops/join.py:255-320, :393-416);
+    words compare bit for bit): only the key words (`key_words`), their
+    validity words and the row id travel through the candidate stage; the
+    columns of both sides are gathered once, at the matches, from the
+    tables' own buffers (JAX ops/join.py:255-320, :393-416);
   * full fetch (a residual filter, `expanded` INNER, float keys, keys of
     different widths): every candidate pair's whole rows, rechecked by
     value (JAX :322-357).
@@ -15,11 +16,13 @@ the JAX package:
 The kernels, each reached through a `JoinKernels` table:
 
   K1  hash_slot       row hash and bucket (OA: home slot) of both sides
-  K2  csr_build       CSR table + build rows in bucket order
+  K2  csr_build       CSR table + build rows in bucket order (row-major
+                      for the deferred path's recheck)
   K3  probe_expand    CSR candidate ranges (probe_ranges); the candidate
                       pairs of any strategy's ranges and the bitwise key
                       recheck of the deferred path (expand_ranges)
-  K4  compact_gather  stable compaction + full packed-row gather (deferred)
+  K4  compact_gather  stable compaction + both sides' columns gathered
+                      (deferred)
   K6  table_sort      SORT / OA: the build rows' stable order by hash
   K9  pair_fetch      whole candidate rows + the value recheck (full fetch)
   K10 match_flags     visited build rows / matched probe rows
@@ -30,9 +33,11 @@ The kernels, each reached through a `JoinKernels` table:
 
 plus K5 and K12 (through the chain's `ChainKernels`) for the SORT and OA
 builds' rows in table order, the compactions of the full-fetch pairs and
-of semi, anti and unmatched rows, and for packing and unpacking every
-table. Each wrapper launches its CUDA kernel on CUDA tensors and runs its
-plain torch version on CPU tensors.
+of semi, anti and unmatched rows, and for packing and unpacking the
+tables of those paths (a prepared build's rows, the full fetch, the outer
+joins' concatenation); the deferred INNER join packs nothing. Each
+wrapper launches its CUDA kernel on CUDA tensors and runs its plain torch
+version on CPU tensors.
 
 A frozen build side (`prepare_build`, JAX :85-162) is K1 and the
 strategy's build run once: streamed and grace-partitioned execution probe
@@ -64,7 +69,7 @@ from ..utils.columnar import (DeviceTable, Kind, PackedTable, Schema, compact_ro
                               int64_words, null_columns_like, pack_table, unpack_table)
 from .hash_table import (JoinStrategy, JoinTable, oa_table_rows, sort_table_rows,
                          table_ranges, table_size_for)
-from .hashing import KIND_I32, KIND_I64, key_words
+from .hashing import KIND_F32, KIND_F64, key_words
 
 
 class JoinType(enum.Enum):
@@ -124,32 +129,35 @@ def _field_info(layout):
     return info
 
 
-def _defer_key_plan(blayout, playout, build_keys, probe_keys):
-    """Word-row plan for the deferred probe path: which packed rows to
-    gather at candidate positions for the key recheck, and how to compare
-    them. None when bit-equality of packed words is not equivalent to the
-    value recheck (float keys: ±0.0; mixed-width keys: value promotion)."""
-    binfo, pinfo = _field_info(blayout), _field_info(playout)
-    brows, prows = [], []   # packed row ids to gather, de-duplicated
+def _packed_keys(layout, keys):
+    """Per key: (float?, word rows, (validity row, bit)) in a packed layout
+    (a prepared build's perm rows)."""
+    out = []
+    for k in keys:
+        kind, slot, n, vrow, bit = _field_info(layout)[k]
+        out.append((kind in (Kind.FLOAT64, Kind.FLOAT32), list(range(slot, slot + n)),
+                    (vrow, bit)))
+    return out
 
-    def row_of(rows, r):
-        if r not in rows:
-            rows.append(r)
-        return rows.index(r)
 
-    compares = []   # (b word idxs, p word idxs, b vword/bit, p vword/bit)
-    for bk, pk in zip(build_keys, probe_keys):
-        kb, sb, nb, vwb, bb = binfo[bk]
-        kp, sp, np_, vwp, bp = pinfo[pk]
-        if (nb != np_ or nb == 0
-                or kb in (Kind.FLOAT64, Kind.FLOAT32)
-                or kp in (Kind.FLOAT64, Kind.FLOAT32)):
+def _word_keys(cols):
+    """Per key: (float?, word rows, (validity row, bit)) in `key_words`'
+    rows: each column's words, then its validity as a 0/1 row."""
+    return [(kind in (KIND_F32, KIND_F64), list(rows), valid) for kind, rows, valid in cols]
+
+
+def _defer_key_plan(bkeys, pkeys):
+    """The recheck plan of the deferred probe path, from each side's keys
+    (`_word_keys` or `_packed_keys`): per key the build and probe word rows
+    compared bit for bit and each side's validity (row, bit). None when
+    bit-equality of the words is not equivalent to the value recheck
+    (float keys: ±0.0; mixed-width keys: value promotion)."""
+    compares = []
+    for (bf, bw, bv), (pf, pw, pv) in zip(bkeys, pkeys):
+        if bf or pf or len(bw) != len(pw) or not bw:
             return None
-        bw = [row_of(brows, sb + i) for i in range(nb)]
-        pw = [row_of(prows, sp + i) for i in range(nb)]
-        compares.append((bw, pw, (row_of(brows, vwb), bb),
-                         (row_of(prows, vwp), bp)))
-    return brows, prows, compares
+        compares.append((bw, pw, bv, pv))
+    return compares
 
 
 def _fetch_key(layout, name: str, build: bool):
@@ -223,21 +231,6 @@ PLAIN = JoinKernels(k1.hash_slot_plain, k2.csr_build_plain, k4.compact_gather_pl
                     k14.sorted_probe_plain, k15.oa_place_plain, k16.oa_probe_plain)
 
 
-def _hash_cols(compares, side: int):
-    """K1's key columns over one side's narrow rows, from the recheck plan:
-    a one-word key hashes as int32, a two-word key as int64 (float keys
-    never reach the plan)."""
-    return [(KIND_I32 if len(c[side]) == 1 else KIND_I64, tuple(c[side]), c[2 + side])
-            for c in compares]
-
-
-def _word_rows(pt: PackedTable, rows: List[int]) -> torch.Tensor:
-    """The packed word rows `rows` as one [len(rows), cap] matrix. Row views
-    and a stack: indexing with a Python list would copy the index to the
-    device and wait for it."""
-    return torch.stack([pt.packed[r] for r in rows])
-
-
 def _with_f64_pairs(pt: PackedTable) -> torch.Tensor:
     """The packed words with each float64 sidecar appended as its (lo, hi)
     word pair: the rows K2 puts into perm order for K9 (`_perm_rows`)."""
@@ -248,14 +241,15 @@ def _with_f64_pairs(pt: PackedTable) -> torch.Tensor:
 
 
 def _build_table(strategy: JoinStrategy, kernels: JoinKernels, chain: ChainKernels,
-                 words, cols, T: int, num_rows, build_valid, rows):
+                 words, cols, T: int, num_rows, build_valid, rows, row_major: bool = False):
     """K1 over the build's key words (null keys, padding and rows outside
     `build_valid` to slot T), then the strategy's table with `rows` [R, cap]
-    and the row id in its row order: K2 (CSR); K6 and K5's gather (SORT);
-    K6, K15 and K5's gather (OA). Returns (JoinTable, rows in table order)."""
+    and the row id in its row order: K2 (CSR; row-major rows on request);
+    K6 and K5's gather (SORT); K6, K15 and K5's gather (OA). Returns
+    (JoinTable, rows in table order)."""
     hashes, slot = kernels.hash_slot(words, cols, T, num_rows, build_valid)
     if strategy is JoinStrategy.CSR:
-        _, offsets, perm, start_count, rows_out = kernels.csr_build(slot, T, rows)
+        _, offsets, perm, start_count, rows_out = kernels.csr_build(slot, T, rows, row_major)
         return JoinTable(offsets, perm, hashes.new_empty(0, dtype=torch.int64),
                          start_count), rows_out
     ok = slot != T
@@ -342,43 +336,45 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
     if expanded and join_type is JoinType.INNER and return_visited:
         raise ValueError("an expanded INNER join returns no visited mask")
 
-    bp = prepared.packed if prepared is not None else pack_table(build, chain)
-    pp = pack_table(probe, chain)
     T = table_size_for(build.capacity)
     probe_ok = probe.row_mask() & _keys_valid(probe, probe_keys)
     if probe_valid is not None:
         probe_ok = probe_ok & probe_valid
-    plan = None
+    pwords, pcols = key_words([probe.column(k) for k in probe_keys])
+    if prepared is None:
+        bwords, bcols = key_words([build.column(k) for k in build_keys])
+        bkeys = _word_keys(bcols)
+    else:   # its key rows are read out of its packed perm rows
+        bkeys = _packed_keys(prepared.packed.layout, build_keys)
+    compares = None
     if residual is None and not (expanded and join_type is JoinType.INNER):
-        plan = _defer_key_plan(bp.layout, pp.layout, build_keys, probe_keys)
+        compares = _defer_key_plan(bkeys, _word_keys(pcols))
 
-    if plan is not None:
-        brows, prows, compares = plan
-        if prepared is not None:   # its key word rows and the row id, in table order
-            table, rows = prepared.table, prepared.perm_rows
-            bsorted = torch.stack([rows[r] for r in brows] + [rows[-1]])
+    if compares is not None:
+        # deferred: the key words, their validity rows and the row id in
+        # table order; the perm rows of a prepared build as they are
+        if prepared is not None:
+            table, bsorted = prepared.table, prepared.perm_rows
         else:
-            bnarrow = _word_rows(bp, brows)
-            table, bsorted = _build_table(strategy, kernels, chain, bnarrow,
-                                          _hash_cols(compares, 0), T, build.num_rows,
-                                          build_valid, bnarrow)
-        pnarrow = _word_rows(pp, prows)
-        ranges = _probe_table(table, kernels, pnarrow, _hash_cols(compares, 1), T, probe_ok)
+            table, bsorted = _build_table(strategy, kernels, chain, bwords, bcols, T,
+                                          build.num_rows, build_valid, bwords,
+                                          bwords.shape[0] + 1 <= k2.MAX_ROW_WORDS)
+        ranges = _probe_table(table, kernels, pwords, pcols, T, probe_ok)
         total = ranges[3]
-        match, probe_idx, build_id = kernels.expand_ranges(*ranges, pnarrow, bsorted, compares,
+        match, probe_idx, build_id = kernels.expand_ranges(*ranges, pwords, bsorted, compares,
                                                            out_cap)
         gb = gp = None
     else:
         # full fetch: the build's whole rows (float64 sidecars as word pairs)
         # go into table order (JAX `_perm_rows`), K9 fetches both sides'
         # rows at every candidate slot and rechecks the keys by value
+        bp = prepared.packed if prepared is not None else pack_table(build, chain)
+        pp = pack_table(probe, chain)
         if prepared is not None:
             table, bperm = prepared.table, prepared.perm_rows
         else:
-            bwords, bcols = key_words([build.column(k) for k in build_keys])
             table, bperm = _build_table(strategy, kernels, chain, bwords, bcols, T,
                                         build.num_rows, build_valid, _with_f64_pairs(bp))
-        pwords, pcols = key_words([probe.column(k) for k in probe_keys])
         start, _, base, total = _probe_table(table, kernels, pwords, pcols, T, probe_ok)
         out_b, out_bf, out_p, out_pf, probe_idx, build_id, match = kernels.pair_fetch(
             start, base, total, pp.packed, f64_matrix(pp), bperm, len(bp.f64s),
@@ -421,15 +417,16 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
         return out + (visited,) if return_visited else out
 
     def pairs_table() -> DeviceTable:
-        if gb is None:   # deferred: compact the pairs, fetch full rows once (K4)
-            out_b, out_bf, out_p, out_pf, n_match = kernels.compact_gather(
-                match, build_id, probe_idx, bp.packed, f64_matrix(bp), pp.packed,
-                f64_matrix(pp))
-            cb = PackedTable(out_b, dict(zip(bp.layout.f64_fields, out_bf)), bp.layout)
-            cp = PackedTable(out_p, dict(zip(pp.layout.f64_fields, out_pf)), pp.layout)
+        if gb is None:   # deferred: compact the pairs, gather both sides' columns (K4)
+            out_b, out_p, n_match = kernels.compact_gather(
+                match, build_id, probe_idx, [build.columns[c] for c in build.schema.names],
+                [probe.columns[c] for c in probe.schema.names], total)
             n = n_match.to(torch.int32)
-        else:            # full fetch: both sides compact in ONE K5 launch
-            (cb, cp), n = compact_rows([gb, gp], match, out_cap, chain)
+            return hstack_tables(DeviceTable(build.schema, dict(zip(build.schema.names, out_b)), n),
+                                 DeviceTable(probe.schema, dict(zip(probe.schema.names, out_p)), n),
+                                 n)
+        # full fetch: both sides compact in ONE K5 launch
+        (cb, cp), n = compact_rows([gb, gp], match, out_cap, chain)
         return hstack_tables(unpack_table(cb, build.schema, n, chain),
                              unpack_table(cp, probe.schema, n, chain), n)
 

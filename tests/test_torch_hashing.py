@@ -117,9 +117,10 @@ def test_hash_slot_on_cpu_runs_the_plain_version():
 
 @pytest.mark.parametrize("kinds", [("int32",), ("int64",), ("bool", "int64", "int32")])
 def test_join_hashes_packed_rows_like_jax_hash_rows(kinds):
-    """The join hands K1 the packed narrow rows (key words and validity
-    bits) of `_defer_key_plan`; the hash over them equals JAX's hash_rows
-    over the key columns."""
+    """The deferred join hands K1 the key columns' `key_words` rows, which
+    its recheck plan (`_defer_key_plan`) names; a prepared build's plan
+    names the same keys' words and validity bits in its packed rows. The
+    hash over either equals JAX's hash_rows over the key columns."""
     from datafusion_parallelism_tpu_torch.ops import join as tjoin
     from datafusion_parallelism_tpu_torch.utils import columnar as tcol
     rng = np.random.default_rng(len(kinds) + 40)
@@ -129,9 +130,16 @@ def test_join_hashes_packed_rows_like_jax_hash_rows(kinds):
     data["pad"] = rng.normal(size=N)
     table = tcol.HostTable.from_numpy(data, validity={n: m for n, (_, m) in zip(names, cols)}
                                       ).to_device(device="cpu")
+    words, kcols = th.key_words([table.column(n) for n in names])
+    assert tjoin._defer_key_plan(tjoin._word_keys(kcols), tjoin._word_keys(kcols)) is not None
+    h, _ = k1.hash_slot(words, kcols)
+    np.testing.assert_array_equal(h.numpy()[:N], _jax_hash(cols))
     pt = tcol.pack_table(table)
-    brows, _, compares = tjoin._defer_key_plan(pt.layout, pt.layout, names, names)
-    h, _ = k1.hash_slot(tjoin._word_rows(pt, brows), tjoin._hash_cols(compares, 0))
+    packed = tjoin._packed_keys(pt.layout, names)
+    assert tjoin._defer_key_plan(packed, tjoin._word_keys(kcols)) is not None
+    pcols = [(th.KIND_I32 if len(rows) == 1 else th.KIND_I64, tuple(rows), valid)
+             for _, rows, valid in packed]
+    h, _ = k1.hash_slot(pt.packed, pcols)
     np.testing.assert_array_equal(h.numpy()[:N], _jax_hash(cols))
 
 

@@ -4,8 +4,9 @@ refused, each at its smallest input (chip_smoke.py's `queue3_cases`).
 The kernel wrappers check their limits only for CUDA tensors, so these
 tests run the port on the CPU through kernel tables whose entry points
 first apply the CUDA wrapper's own host-side checks (K1's and K3's
-`_spec`, K9's `_spec`, `_agg.spec`, `ops/expressions.py::_fits`) to every
-launch the wrapper would make, then run the plain version. Each query
+`_spec`, K4's descriptor table, K9's `_spec`, `_agg.spec`,
+`ops/expressions.py::_fits`) to every launch the wrapper would make, then
+run the plain version. Each query
 must pass those checks and equal the JAX package's rows and the answer
 chip_smoke.py holds the card to.
 """
@@ -20,6 +21,7 @@ from datafusion_parallelism_tpu.ops import join as jjoin
 from datafusion_parallelism_tpu.utils import columnar as jcol
 import datafusion_parallelism_tpu_torch as tdfp
 from datafusion_parallelism_tpu_torch.kernels import _agg, _build
+from datafusion_parallelism_tpu_torch.kernels import compact_gather as k4
 from datafusion_parallelism_tpu_torch.kernels import expr_eval as k17
 from datafusion_parallelism_tpu_torch.kernels import hash_slot as k1
 from datafusion_parallelism_tpu_torch.kernels import pair_fetch as k9
@@ -65,6 +67,16 @@ def _checked_tables(launches: Counter):
         return k3.expand_ranges_plain(start, count, base, total, pwords, bwords, compares,
                                       out_cap)
 
+    def compact_gather(match, build_id, probe_idx, build_cols, probe_cols, total=None):
+        for group in k4.col_groups(len(build_cols), len(probe_cols)):
+            spec = k4.SpecC(n=len(group))   # raises past the table's MAX_COLS fields
+            for k, (side, c) in enumerate(group):
+                values = (build_cols, probe_cols)[side][c][0]
+                spec.c[k].width, spec.c[k].side = k4._WIDTH[values.dtype], side
+            launches["compact_gather"] += 1
+        return k4.compact_gather_plain(match, build_id, probe_idx, build_cols, probe_cols,
+                                       total)
+
     def pair_fetch(start, base, total, pwords, pf64, bwords, n_bf64, keys, out_cap):
         for group in k9.key_groups(keys):
             k9._spec(group, bwords.shape[0] - 1, pwords.shape[0], pf64.shape[0])
@@ -92,7 +104,7 @@ def _checked_tables(launches: Counter):
         return k17.expr_eval_plain(program, *args, **kwargs)
 
     join = JOIN_PLAIN._replace(hash_slot=hash_slot, expand_ranges=expand_ranges,
-                               pair_fetch=pair_fetch)
+                               compact_gather=compact_gather, pair_fetch=pair_fetch)
     chain = CHAIN_PLAIN._replace(hash_slot=hash_slot, segment_agg=segment_agg,
                                  direct_agg=direct_agg, expr_eval=expr_eval)
     return join, chain
@@ -158,6 +170,8 @@ def test_five_key_deferred_join_rechecks_in_key_groups(join_type, monkeypatch):
     out, total = hash_join(lt.to_device(device="cpu"), rt.to_device(device="cpu"), bk, pk,
                            JoinType[join_type], 1 << 16, kernels=join, chain=chain)
     assert launches["expand_ranges"] == 2 and launches["pair_fetch"] == 0, launches
+    # the pairs' columns in one K4 launch (a semi join emits no pairs)
+    assert launches["compact_gather"] == int(join_type != "RIGHT_SEMI"), launches
     jl, jr = (jcol.HostTable.from_pydict(tables[n]) for n in ("l", "r"))
     want, jtotal = jjoin.hash_join(jl.to_device(), jr.to_device(), bk, pk,
                                    jjoin.JoinType[join_type], 1 << 16)

@@ -74,8 +74,9 @@ def launch_split(torch, fn, args, iters: int = 3):
 
 def shape(torch, entry: str, args) -> dict:
     if entry == "csr_build":
-        slot, T, rows = args
+        slot, T, rows = args[:3]
         return {"n": slot.shape[0], "T": T, "R": rows.shape[0], "bits_T": T.bit_length(),
+                "row_major": bool(args[3]) if len(args) > 3 else False,
                 "rows_in_bucket_T": int((slot == T).sum())}
     if entry == "probe_ranges":
         slot, ok, table = args
@@ -83,7 +84,8 @@ def shape(torch, entry: str, args) -> dict:
         return {"m": slot.shape[0], "T": T, "ok_rows": int(ok.sum())}
     start, count, base, total, pwords, bwords, compares, out_cap = args
     return {"m": start.shape[0], "total": int(total), "out_cap": out_cap,
-            "bwords": list(bwords.shape), "pwords": list(pwords.shape),
+            "bwords": list(bwords.shape), "bwords_strides": list(bwords.stride()),
+            "pwords": list(pwords.shape),
             "keys": len(compares), "key_words": sum(len(c[0]) for c in compares)}
 
 

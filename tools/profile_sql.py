@@ -15,8 +15,11 @@ checks) when no wrapper did. Per query it prints, as
 `tools/profile_join.py` does for the join: the window from collect()'s
 start to its last device work, the device busy time and share, and device
 ms per kernel and of the glue, K5's stage split by its kernels' names
-into its compaction and its row gather, and K7's into its pass and its
-zero tail; then the sums over the queries.
+into its compaction and its row gather, K7's into its pass and its
+zero tail, and K12's by its caller: the join (a call made inside
+`ops/join.py`: its packs, the unpack of its pairs, the outer joins'
+concatenations and the semi and anti joins' filters) against everything
+else; then the sums over the queries.
 The full result goes to --out as JSON. Needs a CUDA device.
 """
 
@@ -47,6 +50,10 @@ from datafusion_parallelism_tpu_torch.tpch import QUERIES  # noqa: E402
 
 # the kernels the SQL path launches (the distributed join's are not on it)
 STAGES = tuple(k for k in chip_smoke.KERNEL_INFO if k not in chip_smoke.DIST_KERNELS)
+# K12's calls from inside the join: a stage of their own in the trace until
+# `join_caller` folds them into K12's
+JOIN_K12 = "pack_rows@join"
+JOIN_SOURCE = os.path.join("ops", "join.py")
 
 
 # the stages split by the names of their device kernels: K5's by entry
@@ -75,11 +82,31 @@ def stage_split(stage: str, stage_ms: float, kernel_ms: dict) -> dict:
     return split
 
 
+def _from_join() -> bool:
+    """Whether a frame of `ops/join.py` is on the calling stack."""
+    frame = sys._getframe(2)
+    while frame is not None:
+        if frame.f_code.co_filename.endswith(JOIN_SOURCE):
+            return True
+        frame = frame.f_back
+    return False
+
+
 def _wrap(kernel, fn):
     def run(*args):
-        with torch.profiler.record_function(f"stage:{kernel}"):
+        stage = JOIN_K12 if kernel == "pack_rows" and _from_join() else kernel
+        with torch.profiler.record_function(f"stage:{stage}"):
             return fn(*args)
     return run
+
+
+def join_caller(stage_ms: dict) -> dict:
+    """K12's stage split by caller: the join's calls (JOIN_K12's stage,
+    folded here into K12's) and the others'."""
+    join = stage_ms.pop(JOIN_K12)
+    split = {"join": join, "other": stage_ms["pack_rows"]}
+    stage_ms["pack_rows"] += join
+    return split
 
 
 def staged():
@@ -113,14 +140,15 @@ def main() -> int:
     result = {"card": smi, "sf": chip_smoke.TPCH_SF, "queries": {}}
     total = {k: 0.0 for k in ("window_ms", "busy_ms")}
     stage_total = {}
-    split_total = {stage: {} for stage in SPLITS}
+    split_total = {stage: {} for stage in (*SPLITS, "pack_rows")}
     for q in args.query or sorted(QUERIES):
         handle = ctx.sql(QUERIES[q], kernels=join, chain=chain)
         handle.collect()   # settles the capacities
-        res = profile_join.profile(handle.collect, 3, trace_path, STAGES, "query")
+        res = profile_join.profile(handle.collect, 3, trace_path, STAGES + (JOIN_K12,), "query")
         kernel_ms = res.pop("kernel_ms")
         res["splits"] = {stage: stage_split(stage, res["stage_ms"][stage], kernel_ms)
                          for stage in SPLITS}
+        res["splits"]["pack_rows"] = join_caller(res["stage_ms"])
         result["queries"][q] = res
         profile_join.report(f"Q{q}", res, "query")
         for stage, split in res["splits"].items():
