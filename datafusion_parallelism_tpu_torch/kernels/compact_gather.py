@@ -75,15 +75,19 @@ class SpecC(ctypes.Structure):
     _fields_ = [("n", ctypes.c_int), ("c", ColC * MAX_COLS)]
 
 
-def _check_side(cols: Sequence[Column], name: str, dev) -> None:
-    if not cols:
-        return
-    cap = cols[0][0].shape[0]
+def _side(cols: Sequence[Column], name: str, dev) -> List[Column]:
+    """One side's columns as the kernel reads them (contiguous, as K12's
+    pack took them), checked: one capacity, a K4 width, bool validity."""
+    out = []
     for k, (v, valid) in enumerate(cols):
         if v.dtype not in _WIDTH:
             raise TypeError(f"{name} column {k}: dtype {v.dtype} has no K4 width")
+        v, valid = v.contiguous(), valid.contiguous()
+        cap = out[0][0].shape[0] if out else v.shape[0]
         _build.require(v, f"{name} column {k} values", v.dtype, (cap,), dev)
         _build.require(valid, f"{name} column {k} validity", torch.bool, (cap,), dev)
+        out.append((v, valid))
+    return out
 
 
 def compact_gather(match, build_id, probe_idx, build_cols, probe_cols,
@@ -100,9 +104,7 @@ def compact_gather(match, build_id, probe_idx, build_cols, probe_cols,
     _build.require(probe_idx, "probe_idx", torch.int32, (n,), dev)
     if total is not None:
         _build.require(total, "total", torch.int32, (), dev)
-    sides = (list(build_cols), list(probe_cols))
-    _check_side(sides[0], "build", dev)
-    _check_side(sides[1], "probe", dev)
+    sides = (_side(build_cols, "build", dev), _side(probe_cols, "probe", dev))
     outs = tuple([(torch.empty(n, dtype=v.dtype, device=dev),
                    torch.empty(n, dtype=torch.bool, device=dev)) for v, _ in cols]
                  for cols in sides)
