@@ -334,17 +334,20 @@ def stub_launch(monkeypatch):
     return calls
 
 
-def _launch_k4(build_cols, probe_cols, n=16, total=None):
-    """K4's CUDA launch path on CPU tensors (the wrapper's `is_cuda` test
-    answered yes)."""
-    match = torch.zeros(n, dtype=torch.bool)
-    ids = torch.zeros(n, dtype=torch.int32)
+class _Cuda(torch.Tensor):
+    """A CPU tensor that a wrapper's `is_cuda` test takes for a card's, so
+    that its launch path runs against the stubbed launchers."""
 
-    class Cuda(torch.Tensor):
-        @property
-        def is_cuda(self):
-            return True
-    return k4.compact_gather(match.as_subclass(Cuda), ids, ids, build_cols, probe_cols, total)
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _launch_k4(build_cols, probe_cols, n=16, total=None):
+    """K4's CUDA launch path on CPU tensors."""
+    match = torch.zeros(n, dtype=torch.bool).as_subclass(_Cuda)
+    ids = torch.zeros(n, dtype=torch.int32)
+    return k4.compact_gather(match, ids, ids, build_cols, probe_cols, total)
 
 
 def _cols(n_cols, cap=8, dtype=torch.int32):
@@ -408,12 +411,7 @@ def test_expand_ranges_hands_the_kernel_the_build_strides(stub_launch):
         if rows.data_ptr() % 16:
             continue
         del stub_launch[:]
-
-        class Cuda(torch.Tensor):
-            @property
-            def is_cuda(self):
-                return True
-        k3.expand_ranges(start.as_subclass(Cuda), start, start, total, pwords, rows, plan, 8)
+        k3.expand_ranges(start.as_subclass(_Cuda), start, start, total, pwords, rows, plan, 8)
         (name, args), = [c for c in stub_launch if c[0] == "dfp_probe_expand"]
         assert name == "dfp_probe_expand" and (args[7], args[8]) == strides
         assert args[9] == rows.shape[0] and args[10] == n
