@@ -14,8 +14,9 @@
 // one or two words and its validity word and writes 8 bytes, against ~20
 // integer ops per column. One thread per row, words in word-major [R, n]
 // rows, so every load and store of a warp is one coalesced 128-byte line.
-// The join hands over the packed narrow rows it gathers anyway (key words
-// plus validity words), so no separate key matrix is built for the hash.
+// The join hands over its `key_words` rows (key words plus 0/1 validity
+// rows), the rows K2 also puts into table order for K3's recheck, so no
+// separate key matrix is built for the hash.
 
 #include <cstdint>
 #include <cuda_runtime.h>
