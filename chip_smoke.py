@@ -1022,23 +1022,27 @@ def phase_csr_edges(device) -> None:
                                            + [rng.integers(0, 2**31, m)]).astype(np.int32))
         pwords = pwords.to(device)
         compares = [([k], [k], (5, k), (5, k)) for k in range(keys)]
+        # the deferred join's plan: no build validity test
+        probe_only = [(bw, pw, None, pv) for bw, pw, _, pv in compares]
         with no_launches():
             want = k3.probe_ranges_plain(pslot, ok, offsets)
         got = k3.probe_ranges(pslot, ok, offsets)
         out_cap = cap_of(int(got[3]))
-        with no_launches():
-            want_x = k3.expand_ranges_plain(*want, pwords, bwords, compares, out_cap)
         try:
-            for layout, rows in (("word-major", bwords), ("row-major", rm[4])):
-                got_x = k3.expand_ranges(*got, pwords, rows, compares, out_cap)
-                again = k3.expand_ranges(*got, pwords, rows, compares, out_cap)
-                torch.cuda.synchronize()
-                max_abs_err((got, got_x), (want, want_x))
-                max_abs_err(again, got_x)
+            for plan, label in ((compares, ""), (probe_only, ", no build validity")):
+                with no_launches():
+                    want_x = k3.expand_ranges_plain(*want, pwords, bwords, plan, out_cap)
+                for layout, rows in (("word-major", bwords), ("row-major", rm[4])):
+                    got_x = k3.expand_ranges(*got, pwords, rows, plan, out_cap)
+                    again = k3.expand_ranges(*got, pwords, rows, plan, out_cap)
+                    torch.cuda.synchronize()
+                    max_abs_err((got, got_x), (want, want_x))
+                    max_abs_err(again, got_x)
         except AssertionError as e:
-            raise AssertionError(f"K3 {name} ({layout}): {e}") from None
+            raise AssertionError(f"K3 {name} ({layout}{label}): {e}") from None
         lines.append(f"K3 {name} (m {m}, T {T}, total {int(got[3])}, out_cap {out_cap}, "
-                     f"{len(k3.key_groups(compares))} key groups, both layouts)")
+                     f"{len(k3.key_groups(compares))} key groups, both layouts, with and "
+                     "without the build validity test)")
         del got, want, got_x, want_x, again, rm
     lines += k4_edges(rng, device)
     log("phase 2f ok: K2 == csr_build_plain (both layouts), K3 == probe_ranges_plain, "

@@ -29,12 +29,14 @@
 //           EX_WINDOW rows, a tile of mostly empty rows, each slot
 //           binary-searches its rows in place). pos = start[i] + j -
 //           base[i]; the candidate's build row is read in one go: the
-//           deferred join's K2 writes its key words, validity words and
-//           row id row-major, padded to 4 or 8 words (one or two 16-byte
-//           loads in one 32-byte sector; word-major rows, as SORT's, OA's
-//           and a prepared build's, cost a sector a word), four slots a
-//           thread with all their rows in flight; match = key words equal
-//           and both validity bits set. Slots past min(total, out_cap),
+//           deferred join's K2 writes its key words and row id row-major,
+//           padded to 4 or 8 words (one or two 16-byte loads in one
+//           32-byte sector; word-major rows, as SORT's, OA's and a
+//           prepared build's, cost a sector a word), four slots a thread
+//           with all their rows in flight; match = key words equal and the
+//           plan's validity bits set (a key may name no build validity
+//           row: every table holds only rows whose keys are valid, K1
+//           sends the rest to slot T). Slots past min(total, out_cap),
 //           read on the card, are match = 0, probe_idx = build_id = 0: a
 //           block past them writes its slots' zeros four a thread and
 //           leaves. Measured on an H100 80GB HBM3 at 700 W (PERF.md): at a
@@ -61,7 +63,8 @@ constexpr int RANGE_TILE = RANGE_BLOCK * RANGE_ITEMS;   // probe rows a pass-1 b
 inline i64 range_tiles(i64 m) { return (m + RANGE_TILE - 1) / RANGE_TILE; }
 
 // The key-recheck plan (ops/join.py `_defer_key_plan`): word rows to compare
-// and, per key column, the validity word row and bit on each side.
+// and, per key column, the validity word row and bit on each side (a build
+// row below 0: no build-side test).
 struct KeySpec {
   int n_eq;
   int eq_b[MAX_EQ];
@@ -177,16 +180,13 @@ __global__ void tile_rows_kernel(const int32_t* __restrict__ base, i64 m,
 // Second pass, one block a tile of EX_TILE slots (slot j of thread t:
 // j0 + 256 u + t). RW: the build rows' layout, 4 or 8 for row-major rows
 // of that many words (one or two 16-byte loads a candidate), 0 for any
-// other stride (a load a word). SKIP (measurement only, wrong results): 1
-// leaves out the build-row reads, 2 the rows' search and marks (slot j's
-// row is min(j, m - 1), its position clamped into the n_table rows), 4
-// the zero tail.
-template <int RW, int SKIP>
+// other stride (a load a word).
+template <int RW>
 __global__ void __launch_bounds__(EX_BLOCK) probe_expand_kernel(
     const int32_t* __restrict__ start, const int32_t* __restrict__ base,
     const i64* __restrict__ total, i64 m, const int32_t* __restrict__ tile_rows,
     const int32_t* __restrict__ pwords, i64 p_stride, const int32_t* __restrict__ bwords,
-    i64 b_wstride, i64 b_rstride, int n_bwords, i64 n_table, KeySpec spec, i64 out_cap,
+    i64 b_wstride, i64 b_rstride, int n_bwords, KeySpec spec, i64 out_cap,
     bool and_match, uint8_t* __restrict__ match, int32_t* __restrict__ probe_idx,
     int32_t* __restrict__ build_id) {
   constexpr int NW = RW > 0 ? RW : 1, IT = EX_ITEMS, TILE = EX_TILE;
@@ -199,7 +199,7 @@ __global__ void __launch_bounds__(EX_BLOCK) probe_expand_kernel(
   const i64 t = t0 < out_cap ? t0 : out_cap;
   const i64 j0 = (i64)blockIdx.x * TILE;
   if (j0 >= t) {  // the zero tail: IT slots a thread, whole sectors a warp
-    if (and_match || (SKIP & 4)) return;
+    if (and_match) return;
 #pragma unroll
     for (int v = 0; v < IT / 4; ++v) {
       const i64 e = j0 + 4 * (v * EX_BLOCK + tid);
@@ -221,13 +221,13 @@ __global__ void __launch_bounds__(EX_BLOCK) probe_expand_kernel(
   // the rows owning j0 and the next tile's first slot (or j1, the last
   // tile's), from tile_rows_kernel: every slot of the tile belongs to a row
   // between them
-  if ((SKIP & 2) == 0 && tid < 2) ends[tid] = tile_rows[blockIdx.x + tid];
+  if (tid < 2) ends[tid] = tile_rows[blockIdx.x + tid];
   __syncthreads();
-  const i64 i0 = (SKIP & 2) ? 0 : ends[0];
-  const i64 nw = (SKIP & 2) ? 1 : ends[1] - i0 + 1;
+  const i64 i0 = ends[0];
+  const i64 nw = ends[1] - i0 + 1;
   // the tile's bases in shared memory, else (past EX_WINDOW rows, many
   // of them without candidates) read in place by a search a slot
-  const bool held = nw <= EX_WINDOW && (SKIP & 2) == 0;
+  const bool held = nw <= EX_WINDOW;
   if (held)
     for (i64 k = tid; k < nw; k += EX_BLOCK) wbase[k] = __ldg(base + i0 + k);
   __syncthreads();
@@ -264,22 +264,19 @@ __global__ void __launch_bounds__(EX_BLOCK) probe_expand_kernel(
     row[u] = pos[u] = 0;
     if (!live[u]) continue;
     i64 lo = 0, hi = nw;
-    if (SKIP & 2) lo = j < m ? j : m - 1;
     if (held) lo = owner[j - j0], hi = lo + 1;
     while (hi - lo > 1) {
       const i64 mid = (lo + hi) >> 1;
       if (base_at(mid) <= j) lo = mid; else hi = mid;
     }
-    row[u] = (SKIP & 2) ? lo : i0 + lo;
-    const i64 b = (SKIP & 2) ? __ldg(base + row[u]) : base_at(lo);
-    pos[u] = (i64)__ldg(start + row[u]) + (j - b);
-    if (SKIP & 2) pos[u] = pos[u] < 0 ? 0 : pos[u] < n_table ? pos[u] : n_table - 1;
+    row[u] = i0 + lo;
+    pos[u] = (i64)__ldg(start + row[u]) + (j - base_at(lo));
   }
   // every candidate's row in flight before any is compared
   int32_t w[IT][NW];
 #pragma unroll
   for (int u = 0; u < IT; ++u) {
-    if (RW == 0 || !live[u] || (SKIP & 1)) continue;
+    if (RW == 0 || !live[u]) continue;
     const int4* src = (const int4*)(bwords + pos[u] * RW);
 #pragma unroll
     for (int q = 0; q < NW / 4; ++q) {
@@ -292,19 +289,13 @@ __global__ void __launch_bounds__(EX_BLOCK) probe_expand_kernel(
     const i64 j = j0 + u * EX_BLOCK + tid;
     if (j >= out_cap) continue;
     if (!live[u]) {  // past the candidates inside the last tile
-      if (and_match || (SKIP & 4)) continue;
+      if (and_match) continue;
       match[j] = 0;
       probe_idx[j] = 0;
       build_id[j] = 0;
       continue;
     }
     const i64 i = row[u];
-    if (SKIP & 1) {
-      match[j] = (__ldg(pwords + i) & 1) != 0;
-      probe_idx[j] = (int32_t)i;
-      build_id[j] = (int32_t)pos[u];
-      continue;
-    }
     auto bw = [&](int k) -> int32_t {
       if constexpr (RW > 0) return word_of<NW>(w[u], k);
       else return __ldg(bwords + (i64)k * b_wstride + pos[u] * b_rstride);
@@ -313,9 +304,10 @@ __global__ void __launch_bounds__(EX_BLOCK) probe_expand_kernel(
     for (int k = 0; k < spec.n_eq; ++k)
       eq = eq && bw(spec.eq_b[k]) == __ldg(pwords + (i64)spec.eq_p[k] * p_stride + i);
     for (int k = 0; k < spec.n_keys; ++k) {
-      const uint32_t b = (uint32_t)bw(spec.vb_row[k]);
       const uint32_t p = (uint32_t)__ldg(pwords + (i64)spec.vp_row[k] * p_stride + i);
-      eq = eq && ((b >> spec.vb_bit[k]) & 1u) && ((p >> spec.vp_bit[k]) & 1u);
+      eq = eq && ((p >> spec.vp_bit[k]) & 1u);
+      if (spec.vb_row[k] >= 0)
+        eq = eq && (((uint32_t)bw(spec.vb_row[k]) >> spec.vb_bit[k]) & 1u);
     }
     if (and_match) {  // a later group of the key's columns: probe_idx, build_id are set
       match[j] = (match[j] && eq) ? 1 : 0;
@@ -327,13 +319,7 @@ __global__ void __launch_bounds__(EX_BLOCK) probe_expand_kernel(
   }
 }
 
-int g_skip = 0;
-
 }  // namespace
-
-// Measurement only: the second pass's next launches leave out the parts
-// `skip` names (probe_expand_kernel's SKIP bits; 0 is the kernel itself).
-extern "C" void dfp_probe_expand_skip(int skip) { g_skip = skip & 7; }
 
 // Pass 1 with its scan: slot [m] in [0, T], offsets [T+2] (the table's),
 // ok [m] as bytes; start, count, base [m] int32, total64 a device int64;
@@ -355,9 +341,8 @@ extern "C" int dfp_probe_ranges(const void* slot, const void* ok, long long m,
 }
 
 // Pass 2. pwords [*, p_stride] are the probe's narrow words; bwords the
-// build's narrow words in table order (n_table rows), n_bwords words a
-// row, the last the build row id: word k of row r at
-// bwords[k * b_wstride + r * b_rstride]
+// build's narrow words in table order, n_bwords words a row, the last the
+// build row id: word k of row r at bwords[k * b_wstride + r * b_rstride]
 // (word-major: b_wstride = the row count, b_rstride = 1; row-major:
 // b_wstride = 1, b_rstride = 4 or 8, 16-byte aligned, one or two vector
 // loads a row). spec is a host array laid out as KeySpec. A key past the
@@ -372,10 +357,10 @@ extern "C" long long dfp_probe_expand_scratch_bytes(long long out_cap) {
 extern "C" int dfp_probe_expand(const void* start, const void* base, const void* total64,
                                 long long m, const void* pwords, long long p_stride,
                                 const void* bwords, long long b_wstride, long long b_rstride,
-                                int n_bwords, long long n_table, const int* spec,
-                                long long out_cap, int and_match, void* match,
-                                void* probe_idx, void* build_id, void* scratch,
-                                long long scratch_bytes, void* stream) {
+                                int n_bwords, const int* spec, long long out_cap,
+                                int and_match, void* match, void* probe_idx,
+                                void* build_id, void* scratch, long long scratch_bytes,
+                                void* stream) {
   KeySpec ks = *(const KeySpec*)spec;
   if (ks.n_eq > MAX_EQ || ks.n_keys > MAX_KEYS || m <= 0 || n_bwords < 1 ||
       scratch_bytes < dfp_probe_expand_scratch_bytes(out_cap))
@@ -387,32 +372,20 @@ extern "C" int dfp_probe_expand(const void* start, const void* base, const void*
   cudaStream_t st = (cudaStream_t)stream;
   int32_t* rows = (int32_t*)scratch;
   if (out_cap > 0) {
-    if ((g_skip & 2) == 0)
-      tile_rows_kernel<<<dfp::grid_for(ex_tiles(out_cap) + 1, 256), 256, 0, st>>>(
-          (const int32_t*)base, m, (const i64*)total64, out_cap, rows);
-#define PE_LAUNCH(RW, S)                                                                   \
-  probe_expand_kernel<RW, S><<<(unsigned)ex_tiles(out_cap), EX_BLOCK, 0, st>>>(            \
+    tile_rows_kernel<<<dfp::grid_for(ex_tiles(out_cap) + 1, 256), 256, 0, st>>>(
+        (const int32_t*)base, m, (const i64*)total64, out_cap, rows);
+#define PE_LAUNCH(RW)                                                                      \
+  probe_expand_kernel<RW><<<(unsigned)ex_tiles(out_cap), EX_BLOCK, 0, st>>>(               \
       (const int32_t*)start, (const int32_t*)base, (const i64*)total64, m, rows,           \
       (const int32_t*)pwords, p_stride, (const int32_t*)bwords, b_wstride, b_rstride,      \
-      n_bwords, n_table, ks, out_cap, and_match != 0, (uint8_t*)match, (int32_t*)probe_idx, \
+      n_bwords, ks, out_cap, and_match != 0, (uint8_t*)match, (int32_t*)probe_idx,         \
       (int32_t*)build_id)
-#define PE_SKIPS(RW)                 \
-  switch (g_skip) {                  \
-    case 1: PE_LAUNCH(RW, 1); break; \
-    case 2: PE_LAUNCH(RW, 2); break; \
-    case 3: PE_LAUNCH(RW, 3); break; \
-    case 4: PE_LAUNCH(RW, 4); break; \
-    case 7: PE_LAUNCH(RW, 7); break; \
-    default: PE_LAUNCH(RW, 0); break; \
-  }
-    if (rw == 4) {
-      PE_SKIPS(4)
-    } else if (rw == 8) {
-      PE_SKIPS(8)
-    } else {
-      PE_SKIPS(0)
-    }
-#undef PE_SKIPS
+    if (rw == 4)
+      PE_LAUNCH(4);
+    else if (rw == 8)
+      PE_LAUNCH(8);
+    else
+      PE_LAUNCH(0);
 #undef PE_LAUNCH
   }
   return (int)cudaGetLastError();

@@ -32,7 +32,7 @@ OverflowError, where the JAX package's int32 cumsum would wrap.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,9 +43,10 @@ RANGE_TILE = 256 * 16   # probe rows a first-pass block takes (csrc/probe_expand
 ROW_MAJOR_WORDS = (4, 8)   # the padded widths of row-major build rows
 Ranges = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 # one key column of the recheck plan (ops/join.py `_defer_key_plan`):
-# (build word rows, probe word rows, (build validity row, bit),
-#  (probe validity row, bit))
-Compare = Tuple[List[int], List[int], Tuple[int, int], Tuple[int, int]]
+# (build word rows, probe word rows, (build validity row, bit) or None,
+#  (probe validity row, bit)); None: no build-side test, where the table
+#  holds only rows with valid keys
+Compare = Tuple[List[int], List[int], Optional[Tuple[int, int]], Tuple[int, int]]
 
 
 def check_total(total: torch.Tensor) -> torch.Tensor:
@@ -111,12 +112,14 @@ def _ranges_launch(slot: torch.Tensor, ok: torch.Tensor, offsets: torch.Tensor) 
 
 
 def _recheck(bn: torch.Tensor, pn: torch.Tensor, compares: Sequence[Compare]) -> torch.Tensor:
-    """Bitwise key-word equality and both validity bits, per candidate."""
+    """Bitwise key-word equality and the plan's validity bits, per
+    candidate."""
     eq = torch.ones(bn.shape[1], dtype=torch.bool, device=bn.device)
-    for bw, pw, (bvr, bbit), (pvr, pbit) in compares:
+    for bw, pw, bvalid, (pvr, pbit) in compares:
         for wb, wp in zip(bw, pw):
             eq &= bn[wb] == pn[wp]
-        eq &= ((bn[bvr] >> bbit) & 1).to(torch.bool)
+        if bvalid is not None:
+            eq &= ((bn[bvalid[0]] >> bvalid[1]) & 1).to(torch.bool)
         eq &= ((pn[pvr] >> pbit) & 1).to(torch.bool)
     return eq
 
@@ -130,8 +133,9 @@ def expand_ranges_plain(start, count, base, total, pwords, bwords, compares, out
     is table position pos = start[i] + j - base[i]. `pwords` [*, m] are the
     probe's narrow word rows, `bwords` [*, cap] the build's in table order
     with the build row id last, in either layout (`build_strides`). match
-    = keys equal and both valid; past min(total, out_cap) match is False
-    and probe_idx = build_id = 0."""
+    = keys equal and valid on each side the plan names (a key without a
+    build validity row tests the probe's alone); past min(total, out_cap)
+    match is False and probe_idx = build_id = 0."""
     m, dev = start.shape[0], start.device
     j = torch.arange(out_cap, dtype=torch.int64, device=dev)
     # replicate_rows_exact: each non-empty segment's first slot gets its
@@ -163,7 +167,7 @@ def key_groups(compares: Sequence[Compare]) -> List[Sequence[Compare]]:
 
 def _spec(compares: Sequence[Compare]):
     """The recheck plan as the kernel's KeySpec: n_eq, eq_b[8], eq_p[8],
-    n_keys, vb_row[4], vb_bit[4], vp_row[4], vp_bit[4]."""
+    n_keys, vb_row[4] (-1: none), vb_bit[4], vp_row[4], vp_bit[4]."""
     eq_b = [w for bw, _, _, _ in compares for w in bw]
     eq_p = [w for _, pw, _, _ in compares for w in pw]
     if len(eq_b) > MAX_EQ_WORDS or len(compares) > MAX_KEYS:
@@ -175,8 +179,8 @@ def _spec(compares: Sequence[Compare]):
 
     fields = ([len(eq_b)] + pad(eq_b, MAX_EQ_WORDS) + pad(eq_p, MAX_EQ_WORDS)
               + [len(compares)]
-              + pad([c[2][0] for c in compares], MAX_KEYS)
-              + pad([c[2][1] for c in compares], MAX_KEYS)
+              + pad([-1 if c[2] is None else c[2][0] for c in compares], MAX_KEYS)
+              + pad([0 if c[2] is None else c[2][1] for c in compares], MAX_KEYS)
               + pad([c[3][0] for c in compares], MAX_KEYS)
               + pad([c[3][1] for c in compares], MAX_KEYS))
     return (ctypes.c_int * len(fields))(*fields)
@@ -203,8 +207,9 @@ def _check_expand(start, pwords, bwords, compares, out_cap):
     _build.require(pwords, "pwords", torch.int32, (pwords.shape[0], m), dev)
     _build.require(bwords, "bwords", torch.int32, None, dev, contiguous=False)
     build_strides(bwords)
-    for bw, pw, (bvr, _), (pvr, _) in compares:
-        if max(bw + [bvr]) >= bwords.shape[0] - 1 or max(pw + [pvr]) >= pwords.shape[0]:
+    for bw, pw, bvalid, (pvr, _) in compares:
+        brows = bw + ([] if bvalid is None else [bvalid[0]])
+        if max(brows) >= bwords.shape[0] - 1 or max(pw + [pvr]) >= pwords.shape[0]:
             raise ValueError("recheck plan names a word row the matrices lack")
     if out_cap < 1:
         raise ValueError(f"out_cap {out_cap} < 1")
@@ -229,7 +234,7 @@ def expand_ranges(start, count, base, total, pwords, bwords, compares, out_cap):
                                     _build.I64)
     fn = _build.function("dfp_probe_expand", (
         _build.P, _build.P, _build.P, _build.I64, _build.P, _build.I64, _build.P,
-        _build.I64, _build.I64, _build.I32, _build.I64, ctypes.POINTER(ctypes.c_int),
+        _build.I64, _build.I64, _build.I32, ctypes.POINTER(ctypes.c_int),
         _build.I64, _build.I32, _build.P, _build.P, _build.P, _build.P, _build.I64, _build.P))
     wstride, rstride = build_strides(bwords)
     nbytes = scratch_bytes(out_cap)
@@ -240,9 +245,9 @@ def expand_ranges(start, count, base, total, pwords, bwords, compares, out_cap):
     build_id = torch.empty(out_cap, dtype=torch.int32, device=dev)
     for k, spec in enumerate(specs):
         err = fn(start.data_ptr(), base.data_ptr(), total64.data_ptr(), m, pwords.data_ptr(),
-                 m, bwords.data_ptr(), wstride, rstride, bwords.shape[0], bwords.shape[1],
-                 spec, out_cap, int(k > 0), match.data_ptr(), probe_idx.data_ptr(),
-                 build_id.data_ptr(), scratch.data_ptr(), nbytes, _build.stream(dev))
+                 m, bwords.data_ptr(), wstride, rstride, bwords.shape[0], spec, out_cap,
+                 int(k > 0), match.data_ptr(), probe_idx.data_ptr(), build_id.data_ptr(),
+                 scratch.data_ptr(), nbytes, _build.stream(dev))
         expand_ranges.launches += 1
         _build.check(err, "expand_ranges")
     return match, probe_idx, build_id

@@ -5,10 +5,10 @@ Counterpart of `datafusion_parallelism_tpu/ops/join.py`. Two paths, as in
 the JAX package:
 
   * deferred (no residual, not a late-materialized INNER join, keys whose
-    words compare bit for bit): only the key words (`key_words`), their
-    validity words and the row id travel through the candidate stage; the
-    columns of both sides are gathered once, at the matches, from the
-    tables' own buffers (JAX ops/join.py:255-320, :393-416);
+    words compare bit for bit): only the key words (`key_words`) and the
+    row id travel through the candidate stage; the columns of both sides
+    are gathered once, at the matches, from the tables' own buffers (JAX
+    ops/join.py:255-320, :393-416);
   * full fetch (a residual filter, `expanded` INNER, float keys, keys of
     different widths): every candidate pair's whole rows, rechecked by
     value (JAX :322-357).
@@ -140,16 +140,21 @@ def _packed_keys(layout, keys):
     return out
 
 
-def _word_keys(cols):
+def _word_keys(cols, valid: bool = True):
     """Per key: (float?, word rows, (validity row, bit)) in `key_words`'
-    rows: each column's words, then its validity as a 0/1 row."""
-    return [(kind in (KIND_F32, KIND_F64), list(rows), valid) for kind, rows, valid in cols]
+    rows: each column's words, then its validity as a 0/1 row. valid=False
+    names no validity row (None): a build side whose table holds only rows
+    with valid keys (K1 sends the rest to slot T), whose rows are then its
+    key words alone."""
+    return [(kind in (KIND_F32, KIND_F64), list(rows), v if valid else None)
+            for kind, rows, v in cols]
 
 
 def _defer_key_plan(bkeys, pkeys):
     """The recheck plan of the deferred probe path, from each side's keys
     (`_word_keys` or `_packed_keys`): per key the build and probe word rows
-    compared bit for bit and each side's validity (row, bit). None when
+    compared bit for bit and each side's validity (row, bit; the build's
+    may be None: not tested). None when
     bit-equality of the words is not equivalent to the value recheck
     (float keys: ±0.0; mixed-width keys: value promotion)."""
     compares = []
@@ -343,7 +348,7 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
     pwords, pcols = key_words([probe.column(k) for k in probe_keys])
     if prepared is None:
         bwords, bcols = key_words([build.column(k) for k in build_keys])
-        bkeys = _word_keys(bcols)
+        bkeys = _word_keys(bcols, valid=False)
     else:   # its key rows are read out of its packed perm rows
         bkeys = _packed_keys(prepared.packed.layout, build_keys)
     compares = None
@@ -351,14 +356,15 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
         compares = _defer_key_plan(bkeys, _word_keys(pcols))
 
     if compares is not None:
-        # deferred: the key words, their validity rows and the row id in
-        # table order; the perm rows of a prepared build as they are
+        # deferred: the key words and the row id in table order; the perm
+        # rows of a prepared build as they are
         if prepared is not None:
             table, bsorted = prepared.table, prepared.perm_rows
         else:
+            key_rows = bwords[:bwords.shape[0] - len(bcols)]   # the validity rows left out
             table, bsorted = _build_table(strategy, kernels, chain, bwords, bcols, T,
-                                          build.num_rows, build_valid, bwords,
-                                          bwords.shape[0] + 1 <= k2.MAX_ROW_WORDS)
+                                          build.num_rows, build_valid, key_rows,
+                                          key_rows.shape[0] + 1 <= k2.MAX_ROW_WORDS)
         ranges = _probe_table(table, kernels, pwords, pcols, T, probe_ok)
         total = ranges[3]
         match, probe_idx, build_id = kernels.expand_ranges(*ranges, pwords, bsorted, compares,

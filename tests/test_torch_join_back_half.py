@@ -169,11 +169,13 @@ def _hash_cols(compares, side):
 
 
 def _candidates(bwords, bcols, pwords, pcols, compares, T, build, probe, pkeys,
-                row_major=False):
-    """K1 over both sides, K2, K3's two passes (plain versions): the
-    hashes, slots, table and (match, probe_idx, build_id)."""
+                row_major=False, brows=None):
+    """K1 over both sides, K2 (over `brows`, else bwords), K3's two passes
+    (plain versions): the hashes, slots, table and (match, probe_idx,
+    build_id)."""
     bh, bslot = k1.hash_slot_plain(bwords, bcols, T, build.num_rows)
-    _, offsets, perm, _, rows = k2.csr_build_plain(bslot, T, bwords, row_major)
+    _, offsets, perm, _, rows = k2.csr_build_plain(bslot, T, bwords if brows is None else brows,
+                                                   row_major)
     ph, pslot = k1.hash_slot_plain(pwords, pcols, T)
     ok = probe.row_mask()
     for k in pkeys:
@@ -188,7 +190,9 @@ def test_key_words_plan_equals_the_packed_plan(n_keys):
     """The plan from key_words' rows finds the same hashes, slots, perm,
     offsets and candidates (match, probe_idx, build_id) as the plan from
     the packed rows, on 1-5 keys (5 is past one launch's 4 keys: two key
-    groups on the card)."""
+    groups on the card). As the join builds it, the new plan tests no
+    build-side validity and K2 carries the build's key words alone: null
+    build keys (15% here) never become candidates."""
     names = ["k", "k64", "kd", "kb", "k3"][:n_keys]
     bkeys, pkeys = [f"b{n}" for n in names], [f"p{n}" for n in names]
     build, probe = (t.to_device(device="cpu") for t in _tables(tcol, 11, 400, 500, 6))
@@ -198,16 +202,17 @@ def test_key_words_plan_equals_the_packed_plan(n_keys):
     pnarrow = torch.stack([pp.packed[r] for r in prows])
     bwords, bcols = key_words([build.column(k) for k in bkeys])
     pwords, pcols = key_words([probe.column(k) for k in pkeys])
-    new = tjoin._defer_key_plan(tjoin._word_keys(bcols), tjoin._word_keys(pcols))
+    new = tjoin._defer_key_plan(tjoin._word_keys(bcols, valid=False), tjoin._word_keys(pcols))
     assert len(k3.key_groups(new)) == (2 if n_keys == 5 else 1)
+    assert all(c[2] is None for c in new) and all(c[2] is not None for c in old)
+    key_rows = bwords[:bwords.shape[0] - n_keys]
+    assert key_rows.shape[0] + 1 <= k2.MAX_ROW_WORDS
     T = table_size_for(build.capacity)
     want = _candidates(bnarrow, _hash_cols(old, 0), pnarrow, _hash_cols(old, 1), old, T,
                        build, probe, pkeys)
     for row_major in (False, True):
-        if row_major and bwords.shape[0] + 1 > k2.MAX_ROW_WORDS:
-            continue
         got = _candidates(bwords, bcols, pwords, pcols, new, T, build, probe, pkeys,
-                          row_major)
+                          row_major, key_rows)
         for a, b in zip(got, want, strict=True):
             assert torch.equal(a, b)
     assert int(want[-3].sum()) > 0
@@ -289,6 +294,44 @@ def test_deferred_inner_join_packs_nothing(strategy):
                                    strategy=jht.JoinStrategy[strategy])
     assert int(total) == int(jtotal) and int(got.num_rows) > 0
     assert _rows(got) == _rows(want)
+
+
+@pytest.mark.parametrize("keys", list(KEYS))
+@pytest.mark.parametrize("strategy", ["CSR", "SORT"])
+def test_deferred_join_hands_k2_the_key_words_alone(keys, strategy):
+    """The resident deferred join's build rows are its key words (no 0/1
+    validity rows), row-major under CSR, and its recheck plan tests the
+    probe's validity alone; a prepared build keeps its packed validity."""
+    seen = {}
+
+    def csr_build(slot, T, rows, row_major=False):
+        seen.update(rows=rows.shape[0], row_major=row_major)
+        return k2.csr_build_plain(slot, T, rows, row_major)
+
+    def gather_rows(words, f64, perm, count=None):
+        seen.setdefault("rows", words.shape[0] - 1)
+        return CHAIN_PLAIN.gather_rows(words, f64, perm, count)
+
+    def expand(*args):
+        seen["plan"] = args[6]
+        return k3.expand_ranges_plain(*args)
+    kernels = tjoin.PLAIN._replace(csr_build=csr_build, expand_ranges=expand)
+    chain = CHAIN_PLAIN._replace(gather_rows=gather_rows)
+    bkeys, pkeys = KEYS[keys]
+    tb, tp = _tables(tcol, 9, 200, 300, 40)
+    build, probe = tb.to_device(device="cpu"), tp.to_device(device="cpu")
+    n_words = key_words([build.column(k) for k in bkeys])[0].shape[0] - len(bkeys)
+    tjoin.hash_join(build, probe, bkeys, pkeys, tjoin.JoinType.INNER, 1 << 14,
+                    strategy=tjoin.JoinStrategy[strategy], kernels=kernels, chain=chain)
+    assert seen["rows"] == n_words
+    assert seen.get("row_major", False) == (strategy == "CSR")
+    assert [c[2] for c in seen["plan"]] == [None] * len(bkeys)
+    assert all(c[3] is not None for c in seen["plan"])
+    prepared = tjoin.prepare_build(build, bkeys, tjoin.JoinStrategy[strategy], kernels, chain)
+    tjoin.hash_join(build, probe, bkeys, pkeys, tjoin.JoinType.INNER, 1 << 14,
+                    strategy=tjoin.JoinStrategy[strategy], kernels=kernels, chain=chain,
+                    prepared=prepared)
+    assert all(c[2] is not None for c in seen["plan"])
 
 
 def test_the_full_fetch_still_packs():
@@ -397,14 +440,17 @@ def test_compact_gather_refuses_what_it_cannot_read(stub_launch, bad):
     assert not [c for c in stub_launch if c[0] == "dfp_compact_gather"]
 
 
-def test_expand_ranges_hands_the_kernel_the_build_strides(stub_launch):
+@pytest.mark.parametrize("bvalid,vb_row", [((1, 0), 1), (None, -1)],
+                         ids=["build validity", "none"])
+def test_expand_ranges_hands_the_kernel_the_build_strides(stub_launch, bvalid, vb_row):
     """The second pass gets the build rows' word and row strides: (n, 1)
-    word-major, (1, 4 or 8) row-major; other strides are refused."""
+    word-major, (1, 4 or 8) row-major; other strides are refused. A key
+    without a build validity row reaches the kernel's spec as row -1."""
     m, n = 6, 40
     start = torch.zeros(m, dtype=torch.int32)
     total = torch.tensor(5, dtype=torch.int32)
     pwords = torch.zeros((3, m), dtype=torch.int32)
-    plan = [([0], [0], (1, 0), (1, 0))]
+    plan = [([0], [0], bvalid, (1, 0))]
     word = torch.zeros((3, n), dtype=torch.int32)
     for rows, strides in ((word, (n, 1)), (k2.to_row_major(word), (1, 4)),
                           (k2.to_row_major(torch.zeros((6, n), dtype=torch.int32)), (1, 8))):
@@ -414,7 +460,8 @@ def test_expand_ranges_hands_the_kernel_the_build_strides(stub_launch):
         k3.expand_ranges(start.as_subclass(_Cuda), start, start, total, pwords, rows, plan, 8)
         (name, args), = [c for c in stub_launch if c[0] == "dfp_probe_expand"]
         assert name == "dfp_probe_expand" and (args[7], args[8]) == strides
-        assert args[9] == rows.shape[0] and args[10] == n
+        # the spec: n_eq, eq_b[8], eq_p[8], n_keys, vb_row[4], ...
+        assert args[9] == rows.shape[0] and list(args[10])[17:19] == [1, vb_row]
     odd = torch.zeros((n, 3), dtype=torch.int32).t()   # row stride 3: no vector load
     with pytest.raises(ValueError, match="strides"):
         k3.build_strides(odd)

@@ -7,9 +7,11 @@ shapes, on one NVIDIA GPU.
 
 Cells (seeded data made on the card; the shapes of `tools/profile_csr_call.py`
 at the SQL calls phase 15 replays):
-  - K2 at Size512 (n 4,194,304, T 4 n, R 2 narrow rows, uniform slots);
-  - K2 at Q9 (n 33,554,432, T 134,217,728, R 3; 3,147,082 rows valid, the
-    rest, a capacity-padded table's padding, in bucket T at the end);
+  - K2 at Size512 (n 4,194,304, T 4 n, R 2 narrow rows, uniform slots;
+    row-major, R 1, the key word the deferred join hands it);
+  - K2 at Q9 (n 33,554,432, T 134,217,728, R 3; row-major R 2, its two
+    key words; 3,147,082 rows valid, the rest, a capacity-padded table's
+    padding, in bucket T at the end);
   - K2 at a sparse build (n 2^25, T 2^27, R 1; 10% of the rows valid, at
     random, the rest null keys in bucket T);
   - K2 at a hot key (n 2^24, T 2^26, R 2; half the rows in one bucket);
@@ -20,7 +22,8 @@ at the SQL calls phase 15 replays):
     order), 18,475,075 of them ok at random, the rest of the capacity
     padding; and the same shape with every probe row's slot random: pass 1
     with its scan (`probe_ranges`) and pass 2 (`expand_ranges`, one key
-    word);
+    word; word-major with its validity word, and row-major as the deferred
+    join gives it, the key word and row id, with no build validity test);
   - K3 at a hot probe key: one probe row owning 4,194,304 candidates among
     4,194,304 probe rows;
   - K4 at the largest call of the first run of TPC-H Q9 at SF10 through
@@ -42,7 +45,7 @@ pack of both input tables, K4 and K12's unpack of both halves (`ms`; K4
 alone on the packed inputs: `k4_alone_ms`); one whose K4 reads the
 columns runs its one call. A checkout whose K2 writes row-major rows also
 times K2 and K3's second pass in the layout its deferred join asks for
-(`row_major_ms`, `expand_row_major_ms`).
+(`row_major_ms` at the join's R, `expand_row_major_ms`).
 
 With --parent (a checkout of another commit, e.g. the parent unpacked with
 `git archive` under `_data/`), each version runs in its own process in the
@@ -50,11 +53,9 @@ order parent, change, change, parent (--rounds times), so both are
 compared on one card in one call; `summary` gives each cell's median
 [min-max] over the runs. --explore (this checkout only) also times K2
 without its narrow rows (R 0: what its row gather costs) and K2 at R 0
-followed by K5's gather of the rows, splits K2 at Q9, K3 at Q7 and the K4
-cells launch by launch under `torch.profiler`, and times K3's second pass
-at Q7 and Size512 with parts of it left out (wrong results: the build-row
-reads, the search for each slot's probe row, the zero tail; alone and
-together). Prints one JSON object with the card's name and power limit;
+followed by K5's gather of the rows, and splits K2 at Q9, K3 at Q7 and
+the K4 cells launch by launch under `torch.profiler`. Prints one JSON
+object with the card's name and power limit;
 also written to --out. Needs a CUDA device.
 """
 
@@ -75,16 +76,14 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 SIZE512 = 4_194_304
 K4_Q9, K4_SIZE512 = "K4 Q9 (phase 15's call)", "K4 Size512"
 K4_KINDS = "K4 float64/int64/int32/float32/bool columns, 10% nulls"
-# K3's second pass with parts left out (csrc/probe_expand.cu's SKIP bits)
-K3_SKIPS = {"no build-row reads": 1, "no search": 2, "no zero tail": 4,
-            "no reads, no search": 3, "none of the three": 7}
 
-# name: (n, T, R, valid rows, where the valid rows are, hot share)
+# name: (n, T, R, R of the deferred join's row-major rows, valid rows,
+# where the valid rows are, hot share)
 K2_CELLS = {
-    "K2 Size512": (SIZE512, 4 * SIZE512, 2, SIZE512, "all", 0.0),
-    "K2 Q9": (1 << 25, 1 << 27, 3, 3_147_082, "head", 0.0),
-    "K2 sparse (10% valid)": (1 << 25, 1 << 27, 1, 3_355_443, "random", 0.0),
-    "K2 hot key (half the rows)": (1 << 24, 1 << 26, 2, 1 << 24, "all", 0.5),
+    "K2 Size512": (SIZE512, 4 * SIZE512, 2, 1, SIZE512, "all", 0.0),
+    "K2 Q9": (1 << 25, 1 << 27, 3, 2, 3_147_082, "head", 0.0),
+    "K2 sparse (10% valid)": (1 << 25, 1 << 27, 1, 1, 3_355_443, "random", 0.0),
+    "K2 hot key (half the rows)": (1 << 24, 1 << 26, 2, 1, 1 << 24, "all", 0.5),
 }
 # name: (build n, T, valid build rows, probe m, ok rows, out_cap, hot
 # candidates, probe layout: "random" slots, or "runs" of 1-7 rows a build
@@ -146,7 +145,7 @@ def k2_inputs(torch, g, device, n, T, R, valid, where, hot):
 def k2_cells(torch, g, device, explore: bool):
     from datafusion_parallelism_tpu_torch.kernels import csr_build as k2
     out = {}
-    for name, (n, T, R, valid, where, hot) in K2_CELLS.items():
+    for name, (n, T, R, R_rm, valid, where, hot) in K2_CELLS.items():
         slot, rows = k2_inputs(torch, g, device, n, T, R, valid, where, hot)
         got = k2.csr_build(slot, T, rows)
         ok = equal(torch, got, k2.csr_build_plain(slot, T, rows))
@@ -158,12 +157,14 @@ def k2_cells(torch, g, device, explore: bool):
                                             + sum(t.nbytes for t in got)),
                 "argsort_ms": cuda_ms(torch, lambda: torch.argsort(slot, stable=True))}
         del got, offsets, start_count, rows_out
-        if row_major_k2(k2) and R + 1 <= k2.MAX_ROW_WORDS:
-            got = k2.csr_build(slot, T, rows, True)
+        if row_major_k2(k2):
+            rm = rows[:R_rm]
+            got = k2.csr_build(slot, T, rm, True)
+            cell["row_major_R"] = R_rm
             cell["row_major_equal_plain"] = equal(torch, got,
-                                                  k2.csr_build_plain(slot, T, rows, True))
-            cell["row_major_ms"] = cuda_ms(torch, lambda: k2.csr_build(slot, T, rows, True))
-            del got
+                                                  k2.csr_build_plain(slot, T, rm, True))
+            cell["row_major_ms"] = cuda_ms(torch, lambda: k2.csr_build(slot, T, rm, True))
+            del got, rm
         if explore:
             from datafusion_parallelism_tpu_torch.kernels import filter_compact as k5
             no_rows = rows[:0]
@@ -188,7 +189,8 @@ def row_major_k2(k2) -> bool:
 
 def k3_inputs(torch, g, device, n, T, valid, m, ok_rows, hot, layout):
     """The build's table (K2 over seeded slots, with one key word and its
-    validity word as narrow rows) and the probe's slots, ok mask and words.
+    validity word as narrow rows; row-major, the key word alone, as the
+    deferred join asks) and the probe's slots, ok mask and words.
     "random": each ok probe row takes the slot and key of a random valid
     build row, the others random slots, in random order; "runs": build row
     b's key repeated 1-7 times, b in order, ok_rows of them ok at random,
@@ -228,7 +230,7 @@ def k3_inputs(torch, g, device, n, T, valid, m, ok_rows, hot, layout):
         ok = (torch.arange(m, device=device) < ok_rows)[perm]
         pslot, pkey = pslot[perm].contiguous(), pkey[perm].contiguous()
     pwords = torch.stack([pkey, torch.ones_like(pkey)])
-    rm = k2.csr_build(bslot, T, torch.stack([bkey, vbit]), True)[4] if row_major_k2(k2) else None
+    rm = k2.csr_build(bslot, T, bkey[None], True)[4] if row_major_k2(k2) else None
     return offsets, start_count, bwords, pslot, ok, pwords, rm
 
 
@@ -237,6 +239,7 @@ def k3_cells(torch, g, device):
     out = {}
     by_offsets = "offsets" in inspect.signature(k3.probe_ranges).parameters
     compares = [([0], [0], (1, 0), (1, 0))]
+    join_plan = [([0], [0], None, (1, 0))]   # the deferred join's: no build validity
     for name, (n, T, valid, m, ok_rows, out_cap, hot, layout) in K3_CELLS.items():
         offsets, start_count, bwords, pslot, ok, pwords, rm = k3_inputs(
             torch, g, device, n, T, valid, m, ok_rows, hot, layout)
@@ -271,42 +274,13 @@ def k3_cells(torch, g, device):
                                        + min(bwords.nbytes, k * bwords.shape[0] * 4)
                                        + 9 * cap),
                 "yardstick_ms": cuda_ms(torch, yardstick)}
-        if rm is not None:   # the layout the deferred join's K2 writes
+        if rm is not None:   # the rows and plan of the deferred join
             cell["expand_row_major_equal_plain"] = equal(
-                torch, k3.expand_ranges(*got, pwords, rm, compares, cap), want_x)
+                torch, k3.expand_ranges(*got, pwords, rm, join_plan, cap), want_x)
             cell["expand_row_major_ms"] = cuda_ms(
-                torch, lambda: k3.expand_ranges(*got, pwords, rm, compares, cap))
+                torch, lambda: k3.expand_ranges(*got, pwords, rm, join_plan, cap))
         out[name] = cell
         del offsets, start_count, bwords, pslot, ok, pwords, got, want, got_x, want_x, rm
-        torch.cuda.empty_cache()
-    return out
-
-
-def k3_skip_ms(torch, g, device) -> dict:
-    """--explore: K3's second pass at Q7 and Size512, in the layout the
-    join gives it, with parts left out (K3_SKIPS; wrong results)."""
-    from datafusion_parallelism_tpu_torch.kernels import _build
-    from datafusion_parallelism_tpu_torch.kernels import probe_expand as k3
-    skip = _build.function("dfp_probe_expand_skip", (_build.I32,), None)
-    compares = [([0], [0], (1, 0), (1, 0))]
-    out = {}
-    for name in ("K3 Q7", "K3 Size512"):
-        n, T, valid, m, ok_rows, out_cap, hot, layout = K3_CELLS[name]
-        offsets, _, bwords, pslot, ok, pwords, rm = k3_inputs(torch, g, device, n, T, valid, m,
-                                                              ok_rows, hot, layout)
-        got = k3.probe_ranges(pslot, ok, offsets)
-        rows = bwords if rm is None else rm
-        cell = {"whole": cuda_ms(torch, lambda: k3.expand_ranges(*got, pwords, rows, compares,
-                                                                 out_cap))}
-        try:
-            for label, bits in K3_SKIPS.items():
-                skip(bits)
-                cell[label] = cuda_ms(torch, lambda: k3.expand_ranges(*got, pwords, rows,
-                                                                      compares, out_cap))
-        finally:
-            skip(0)
-        out[name] = cell
-        del offsets, bwords, pslot, ok, pwords, rm, got, rows
         torch.cuda.empty_cache()
     return out
 
@@ -469,8 +443,9 @@ def splits(torch, g, device):
     from datafusion_parallelism_tpu_torch.kernels import csr_build as k2
     from datafusion_parallelism_tpu_torch.kernels import probe_expand as k3
     out = {}
-    slot, rows = k2_inputs(torch, g, device, *K2_CELLS["K2 Q9"])
-    out["K2 Q9"] = launch_split(torch, k2.csr_build, (slot, K2_CELLS["K2 Q9"][1], rows))
+    n, T, R, _, valid, where, hot = K2_CELLS["K2 Q9"]
+    slot, rows = k2_inputs(torch, g, device, n, T, R, valid, where, hot)
+    out["K2 Q9"] = launch_split(torch, k2.csr_build, (slot, T, rows))
     del slot, rows
     n, T, valid, m, ok_rows, out_cap, hot, layout = K3_CELLS["K3 Q7"]
     offsets, _, bwords, pslot, ok, pwords, rm = k3_inputs(torch, g, device, n, T, valid, m,
@@ -478,11 +453,9 @@ def splits(torch, g, device):
     got = k3.probe_ranges(pslot, ok, offsets)
     out["K3 Q7 probe_ranges"] = launch_split(torch, k3.probe_ranges, (pslot, ok, offsets))
     out["K3 Q7 expand_ranges"] = launch_split(
-        torch, k3.expand_ranges, (*got, pwords, bwords if rm is None else rm,
-                                  [([0], [0], (1, 0), (1, 0))], out_cap))
+        torch, k3.expand_ranges, (*got, pwords, rm, [([0], [0], None, (1, 0))], out_cap))
     del offsets, bwords, pslot, ok, pwords, rm, got
     torch.cuda.empty_cache()
-    out["K3 skips (ms)"] = k3_skip_ms(torch, g, device)
     return out
 
 
