@@ -614,13 +614,7 @@ def _strategy_hashes(rng, cap, T, device):
     10% null keys and the last eighth past num_rows."""
     import torch
     h = rng.choice(rng.integers(0, 1 << 32, cap // 2, dtype=np.uint64), cap)
-    home = T // 3
-    if T & (T - 1) == 0:                          # the hashes whose slot_of is `home`
-        cluster = home + T * rng.integers(0, (1 << 32) // T, 6000, dtype=np.uint64)
-    else:
-        cluster = rng.integers(-(-home * (1 << 32) // T), -(-(home + 1) * (1 << 32) // T),
-                               6000, dtype=np.uint64)
-    h[rng.choice(cap, 6000, replace=False)] = cluster
+    h[rng.choice(cap, 6000, replace=False)] = _home_hashes(rng, T, T // 3, 6000)
     ok = rng.random(cap) >= 0.10
     ok[cap - cap // 8:] = False
     as_i32 = h.astype(np.uint32).view(np.int32)
@@ -628,11 +622,155 @@ def _strategy_hashes(rng, cap, T, device):
             as_i32)
 
 
+def _home_hashes(rng, T, home, count):
+    """`count` uint32 hashes whose slot_of(., T) is `home`."""
+    if T & (T - 1) == 0:
+        return home + T * rng.integers(0, (1 << 32) // T, count, dtype=np.uint64)
+    return rng.integers(-(-home * (1 << 32) // T), -(-(home + 1) * (1 << 32) // T), count,
+                        dtype=np.uint64)
+
+
+# K14's and K15's edge cases: (name, capacity on the card, capacity in the
+# host's replays, what the case changes); every other build row has a
+# random hash, 10% of them null keys
+STRATEGY_EDGES = (
+    ("capacity 1", 1, 1, {"valid": 1.0}),
+    ("capacity 8 (one bucket)", 8, 8, {}),
+    ("every row invalid", 5000, 5000, {"valid": 0.0}),
+    ("one hash across the build", 1 << 20, 5000, {"one_hash": True}),
+    ("hashes 0 and 2^32 - 1", 1 << 16, 5000, {"ends": True}),
+    ("about 100 keys (more buckets than keys)", 1 << 20, 1 << 14, {"keys": 100}),
+    ("sparse build, 2% valid (empty buckets)", 1 << 22, 5000, {"valid": 0.02}),
+    ("a hot key past a fill tile's scan (70,000 rows)", 1 << 17, 1 << 17, {"hot": 70_000}),
+    ("a one-home cluster over three tiles", 1 << 16, 1 << 14, {"tiles": 3}),
+    ("T not a power of two", 3 * (1 << 20) + 5, 3 * (1 << 12) + 5, {"cluster": 1500}),
+    ("repeats, nulls and padding", 1 << 16, 5000, {"repeats": 200}),
+)
+EDGE_PROBE_ROWS = {True: 1 << 22, False: 20_000}   # at most, on the card / on the host
+
+
+def strategy_edge(name: str, on_card: bool = True):
+    """(build hashes uint32[cap], ok bool[cap], probe hashes uint32[m],
+    probe ok bool[m]) of the STRATEGY_EDGES case `name`, seeded by its
+    place in the list, at its capacity on the card or (on_card=False) in
+    the host's replays. The probe rows: 70% build hashes, the rest random,
+    the first four 0, 2^32 - 1, 1 and 2^31, 5% not ok; where one hash is
+    hot, all but a few probe rows miss it."""
+    from datafusion_parallelism_tpu_torch.kernels.oa_place import PLACE_TILE
+    from datafusion_parallelism_tpu_torch.ops.hash_table import table_size_for
+    i = [e[0] for e in STRATEGY_EDGES].index(name)
+    _, card_cap, host_cap, edit = STRATEGY_EDGES[i]
+    rng = np.random.default_rng(140 + i)
+    cap = card_cap if on_card else host_cap
+    T = table_size_for(cap)
+    h = rng.integers(0, 1 << 32, cap, dtype=np.uint64)
+    ok = rng.random(cap) >= 0.1
+    hot = None
+    if "valid" in edit:
+        ok = rng.random(cap) < edit["valid"]
+    if "keys" in edit:
+        ok = rng.random(cap) < edit["keys"] / cap
+    if "one_hash" in edit:
+        h[:], ok[:], hot = 0x9E3779B9, True, 0x9E3779B9
+    if "ends" in edit:
+        h[rng.random(cap) < 0.3] = 0
+        h[rng.random(cap) < 0.3] = (1 << 32) - 1
+    if "hot" in edit:                 # more keys than DIR_SCAN_KEYS in one fill tile
+        h[:edit["hot"]], ok[:edit["hot"]], hot = 0x12345678, True, 0x12345678
+    if "tiles" in edit or "cluster" in edit:
+        n = edit["cluster"] if "cluster" in edit else edit["tiles"] * PLACE_TILE + 11
+        at = rng.choice(cap, n, replace=False)
+        h[at] = _home_hashes(rng, T, T // 3, n)
+        ok[at] = True
+    if "repeats" in edit:
+        h = rng.choice(h[:edit["repeats"]], cap)
+        ok[cap - cap // 6:] = False
+    m = min(max(2 * cap, 64), EDGE_PROBE_ROWS[on_card])
+    pool = h[ok] if ok.any() else h
+    ph = np.where(rng.random(m) < 0.7, rng.choice(pool, m),
+                  rng.integers(0, 1 << 32, m, dtype=np.uint64))
+    if hot is not None:
+        ph[rng.random(m) < 0.9999] = 7
+        ph[4:8] = hot
+    ph[:4] = [0, (1 << 32) - 1, 1, 1 << 31]
+    return h.astype(np.uint32), ok, ph.astype(np.uint32), rng.random(m) >= 0.05
+
+
+def strategy_plans_agree(shapes) -> None:
+    """K14's and K15's launch plans and scratch bytes as compiled ==
+    their wrappers' copies (which the host's replays read), at each
+    (probe rows m, capacity) of `shapes`."""
+    from datafusion_parallelism_tpu_torch.kernels import oa_place as k15
+    from datafusion_parallelism_tpu_torch.kernels import sorted_probe as k14
+    for label, mod in (("K14", k14), ("K15", k15)):
+        mine = {name: getattr(mod, name) for name in mod.PLAN}
+        if mod.compiled_plan() != mine:
+            raise AssertionError(f"{label}: compiled plan {mod.compiled_plan()}, the wrapper "
+                                 f"has {mine}")
+    for m, cap in shapes:
+        bits = k14.directory_bits(cap)
+        if (k14.compiled_scratch_bytes(m, bits) != k14.scratch_bytes(m, bits)
+                or k15.compiled_scratch_bytes(cap) != k15.scratch_bytes(cap)):
+            raise AssertionError(
+                f"m {m}, capacity {cap}: scratch K14 {k14.compiled_scratch_bytes(m, bits)} / "
+                f"K15 {k15.compiled_scratch_bytes(cap)} bytes compiled, the wrappers say "
+                f"{k14.scratch_bytes(m, bits)} / {k15.scratch_bytes(cap)}")
+
+
+def strategy_kernel_edges(device) -> list:
+    """K14 and K15 against their plain versions bit for bit on their edge
+    cases, each run twice with the same bits; their compiled launch plans
+    and scratch bytes against the wrappers' (at each case's shapes and
+    Q7's)."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import oa_place as k15
+    from datafusion_parallelism_tpu_torch.kernels import sorted_probe as k14
+    from datafusion_parallelism_tpu_torch.ops.hash_table import (oa_slots_for, slot_of,
+                                                                 table_size_for)
+    lines = []
+    shapes = [(1 << 26, 1 << 25)]                  # Q7's K14 and K15 calls
+    for name, *_ in STRATEGY_EDGES:
+        h_np, ok_np, ph_np, pok_np = strategy_edge(name)
+        h = torch.from_numpy(h_np.view(np.int32).copy()).to(device)
+        ok = torch.from_numpy(ok_np).to(device)
+        ph = torch.from_numpy(ph_np.view(np.int32).copy()).to(device)
+        pok = torch.from_numpy(pok_np).to(device)
+        cap = h.shape[0]
+        shapes.append((ph.shape[0], cap))
+        sh = torch.sort(torch.where(ok, h.long() & 0xFFFFFFFF, 1 << 33)).values
+        T = table_size_for(cap)
+        home = slot_of(h, T)
+        order = torch.argsort(torch.where(ok, (home.long() << 32) | (h.long() & 0xFFFFFFFF),
+                                          1 << 62), stable=True).to(torch.int32)
+        try:
+            for label, kernel, plain, args in (
+                    ("K14", k14.sorted_probe, k14.sorted_probe_plain, (ph, pok, sh)),
+                    ("K15", k15.oa_place, k15.oa_place_plain,
+                     (order, home, h, ok, oa_slots_for(T)))):
+                got = kernel(*args)
+                again = kernel(*args)
+                with no_launches():
+                    want = plain(*args)
+                torch.cuda.synchronize()
+                max_abs_err(got, want)
+                max_abs_err(again, got)
+        except AssertionError as e:
+            raise AssertionError(f"{label} {name}: {e}") from None
+        lines.append(f"{name} (capacity {cap}, {int(ok.sum())} valid, m {ph.shape[0]}, "
+                     f"directory bits {k14.directory_bits(cap)}, T {T}, "
+                     f"{k15.place_tiles(int(ok.sum()))} K15 tiles)")
+        del h, ok, ph, pok, sh, home, order, got, again, want
+        torch.cuda.empty_cache()
+    strategy_plans_agree(shapes)
+    return lines + ["launch plans and scratch bytes as compiled"]
+
+
 def phase_strategy_kernels_vs_plain(device, n: int = 1 << 18) -> None:
     """Phase 2c: K14-K16 and K3's ranges entry against their plain versions
     on seeded hashes (repeats, null keys, padding, a one-home cluster), at
     a power-of-two and a Lemire table size; the SORT and OA joins with
-    every stage checked; K17 on every expression class x dtype."""
+    every stage checked; K14 and K15 on their edge cases, twice
+    (`strategy_kernel_edges`); K17 on every expression class x dtype."""
     import torch
     from datafusion_parallelism_tpu_torch.kernels import filter_compact as k5
     from datafusion_parallelism_tpu_torch.kernels import oa_place as k15
@@ -653,9 +791,9 @@ def phase_strategy_kernels_vs_plain(device, n: int = 1 << 18) -> None:
         with no_launches():
             sort_p = sort_table_rows(h, ok, rows, k6.radix_sort_plain, k5.gather_rows_plain)
         max_abs_err(sort_k, sort_p)
-        oa_k = oa_table_rows(h, home, ok, T, rows, k6.radix_sort, k15.oa_place, k5.gather_rows)
+        oa_k = oa_table_rows(h, ok, T, rows, k6.radix_sort, k15.oa_place, k5.gather_rows)
         with no_launches():
-            oa_p = oa_table_rows(h, home, ok, T, rows, k6.radix_sort_plain, k15.oa_place_plain,
+            oa_p = oa_table_rows(h, ok, T, rows, k6.radix_sort_plain, k15.oa_place_plain,
                                  k5.gather_rows_plain)
         max_abs_err(oa_k, oa_p)
         # the cluster's displacement: its farthest row's slot past the home slot
@@ -690,6 +828,8 @@ def phase_strategy_kernels_vs_plain(device, n: int = 1 << 18) -> None:
                          f"{int(got[0].sum())} matches")
         lines.append(f"OA T={T}: cluster displaced {displaced} slots")
     lines += strategy_join_variants(rng, n // 4, device)
+    lines.append("K14 and K15 edge cases, twice with the same bits: "
+                 + ", ".join(strategy_kernel_edges(device)))
     lines.append(expr_kernel_vs_plain(rng, device))
     lines.append(expr_tile_edges(rng, device))
     log("phase 2c ok: K14 sorted_probe, K15 oa_place, K16 oa_probe, K3's expand_ranges and "
@@ -2507,13 +2647,29 @@ def _bytes(x) -> int:
 
 
 def join_detail(key, args, out) -> str:
-    """Phase 15's detail of a K2, K3 or K4 call ('' for the rest): K2's n,
-    T, R, layout, digit passes and its bound as counted before its outputs
-    shared storage (each output's bytes); K3's m, T, total, out_cap, build
-    rows' layout and key groups; K4's out_cap, total, n_match and
-    columns."""
+    """Phase 15's detail of a K2, K3, K4, K14 or K15 call ('' for the
+    rest): K2's n, T, R, layout, digit passes and its bound as counted
+    before its outputs shared storage (each output's bytes); K3's m, T,
+    total, out_cap, build rows' layout and key groups; K4's out_cap, total,
+    n_match and columns; K14's m, capacity, directory bits and keys a
+    bucket; K15's capacity, S, tiles and n_valid."""
     from datafusion_parallelism_tpu_torch.kernels import csr_build as k2
+    from datafusion_parallelism_tpu_torch.kernels import oa_place as k15
     from datafusion_parallelism_tpu_torch.kernels import probe_expand as k3
+    from datafusion_parallelism_tpu_torch.kernels import sorted_probe as k14
+    if key[1] == "sorted_probe":
+        hashes, ok, sorted_hash = args
+        cap, bits = sorted_hash.shape[0], k14.directory_bits(sorted_hash.shape[0])
+        valid = int((sorted_hash < 2**32).sum())
+        return (f", m {hashes.shape[0]}, {int(ok.sum())} rows ok, capacity {cap}, {valid} "
+                f"valid keys, directory bits {bits}: {cap / 2**bits:.2f} capacity keys and "
+                f"{valid / 2**bits:.2f} valid keys a bucket, total {int(out[3])}")
+    if key[1] == "oa_place":
+        order, _, _, ok, S = args
+        each = _bytes(args) + _bytes(out)
+        return (f", capacity {order.shape[0]}, S {S}, {k15.place_tiles(order.shape[0])} "
+                f"tiles, n_valid {int(ok.sum())}, bound as counted before (every input "
+                f"whole) {each / HBM_BYTES_PER_S * 1e3:.3f}")
     if key[1] == "csr_build":
         slot, T, rows = args[:3]
         each = sum(t.nbytes for t in _flat([slot, rows, out]))
@@ -2771,6 +2927,12 @@ def work(key, args, out):
         # the two keys around each probe row's place at least
         hashes, ok, sorted_hash = args
         reads = _bytes([hashes, ok]) + min(sorted_hash.nbytes, 16 * hashes.numel())
+    elif entry == "oa_place":
+        # `ok` whole; below n_valid (the valid rows come first in `order`)
+        # each sorted row's order entry and its gathered hash; the home is
+        # computed from the hash, not read
+        _, _, _, ok, _ = args
+        reads = ok.nbytes + 8 * int(ok.sum())
     elif entry == "oa_probe":
         # each valid probe row reads its run and the slot that ends its walk
         home, hashes, ok, slots = args

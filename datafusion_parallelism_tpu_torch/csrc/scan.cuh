@@ -1,8 +1,9 @@
 // Device-wide exclusive prefix sums: the three-pass scan of K4's
-// compaction (survivor positions), K18's counting sort and the SORT and
-// OA probes' candidate bases (K14, K16), and the single-pass look-back scan
-// of the CSR build's padding partition, the CSR probe (candidate bases),
-// K5's compaction (each tile's base) and K7's group ranks.
+// compaction (survivor positions), K18's counting sort and the OA probe's
+// candidate bases (K16), and the single-pass look-back scan of the CSR
+// build's padding partition, the CSR and SORT probes (candidate bases),
+// K5's compaction (each tile's base), K7's group ranks and, with a max in
+// place of the sum, K15's displacement.
 //
 // Replaces the `jnp.cumsum` calls of the JAX package (hash_table.py:118-119,
 // :287; columnar.py:418-444's survivor count).
@@ -156,14 +157,15 @@ inline unsigned grid_for(i64 n, int block) { return (unsigned)((n + block - 1) /
 // ---------------------------------------------------------------------------
 // Single-pass scans by decoupled look-back (Merrill and Garland, "Single-pass
 // Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016): K2's padding
-// partition and K3's candidate bases. A block takes the
-// next tile id from a counter, so a tile only waits on tiles already
-// running; it publishes its aggregate at once, then warp 0 reads the status
-// words of the 32 tiles before it at a time and adds them up to the nearest
-// one that holds its inclusive prefix. A status word is 64 bits: bit 63
-// marks an inclusive prefix, bit 62 an aggregate, bits 0-61 the value (a
-// sum below 2^62: K3's total of m rows' counts, each below 2^31). The
-// counter and the status words start zeroed: one memset of
+// partition, K3's and K14's candidate bases, K15's displacement. A block
+// takes the next tile id from a counter, so a tile only waits on tiles
+// already running; it publishes its aggregate at once, then warp 0 reads
+// the status words of the 32 tiles before it at a time and combines them
+// (a sum, or a max) up to the nearest one that holds its inclusive prefix.
+// A status word is 64 bits: bit 63 marks an inclusive prefix, bit 62 an
+// aggregate, bits 0-61 the value (below 2^62 and >= 0: K3's total of m
+// rows' counts, each below 2^31; K15's displacement plus the capacity).
+// The counter and the status words start zeroed: one memset of
 // lookback_scratch_bytes.
 // ---------------------------------------------------------------------------
 
@@ -182,8 +184,18 @@ __device__ __forceinline__ i64 lookback_tile(uint64_t* status, i64 tiles, int* s
   return *smem_tile;
 }
 
-// The sum of the tiles before `tile`, given this tile's `aggregate` (every
-// thread of the block calls it; the result in every thread).
+// The look-back's combines, each with 0 as its identity (the values are >= 0)
+struct LookbackSum {
+  __device__ __forceinline__ static i64 op(i64 a, i64 b) { return a + b; }
+};
+struct LookbackMax {
+  __device__ __forceinline__ static i64 op(i64 a, i64 b) { return a > b ? a : b; }
+};
+
+// The sum (or, with LookbackMax, the max) of the tiles before `tile`, given
+// this tile's `aggregate`; 0 for tile 0 (every thread of the block calls
+// it; the result in every thread).
+template <typename Combine = LookbackSum>
 __device__ __forceinline__ i64 lookback_prefix(uint64_t* status, i64 tile, i64 aggregate,
                                                i64* smem_prefix) {
   volatile uint64_t* vs = status;
@@ -206,12 +218,12 @@ __device__ __forceinline__ i64 lookback_prefix(uint64_t* status, i64 tile, i64 a
       // the lanes up to the nearest inclusive one (the lowest lane) count
       i64 v = (inc == 0u || lane <= __ffs(inc) - 1) ? (i64)(s & LB_VALUE) : 0;
 #pragma unroll
-      for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
-      excl += v;
+      for (int d = 16; d > 0; d >>= 1) v = Combine::op(v, __shfl_xor_sync(0xffffffffu, v, d));
+      excl = Combine::op(excl, v);
       if (inc != 0u) break;
     }
     if (lane == 0) {
-      vs[tile] = LB_INCLUSIVE | (uint64_t)(excl + aggregate);
+      vs[tile] = LB_INCLUSIVE | (uint64_t)Combine::op(excl, aggregate);
       *smem_prefix = excl;
     }
   }
@@ -220,11 +232,8 @@ __device__ __forceinline__ i64 lookback_prefix(uint64_t* status, i64 tile, i64 a
 }
 
 // ---------------------------------------------------------------------------
-// Device-wide inclusive MAX-scan of int64, in place: the open-addressing
-// build's displacement prefix (JAX `lax.cummax`, hash_table.py:169). The
-// same three passes as the sum: per-tile maxima -> one block turns them
-// into exclusive tile prefixes -> each tile rescans itself from its prefix.
-// Templates, so that a source which does not use it compiles none of it.
+// Block-wide max-scan of int64: K3's marks and K15's displacement prefix
+// (JAX `lax.cummax`, hash_table.py:169) inside a tile.
 // ---------------------------------------------------------------------------
 
 constexpr i64 MAX_IDENTITY = (i64)(-0x7fffffffffffffffLL - 1);
@@ -263,87 +272,6 @@ __device__ __forceinline__ i64 block_exclusive_max(i64 v, i64* smem, i64* total)
   *total = smem[32];
   __syncthreads();
   return res;
-}
-
-template <typename Unused = void>
-__global__ void max_reduce_kernel(const i64* __restrict__ in, i64 n, i64* __restrict__ tile_max) {
-  __shared__ i64 smem[33];
-  const i64 base = (i64)blockIdx.x * SCAN_TILE;
-  i64 s = MAX_IDENTITY;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const i64 i = base + (i64)k * SCAN_BLOCK + threadIdx.x;
-    if (i < n && in[i] > s) s = in[i];
-  }
-  i64 total;
-  block_exclusive_max(s, smem, &total);
-  if (threadIdx.x == 0) tile_max[blockIdx.x] = total;
-}
-
-// One block of 1024 threads: tile maxima -> exclusive tile prefixes, in place.
-template <typename Unused = void>
-__global__ void max_tiles_kernel(i64* __restrict__ tile_max, i64 n_tiles) {
-  __shared__ i64 smem[33];
-  i64 carry = MAX_IDENTITY;
-  for (i64 base = 0; base < n_tiles; base += blockDim.x) {
-    const i64 i = base + threadIdx.x;
-    const i64 v = i < n_tiles ? tile_max[i] : MAX_IDENTITY;
-    i64 chunk;
-    const i64 ex = block_exclusive_max(v, smem, &chunk);
-    if (i < n_tiles) tile_max[i] = carry > ex ? carry : ex;
-    if (chunk > carry) carry = chunk;
-  }
-}
-
-template <typename Unused = void>
-__global__ void max_downsweep_kernel(i64* data, i64 n, const i64* __restrict__ tile_prefix) {
-  __shared__ i64 tile[SCAN_TILE + SCAN_TILE / 16];
-  __shared__ i64 smem[33];
-  const i64 base = (i64)blockIdx.x * SCAN_TILE;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int j = k * SCAN_BLOCK + threadIdx.x;
-    const i64 i = base + j;
-    tile[scan_pad(j)] = i < n ? data[i] : MAX_IDENTITY;
-  }
-  __syncthreads();
-  i64 s = MAX_IDENTITY;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const i64 v = tile[scan_pad(threadIdx.x * SCAN_ITEMS + k)];
-    if (v > s) s = v;
-  }
-  i64 unused;
-  i64 run = block_exclusive_max(s, smem, &unused);
-  const i64 prefix = tile_prefix[blockIdx.x];
-  if (prefix > run) run = prefix;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int j = scan_pad(threadIdx.x * SCAN_ITEMS + k);
-    if (tile[j] > run) run = tile[j];
-    tile[j] = run;  // inclusive
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int j = k * SCAN_BLOCK + threadIdx.x;
-    const i64 i = base + j;
-    if (i < n) data[i] = tile[scan_pad(j)];
-  }
-}
-
-// Scratch bytes inclusive_max_scan needs for n elements.
-inline i64 max_scan_scratch_bytes(i64 n) { return (scan_tiles(n) + 1) * (i64)sizeof(i64); }
-
-// data[i] = max(data[0..i]) for i < n, in place. Launches only; the caller
-// checks cudaGetLastError.
-inline void inclusive_max_scan(i64* data, i64 n, void* scratch, cudaStream_t stream) {
-  i64* tile_max = static_cast<i64*>(scratch);
-  const i64 n_tiles = scan_tiles(n);
-  if (n_tiles == 0) return;
-  max_reduce_kernel<><<<(unsigned)n_tiles, SCAN_BLOCK, 0, stream>>>(data, n, tile_max);
-  max_tiles_kernel<><<<1, 1024, 0, stream>>>(tile_max, n_tiles);
-  max_downsweep_kernel<><<<(unsigned)n_tiles, SCAN_BLOCK, 0, stream>>>(data, n, tile_max);
 }
 
 }  // namespace

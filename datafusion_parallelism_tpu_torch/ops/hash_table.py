@@ -87,6 +87,8 @@ def slot_of(hashes: torch.Tensor, T: int) -> torch.Tensor:
     """Map uint32 hash bits (held in int32) to a bucket in [0, T) for ANY T:
     a mask for a power of two, else the multiply-shift reduction (Lemire)
     floor(h * T / 2^32), whose product stays below 2^62 in int64."""
+    if T & (T - 1) == 0 and T <= 2**31 and hashes.dtype == torch.int32:
+        return hashes & (T - 1)       # the low bits, in one int32 pass
     h = hashes.long() & _M32
     if T & (T - 1) == 0:
         return (h & (T - 1)).to(torch.int32)
@@ -127,19 +129,21 @@ def sort_table_rows(hashes: torch.Tensor, ok: torch.Tensor, rows: torch.Tensor,
     return table, rows_out
 
 
-def oa_table_rows(hashes: torch.Tensor, home: torch.Tensor, ok: torch.Tensor, T: int,
+def oa_table_rows(hashes: torch.Tensor, ok: torch.Tensor, T: int,
                   rows: torch.Tensor, sort: Callable = k6.radix_sort,
                   place: Callable = k15.oa_place, gather: Callable = k5.gather_rows
                   ) -> Tuple[JoinTable, torch.Tensor]:
-    """The OA table of hashes int32[cap] with home slots `home` in [0, T)
-    (any value where not `ok`), and `rows` [R, cap] plus the row id in slot
+    """The OA table of hashes int32[cap] over the rows where `ok`, each
+    homed at slot_of(hash, T), and `rows` [R, cap] plus the row id in slot
     order ([R + 1, S]; an empty slot holds row 0's words, which no
     candidate reads). `sort` (K6) orders the rows by (invalid, home, hash),
     JAX's composite key with its 2^62 sentinel; `place` (K15) parks them;
-    `gather` (K5) puts the rows into slot order."""
+    `gather` (K5) puts the rows into slot order. The homes are made here
+    from the hashes, so they are what K15 computes on the card."""
     inval = (~ok).to(torch.int32)
-    order = sort(torch.stack([inval, torch.where(ok, home, 0), torch.where(ok, hashes, 0)]),
-                 [False, False, False])
+    key = torch.where(ok, hashes, 0)
+    home = slot_of(key, T)            # slot_of(0) = 0: the invalid rows' home word
+    order = sort(torch.stack([inval, home, key]), [False, False, False])
     slots, perm = place(order, home, hashes, ok, oa_slots_for(T))
     rows_out, _ = gather(_with_ids(rows), rows.new_empty((0, rows.shape[1]), dtype=torch.float64),
                          perm)
@@ -168,7 +172,7 @@ def build_oa(hashes: torch.Tensor, key_valid: torch.Tensor, num_rows) -> JoinTab
     T = table_size_for(hashes.shape[0])
     ok = _valid_rows(hashes, key_valid, num_rows)
     no_rows = torch.empty((0, hashes.shape[0]), dtype=torch.int32, device=hashes.device)
-    return oa_table_rows(hashes, slot_of(hashes, T), ok, T, no_rows)[0]
+    return oa_table_rows(hashes, ok, T, no_rows)[0]
 
 
 def build_join_table(hashes, key_valid, num_rows,

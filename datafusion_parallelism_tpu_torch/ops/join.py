@@ -27,7 +27,7 @@ The kernels, each reached through a `JoinKernels` table:
   K9  pair_fetch      whole candidate rows + the value recheck (full fetch)
   K10 match_flags     visited build rows / matched probe rows
   K11 concat_rows     pairs + unmatched rows of LEFT/RIGHT/FULL joins
-  K14 sorted_probe    SORT: candidate ranges by binary search
+  K14 sorted_probe    SORT: candidate ranges through a bucket directory
   K15 oa_place        OA: the rows parked into the open-addressing slots
   K16 oa_probe        OA: candidate ranges by linear-probe walks
 
@@ -260,7 +260,7 @@ def _build_table(strategy: JoinStrategy, kernels: JoinKernels, chain: ChainKerne
     ok = slot != T
     if strategy is JoinStrategy.SORT:
         return sort_table_rows(hashes, ok, rows, kernels.table_sort, chain.gather_rows)
-    return oa_table_rows(hashes, slot, ok, T, rows, kernels.table_sort, kernels.oa_place,
+    return oa_table_rows(hashes, ok, T, rows, kernels.table_sort, kernels.oa_place,
                          chain.gather_rows)
 
 
