@@ -30,7 +30,9 @@ expression of every path is K17 expr_eval. Phases, one line each:
      K16 and K3's expand_ranges on seeded hashes (repeats, null keys,
      padding, a one-home cluster displaced by thousands of slots) at a
      power-of-two and a Lemire table size, SORT and OA joins with every
-     stage checked, and K17 on every expression class x dtype with NULLs,
+     stage checked, K14-K16 on their edge cases twice (K16 also on a walk
+     to the spill region's end, probes past a tile's multiple, one probe
+     row and no probe row ok), and K17 on every expression class x dtype with NULLs,
      division by zero and negative operands, then at row counts around its
      tile (0, 1, 31, T - 1, T, T + 1, 1,000; values and masks) and with
      1, 5 and 64 registers up to more tiles than its grid holds (2c); K6
@@ -161,7 +163,10 @@ expression of every path is K17 expr_eval. Phases, one line each:
      lineitem INNER join partitioned; rows == numpy's counts (and the
      price sum), INNER rows equal under the three modes, each retry
      logged; per run the step's ms, comm bytes and peak; K18 and K19
-     launched, and == their plain versions at the largest calls
+     launched, and == their plain versions at the largest calls; then K18
+     on its edge cases twice (P 1 and 1024, send_cap 0 and below the
+     counts, a capacity off the tile, no rows, replicate flags, salted and
+     heavy_to_all routes)
  20. (run after 19) a one-rank NCCL process group: the Size512 INNER join partitioned
      through ProcessGroupExchange == single-device hash_join row for row
 
@@ -696,34 +701,60 @@ def strategy_edge(name: str, on_card: bool = True):
     return h.astype(np.uint32), ok, ph.astype(np.uint32), rng.random(m) >= 0.05
 
 
-def strategy_plans_agree(shapes) -> None:
-    """K14's and K15's launch plans and scratch bytes as compiled ==
-    their wrappers' copies (which the host's replays read), at each
-    (probe rows m, capacity) of `shapes`."""
-    from datafusion_parallelism_tpu_torch.kernels import oa_place as k15
-    from datafusion_parallelism_tpu_torch.kernels import sorted_probe as k14
-    for label, mod in (("K14", k14), ("K15", k15)):
+def plans_agree(mods) -> None:
+    """Each (label, module)'s launch plan as compiled == the wrapper's copy
+    (which the host's replays read)."""
+    for label, mod in mods:
         mine = {name: getattr(mod, name) for name in mod.PLAN}
         if mod.compiled_plan() != mine:
             raise AssertionError(f"{label}: compiled plan {mod.compiled_plan()}, the wrapper "
                                  f"has {mine}")
+
+
+def strategy_plans_agree(shapes) -> None:
+    """K14's, K15's and K16's launch plans and scratch bytes as compiled ==
+    their wrappers' copies, at each (probe rows m, capacity) of `shapes`."""
+    from datafusion_parallelism_tpu_torch.kernels import oa_place as k15
+    from datafusion_parallelism_tpu_torch.kernels import oa_probe as k16
+    from datafusion_parallelism_tpu_torch.kernels import sorted_probe as k14
+    plans_agree((("K14", k14), ("K15", k15), ("K16", k16)))
     for m, cap in shapes:
         bits = k14.directory_bits(cap)
-        if (k14.compiled_scratch_bytes(m, bits) != k14.scratch_bytes(m, bits)
-                or k15.compiled_scratch_bytes(cap) != k15.scratch_bytes(cap)):
-            raise AssertionError(
-                f"m {m}, capacity {cap}: scratch K14 {k14.compiled_scratch_bytes(m, bits)} / "
-                f"K15 {k15.compiled_scratch_bytes(cap)} bytes compiled, the wrappers say "
-                f"{k14.scratch_bytes(m, bits)} / {k15.scratch_bytes(cap)}")
+        compiled = (k14.compiled_scratch_bytes(m, bits), k15.compiled_scratch_bytes(cap),
+                    k16.compiled_scratch_bytes(m))
+        mine = (k14.scratch_bytes(m, bits), k15.scratch_bytes(cap), k16.scratch_bytes(m))
+        if compiled != mine:
+            raise AssertionError(f"m {m}, capacity {cap}: scratch K14 / K15 / K16 {compiled} "
+                                 f"bytes compiled, the wrappers say {mine}")
+
+
+def kernel_twice(label, kernel, plain, args):
+    """kernel(*args) twice against plain(*args): equal bit for bit, the
+    same bits twice; returns the kernel's result."""
+    import torch
+    try:
+        got = kernel(*args)
+        again = kernel(*args)
+        with no_launches():
+            want = plain(*args)
+        torch.cuda.synchronize()
+        max_abs_err(got, want)
+        max_abs_err(again, got)
+    except AssertionError as e:
+        raise AssertionError(f"{label}: {e}") from None
+    return got
 
 
 def strategy_kernel_edges(device) -> list:
-    """K14 and K15 against their plain versions bit for bit on their edge
-    cases, each run twice with the same bits; their compiled launch plans
+    """K14, K15 and K16 against their plain versions bit for bit on their
+    edge cases, each run twice with the same bits (K16 on K15's table,
+    where its walks stay short enough for the plain version's lockstep
+    loop), then K16's own cases (`K16_EDGES`); their compiled launch plans
     and scratch bytes against the wrappers' (at each case's shapes and
     Q7's)."""
     import torch
     from datafusion_parallelism_tpu_torch.kernels import oa_place as k15
+    from datafusion_parallelism_tpu_torch.kernels import oa_probe as k16
     from datafusion_parallelism_tpu_torch.kernels import sorted_probe as k14
     from datafusion_parallelism_tpu_torch.ops.hash_table import (oa_slots_for, slot_of,
                                                                  table_size_for)
@@ -742,34 +773,101 @@ def strategy_kernel_edges(device) -> list:
         home = slot_of(h, T)
         order = torch.argsort(torch.where(ok, (home.long() << 32) | (h.long() & 0xFFFFFFFF),
                                           1 << 62), stable=True).to(torch.int32)
-        try:
-            for label, kernel, plain, args in (
-                    ("K14", k14.sorted_probe, k14.sorted_probe_plain, (ph, pok, sh)),
-                    ("K15", k15.oa_place, k15.oa_place_plain,
-                     (order, home, h, ok, oa_slots_for(T)))):
-                got = kernel(*args)
-                again = kernel(*args)
-                with no_launches():
-                    want = plain(*args)
-                torch.cuda.synchronize()
-                max_abs_err(got, want)
-                max_abs_err(again, got)
-        except AssertionError as e:
-            raise AssertionError(f"{label} {name}: {e}") from None
+        kernel_twice(f"K14 {name}", k14.sorted_probe, k14.sorted_probe_plain, (ph, pok, sh))
+        slots, _ = kernel_twice(f"K15 {name}", k15.oa_place, k15.oa_place_plain,
+                                (order, home, h, ok, oa_slots_for(T)))
+        walks = ""
+        if name not in K16_LONG_WALKS:
+            ranges = kernel_twice(f"K16 {name}", k16.oa_probe, k16.oa_probe_plain,
+                                  (ph[:K16_EDGE_ROWS], pok[:K16_EDGE_ROWS], slots))
+            walks = f", K16 total {int(ranges[3])}"
         lines.append(f"{name} (capacity {cap}, {int(ok.sum())} valid, m {ph.shape[0]}, "
                      f"directory bits {k14.directory_bits(cap)}, T {T}, "
-                     f"{k15.place_tiles(int(ok.sum()))} K15 tiles)")
-        del h, ok, ph, pok, sh, home, order, got, again, want
+                     f"{k15.place_tiles(int(ok.sum()))} K15 tiles{walks})")
+        del h, ok, ph, pok, sh, home, order, slots
         torch.cuda.empty_cache()
+    for name, *_ in K16_EDGES:
+        h, ok, ph, pok = (torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+                          .to(device) for a in k16_edge(name))
+        slots = k16_table(h, ok)
+        shapes.append((ph.shape[0], h.shape[0]))
+        ranges = kernel_twice(f"K16 {name}", k16.oa_probe, k16.oa_probe_plain, (ph, pok, slots))
+        lines.append(f"K16 {name} (capacity {h.shape[0]}, S {slots.shape[0]}, m {ph.shape[0]}, "
+                     f"{int(pok.sum())} ok, {k16.probe_tiles(ph.shape[0])} tiles, total "
+                     f"{int(ranges[3])}, longest run {int(ranges[1].max())})")
     strategy_plans_agree(shapes)
     return lines + ["launch plans and scratch bytes as compiled"]
+
+
+# the STRATEGY_EDGES cases whose probe walks a run too long for K16's
+# plain version on the card (its lockstep loop takes a step a slot, over
+# every probe row: K16 takes the first K16_EDGE_ROWS of the others')
+K16_LONG_WALKS = ("one hash across the build",)
+K16_EDGE_ROWS = 1 << 16
+# K16's own cases: (name, what the case is); each builds an OA table over
+# capacity 16,384 (T = 65,536 by the 64k floor, S = 81,920)
+K16_EDGES = (
+    ("a walk to the spill's end", "every build row homed at T - 1 under three hashes, so "
+     "the last run ends at slot S - 2; probes on them and on two more hashes homed there"),
+    ("m not a multiple of the tile", "5 tiles and 7 rows of probes"),
+    ("m = 1", "one probe row, on a build hash"),
+    ("no probe row ok", "every probe row without ok"),
+)
+
+
+def k16_edge(name: str):
+    """(build hashes uint32[cap], build ok bool[cap], probe hashes
+    uint32[m], probe ok bool[m]) of the K16_EDGES case `name`, seeded by
+    its place in the list; the same on the card and on the host."""
+    from datafusion_parallelism_tpu_torch.kernels.oa_probe import PROBE_TILE
+    from datafusion_parallelism_tpu_torch.ops.hash_table import table_size_for
+    i = [e[0] for e in K16_EDGES].index(name)
+    rng = np.random.default_rng(150 + i)
+    cap = 16_384
+    T = table_size_for(cap)
+    h = rng.integers(0, 1 << 32, cap, dtype=np.uint64)
+    ok = rng.random(cap) >= 0.1
+    m = 4000
+    if name == "a walk to the spill's end":
+        five = _home_hashes(rng, T, T - 1, 5)
+        h, ok = rng.choice(five[:3], cap), np.ones(cap, bool)
+        ph = np.where(rng.random(m) < 0.5, rng.choice(five, m),
+                      rng.integers(0, 1 << 32, m, dtype=np.uint64))
+        return h.astype(np.uint32), ok, ph.astype(np.uint32), rng.random(m) >= 0.05
+    if name == "m not a multiple of the tile":
+        m = 5 * PROBE_TILE + 7
+    if name == "m = 1":
+        m = 1
+    ph = np.where(rng.random(m) < 0.7, rng.choice(h[ok], m),
+                  rng.integers(0, 1 << 32, m, dtype=np.uint64))
+    pok = rng.random(m) >= 0.05
+    if name == "m = 1":
+        pok[:] = True
+    if name == "no probe row ok":
+        pok[:] = False
+    return h.astype(np.uint32), ok, ph.astype(np.uint32), pok
+
+
+def k16_table(h, ok):
+    """The OA table's slots over build hashes int32[cap] where `ok`, by the
+    plain build (K6's, K15's and K5's plain versions)."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import filter_compact as k5
+    from datafusion_parallelism_tpu_torch.kernels import oa_place as k15
+    from datafusion_parallelism_tpu_torch.kernels import radix_sort as k6
+    from datafusion_parallelism_tpu_torch.ops.hash_table import oa_table_rows, table_size_for
+    no_rows = torch.empty((0, h.shape[0]), dtype=torch.int32, device=h.device)
+    with no_launches():
+        table, _ = oa_table_rows(h, ok, table_size_for(h.shape[0]), no_rows,
+                                 k6.radix_sort_plain, k15.oa_place_plain, k5.gather_rows_plain)
+    return table.sorted_hash
 
 
 def phase_strategy_kernels_vs_plain(device, n: int = 1 << 18) -> None:
     """Phase 2c: K14-K16 and K3's ranges entry against their plain versions
     on seeded hashes (repeats, null keys, padding, a one-home cluster), at
     a power-of-two and a Lemire table size; the SORT and OA joins with
-    every stage checked; K14 and K15 on their edge cases, twice
+    every stage checked; K14, K15 and K16 on their edge cases, twice
     (`strategy_kernel_edges`); K17 on every expression class x dtype."""
     import torch
     from datafusion_parallelism_tpu_torch.kernels import filter_compact as k5
@@ -814,8 +912,8 @@ def phase_strategy_kernels_vs_plain(device, n: int = 1 << 18) -> None:
         for label, trows, probe, plain in (
                 ("SORT", sort_k[1], lambda: k14.sorted_probe(ph, pok, sh),
                  lambda: k14.sorted_probe_plain(ph, pok, sh)),
-                ("OA", oa_k[1], lambda: k16.oa_probe(slot_of(ph, T), ph, pok, slots),
-                 lambda: k16.oa_probe_plain(slot_of(ph, T), ph, pok, slots))):
+                ("OA", oa_k[1], lambda: k16.oa_probe(ph, pok, slots),
+                 lambda: k16.oa_probe_plain(ph, pok, slots))):
             ranges = probe()
             with no_launches():
                 max_abs_err(ranges, plain())
@@ -828,7 +926,7 @@ def phase_strategy_kernels_vs_plain(device, n: int = 1 << 18) -> None:
                          f"{int(got[0].sum())} matches")
         lines.append(f"OA T={T}: cluster displaced {displaced} slots")
     lines += strategy_join_variants(rng, n // 4, device)
-    lines.append("K14 and K15 edge cases, twice with the same bits: "
+    lines.append("K14, K15 and K16 edge cases, twice with the same bits: "
                  + ", ".join(strategy_kernel_edges(device)))
     lines.append(expr_kernel_vs_plain(rng, device))
     lines.append(expr_tile_edges(rng, device))
@@ -2647,16 +2745,26 @@ def _bytes(x) -> int:
 
 
 def join_detail(key, args, out) -> str:
-    """Phase 15's detail of a K2, K3, K4, K14 or K15 call ('' for the
+    """Phase 15's detail of a K2, K3, K4, K14, K15 or K16 call ('' for the
     rest): K2's n, T, R, layout, digit passes and its bound as counted
     before its outputs shared storage (each output's bytes); K3's m, T,
     total, out_cap, build rows' layout and key groups; K4's out_cap, total,
     n_match and columns; K14's m, capacity, directory bits and keys a
-    bucket; K15's capacity, S, tiles and n_valid."""
+    bucket; K15's capacity, S, tiles and n_valid; K16's m, ok rows, S, T,
+    tiles, total and longest run, and its bound as counted before it
+    computed the homes (with the probe's int32 home array read)."""
     from datafusion_parallelism_tpu_torch.kernels import csr_build as k2
     from datafusion_parallelism_tpu_torch.kernels import oa_place as k15
+    from datafusion_parallelism_tpu_torch.kernels import oa_probe as k16
     from datafusion_parallelism_tpu_torch.kernels import probe_expand as k3
     from datafusion_parallelism_tpu_torch.kernels import sorted_probe as k14
+    if key[1] == "oa_probe":
+        hashes, ok, slots = args
+        before = work(key, args, out)[0] + hashes.nbytes   # with the probe's home array
+        return (f", m {hashes.shape[0]}, {int(ok.sum())} rows ok, S {slots.shape[0]}, T "
+                f"{k16.home_slots(slots.shape[0])}, {k16.probe_tiles(hashes.shape[0])} tiles, "
+                f"total {int(out[3])}, longest run {int(out[1].max())}, bound as counted "
+                f"before (with a home array) {before / HBM_BYTES_PER_S * 1e3:.3f}")
     if key[1] == "sorted_probe":
         hashes, ok, sorted_hash = args
         cap, bits = sorted_hash.shape[0], k14.directory_bits(sorted_hash.shape[0])
@@ -2934,10 +3042,10 @@ def work(key, args, out):
         _, _, _, ok, _ = args
         reads = ok.nbytes + 8 * int(ok.sum())
     elif entry == "oa_probe":
-        # each valid probe row reads its run and the slot that ends its walk
-        home, hashes, ok, slots = args
-        reads = _bytes([home, hashes, ok]) + min(slots.nbytes,
-                                                 8 * (int(ok.sum()) + int(out[3])))
+        # `hashes` and `ok` whole; each valid probe row reads its run and
+        # the slot that ends its walk; the home is computed from the hash
+        hashes, ok, slots = args
+        reads = _bytes([hashes, ok]) + min(slots.nbytes, 8 * (int(ok.sum()) + int(out[3])))
     elif entry == "compact_gather":
         match, _, _, build_cols, probe_cols, total = args
         out_cap = match.shape[0]
@@ -3780,6 +3888,79 @@ def _k18_k19_vs_plain(rec):
     return out, lines
 
 
+# K18's edge cases: (name, capacity, rows in the mask, P, send_cap, what
+# else: a share of rows with the replicate flag, a heavy table whose rows
+# stay on the rank or go to every destination)
+K18_EDGES = (
+    ("P = 1", 10_000, 9_000, 1, 10_000, {}),
+    ("P = 1024", 1 << 18, 1 << 18, 1024, 512, {}),
+    ("send_cap 0", 10_000, 10_000, 8, 0, {}),
+    ("send_cap below the counts (dropped > 0)", 100_000, 100_000, 8, 5_000, {}),
+    ("capacity not a multiple of the tile", 3 * 2048 + 5, 3 * 2048 + 5, 8, 3 * 2048 + 5, {}),
+    ("no rows", 0, 0, 4, 16, {}),
+    ("replicate flags", 50_000, 45_000, 8, 50_000, {"replicate": 0.1}),
+    ("salted: heavy rows on the rank", 50_000, 50_000, 8, 50_000, {"heavy": "rank"}),
+    ("heavy_to_all", 50_000, 50_000, 8, 50_000, {"heavy": "all"}),
+    ("replicate flags and heavy rows on the rank, dropped", 50_000, 48_000, 16, 2_000,
+     {"replicate": 0.02, "heavy": "rank"}),
+)
+
+
+K18_HOST_ROWS = 12_000      # the capacity's cut in the host's replays
+
+
+def k18_edge(name: str, on_card: bool = True):
+    """dest_pack's arguments (hashes uint32[cap], mask bool[cap], P,
+    send_cap, heavy bool[256] or None, rank, replicate bool[cap] or None,
+    heavy_to_all) of the K18_EDGES case `name`, numpy arrays seeded by its
+    place in the list: random hashes, 3% of the rows below `rows` out of
+    the mask; a heavy table marks 8 buckets, into which 30% of the hashes
+    go. On the host (on_card=False) the capacity is cut to K18_HOST_ROWS,
+    the rows and send_cap with it."""
+    i = [e[0] for e in K18_EDGES].index(name)
+    _, cap, rows, P, send_cap, edit = K18_EDGES[i]
+    if not on_card and cap > K18_HOST_ROWS:
+        rows, send_cap = rows * K18_HOST_ROWS // cap, send_cap * K18_HOST_ROWS // cap
+        cap = K18_HOST_ROWS
+    rng = np.random.default_rng(180 + i)
+    h = rng.integers(0, 1 << 32, cap, dtype=np.uint64)
+    mask = (np.arange(cap) < rows) & (rng.random(cap) >= 0.03)
+    heavy = rep = None
+    if "heavy" in edit:
+        heavy = np.zeros(256, bool)
+        buckets = rng.choice(256, 8, replace=False)
+        heavy[buckets] = True
+        into = rng.random(cap) < 0.3
+        h = np.where(into, (rng.choice(buckets, cap).astype(np.uint64) << 24) | (h & 0xFFFFFF), h)
+    if "replicate" in edit:
+        rep = rng.random(cap) < edit["replicate"]
+    return (h.astype(np.uint32), mask, P, send_cap, heavy, P // 3 if heavy is not None else 0,
+            rep, edit.get("heavy") == "all")
+
+
+def k18_edges(device) -> list:
+    """K18 against its plain version bit for bit on its edge cases, each
+    run twice with the same bits; its compiled launch plan and scratch
+    bytes against the wrapper's."""
+    import torch
+    from datafusion_parallelism_tpu_torch.kernels import dest_pack as k18
+    plans_agree((("K18", k18),))
+    lines = []
+    for name, *_ in K18_EDGES:
+        h, mask, P, send_cap, heavy, rank, rep, to_all = k18_edge(name)
+        on = (lambda a: None if a is None else torch.from_numpy(a).to(device))
+        args = (on(h.view(np.int32)), on(mask), P, send_cap, on(heavy), rank, on(rep), to_all)
+        grid, counts, dropped = kernel_twice(f"K18 {name}", k18.dest_pack, k18.dest_pack_plain,
+                                             args)
+        if k18.compiled_scratch_bytes(h.shape[0], P) != k18.scratch_bytes(h.shape[0], P):
+            raise AssertionError(f"K18 {name}: scratch {k18.compiled_scratch_bytes(h.shape[0], P)}"
+                                 f" bytes compiled, the wrapper says "
+                                 f"{k18.scratch_bytes(h.shape[0], P)}")
+        lines.append(f"{name} (capacity {h.shape[0]}, P {P}, send_cap {send_cap}, "
+                     f"{int(counts.long().sum())} members, dropped {int(dropped)})")
+    return lines
+
+
 def phase_distributed(device):
     """The distributed hash join at P = 8 in process on the one card (the
     all-to-all a copy on the card, not NVLink): Size512 under every join
@@ -3787,7 +3968,8 @@ def phase_distributed(device):
     exponential probe keys, then phase 5's SF10 orders x lineitem INNER
     join partitioned. Row counts == numpy's, the modes' INNER rows equal,
     K18 and K19 launched on the path and == their plain versions at its
-    largest calls."""
+    largest calls; then K18 on its edge cases (`k18_edges`), after the
+    path's launches are read."""
     import torch
     from datafusion_parallelism_tpu_torch import parallel as par
     from datafusion_parallelism_tpu_torch.kernels import dest_pack, key_histogram
@@ -3863,6 +4045,7 @@ def phase_distributed(device):
     if min(launches.values()) < 1:
         raise AssertionError(f"K18/K19 not launched on the distributed path: {launches}")
     per_kernel, klines = _k18_k19_vs_plain(rec)
+    klines.append("K18 edge cases, twice with the same bits: " + "; ".join(k18_edges(device)))
     del rec
     torch.cuda.empty_cache()
     log(f"phase 19 ok: distributed hash join at P = {DIST_P} in process on one card (the "

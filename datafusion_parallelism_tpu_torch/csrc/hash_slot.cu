@@ -22,6 +22,7 @@
 #include <cuda_runtime.h>
 
 #include "scan.cuh"
+#include "slot_of.cuh"
 
 namespace {
 
@@ -98,12 +99,7 @@ __global__ void hash_slot_kernel(const int32_t* __restrict__ words, HashSpec spe
   hash_out[i] = (int32_t)h;
   if (ok_out != nullptr) ok_out[i] = ok ? 1 : 0;
   if (slot_out != nullptr) {
-    dfp::i64 s;
-    if ((T & (T - 1)) == 0) {
-      s = (dfp::i64)(h & (uint32_t)(T - 1));
-    } else {  // Lemire multiply-shift: floor(h * T / 2^32)
-      s = (dfp::i64)(((unsigned long long)h * (unsigned long long)T) >> 32);
-    }
+    dfp::i64 s = dfp::slot_of(h, (uint64_t)T);
     if (num_rows != nullptr && (i >= (dfp::i64)*num_rows || !ok)) s = T;
     if (row_mask != nullptr && !row_mask[i]) s = T;
     slot_out[i] = (int32_t)s;

@@ -46,6 +46,7 @@
 #include <cuda_runtime.h>
 
 #include "scan.cuh"
+#include "slot_of.cuh"
 
 namespace {
 
@@ -93,12 +94,6 @@ __global__ void __launch_bounds__(COUNT_BLOCK) count_valid_kernel(const uint8_t*
   }
 }
 
-// slot_of(hash, T) of ops/hash_table.py: a mask for a power of two, else the
-// multiply-shift reduction floor(hash * T / 2^32)
-__device__ __forceinline__ i64 home_of(uint32_t hash, uint64_t T) {
-  return (i64)((T & (T - 1)) == 0 ? hash & (T - 1) : ((uint64_t)hash * T) >> 32);
-}
-
 __global__ void __launch_bounds__(PLACE_BLOCK) place_kernel(
     const int32_t* __restrict__ order, const int32_t* __restrict__ hashes, i64 cap, i64 S,
     uint64_t T,
@@ -127,7 +122,7 @@ __global__ void __launch_bounds__(PLACE_BLOCK) place_kernel(
   for (int k = 0; k < PLACE_ITEMS; ++k) {
     if (r0 + k < L) {
       hs[k] = __ldg(hashes + o[k]);
-      const i64 v = home_of((uint32_t)hs[k], T) - (r0 + k) + cap;
+      const i64 v = dfp::slot_of((uint32_t)hs[k], T) - (r0 + k) + cap;
       run = v > run ? v : run;
     }
     inc[k] = run;

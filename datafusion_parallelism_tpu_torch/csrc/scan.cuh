@@ -1,19 +1,17 @@
-// Device-wide exclusive prefix sums: the three-pass scan of K4's
-// compaction (survivor positions), K18's counting sort and the OA probe's
-// candidate bases (K16), and the single-pass look-back scan of the CSR
-// build's padding partition, the CSR and SORT probes (candidate bases),
-// K5's compaction (each tile's base), K7's group ranks and, with a max in
+// Device-wide prefix sums by decoupled look-back, and the block-wide scans
+// they are built from: the CSR build's padding partition (K2), the CSR,
+// SORT and OA probes' candidate bases (K3, K14, K16), K5's and K4's
+// compactions (each tile's base), K7's group ranks, K18's per-destination
+// positions (a status word a tile and destination) and, with a max in
 // place of the sum, K15's displacement.
 //
 // Replaces the `jnp.cumsum` calls of the JAX package (hash_table.py:118-119,
 // :287; columnar.py:418-444's survivor count).
 //
-// Bound on the H100: memory traffic. The input is read twice (reduce, then
-// downsweep) and the output written once; everything else is one int64 per
-// 4096-element tile. Blocks run in no order on 132 SMs, so the scan is the
-// classic three passes: per-tile sums -> one block scans the tile sums ->
-// each tile rescans itself from its offset. Sums are carried in int64, so a
-// total past 2^31 is reported exactly instead of wrapping.
+// Bound on the H100: memory traffic. A kernel that takes its tile's prefix
+// here reads its input once and writes its output once; the look-back adds
+// one 8-byte status word a tile. Sums are carried in int64, so a total past
+// 2^31 is reported exactly instead of wrapping.
 
 #pragma once
 
@@ -26,10 +24,6 @@ namespace dfp {
 namespace {
 
 typedef long long i64;
-
-constexpr int SCAN_BLOCK = 256;
-constexpr int SCAN_ITEMS = 16;
-constexpr int SCAN_TILE = SCAN_BLOCK * SCAN_ITEMS;
 
 // one padding slot every 16 int64s keeps a thread's 16 consecutive
 // elements on distinct banks
@@ -67,98 +61,15 @@ __device__ __forceinline__ i64 block_exclusive_scan(i64 v, i64* smem, i64* total
   return res;
 }
 
-template <typename In>
-__global__ void scan_reduce_kernel(const In* __restrict__ in, i64 n, i64* __restrict__ tile_sums) {
-  __shared__ i64 smem[33];
-  const i64 base = (i64)blockIdx.x * SCAN_TILE;
-  i64 s = 0;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    i64 i = base + (i64)k * SCAN_BLOCK + threadIdx.x;
-    if (i < n) s += (i64)in[i];
-  }
-  i64 total;
-  block_exclusive_scan(s, smem, &total);
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
-}
-
-// One block of 1024 threads: tile sums -> exclusive tile offsets (in place);
-// the grand total goes to *total.
-__global__ void scan_tile_sums_kernel(i64* __restrict__ tile_sums, i64 n_tiles, i64* __restrict__ total) {
-  __shared__ i64 smem[33];
-  i64 carry = 0;
-  for (i64 base = 0; base < n_tiles; base += blockDim.x) {
-    const i64 i = base + threadIdx.x;
-    const i64 v = i < n_tiles ? tile_sums[i] : 0;
-    i64 chunk;
-    const i64 ex = block_exclusive_scan(v, smem, &chunk);
-    if (i < n_tiles) tile_sums[i] = carry + ex;
-    carry += chunk;
-  }
-  if (threadIdx.x == 0) *total = carry;
-}
-
-template <typename In, typename Out>
-__global__ void scan_downsweep_kernel(const In* in, i64 n,  // in, out may alias
-                                      const i64* __restrict__ tile_offsets,
-                                      Out* out) {
-  __shared__ i64 tile[SCAN_TILE + SCAN_TILE / 16];
-  __shared__ i64 smem[33];
-  const i64 base = (i64)blockIdx.x * SCAN_TILE;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int j = k * SCAN_BLOCK + threadIdx.x;
-    const i64 i = base + j;
-    tile[scan_pad(j)] = i < n ? (i64)in[i] : 0;
-  }
-  __syncthreads();
-  i64 s = 0;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) s += tile[scan_pad(threadIdx.x * SCAN_ITEMS + k)];
-  i64 unused;
-  i64 run = block_exclusive_scan(s, smem, &unused) + tile_offsets[blockIdx.x];
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int j = scan_pad(threadIdx.x * SCAN_ITEMS + k);
-    const i64 v = tile[j];
-    tile[j] = run;
-    run += v;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int j = k * SCAN_BLOCK + threadIdx.x;
-    const i64 i = base + j;
-    if (i < n) out[i] = (Out)tile[scan_pad(j)];
-  }
-}
-
-inline i64 scan_tiles(i64 n) { return (n + SCAN_TILE - 1) / SCAN_TILE; }
-
-// Scratch bytes exclusive_scan needs for n elements.
-inline i64 scan_scratch_bytes(i64 n) { return (scan_tiles(n) + 1) * (i64)sizeof(i64); }
-
-// out[i] = in[0] + ... + in[i-1] for i < n; *total (device int64) = the sum
-// of all n. `in` and `out` may alias: every tile is read into shared memory
-// before it is written. Launches only; the caller checks cudaGetLastError.
-template <typename In, typename Out>
-void exclusive_scan(const In* in, i64 n, Out* out, i64* total, void* scratch,
-                    cudaStream_t stream) {
-  i64* tile_sums = static_cast<i64*>(scratch);
-  const i64 n_tiles = scan_tiles(n);
-  if (n_tiles > 0) scan_reduce_kernel<In><<<(unsigned)n_tiles, SCAN_BLOCK, 0, stream>>>(in, n, tile_sums);
-  scan_tile_sums_kernel<<<1, 1024, 0, stream>>>(tile_sums, n_tiles, total);
-  if (n_tiles > 0)
-    scan_downsweep_kernel<In, Out><<<(unsigned)n_tiles, SCAN_BLOCK, 0, stream>>>(in, n, tile_sums, out);
-}
-
 inline unsigned grid_for(i64 n, int block) { return (unsigned)((n + block - 1) / block); }
 
 // ---------------------------------------------------------------------------
 // Single-pass scans by decoupled look-back (Merrill and Garland, "Single-pass
 // Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016): K2's padding
-// partition, K3's and K14's candidate bases, K15's displacement. A block
-// takes the next tile id from a counter, so a tile only waits on tiles
+// partition, K3's, K14's and K16's candidate bases, K4's, K5's and K7's
+// ranks, K15's displacement (K18 keeps a status word a tile and
+// destination, each read back by its own thread, with the same flags). A
+// block takes the next tile id from a counter, so a tile only waits on tiles
 // already running; it publishes its aggregate at once, then warp 0 reads
 // the status words of the 32 tiles before it at a time and combines them
 // (a sum, or a max) up to the nearest one that holds its inclusive prefix.

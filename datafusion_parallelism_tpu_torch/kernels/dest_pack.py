@@ -5,10 +5,12 @@ Replaces the JAX package's `route_of` (parallel/shuffle.py:62), the index
 grid, `send_valid` and dropped count of `_pack_by_dest` (:69-94) and of
 `replicating_shuffle`'s membership pick (:150-188), and `salted_route`
 (parallel/skew.py:68-78). The CUDA kernel is `csrc/dest_pack.cu`, whose
-header says what bounds it on the H100 and how it keeps row order within a
-destination; the plain version below is the same function in torch ops.
-On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises.
+header says what bounds it on the H100 (the grid's bytes) and how it keeps
+row order within a destination while routing each row once and writing
+each grid entry once: one pass by decoupled look-back over a vector of P
+counts, then the zeros past each destination's members. The plain version
+below is the same function in torch ops. On CPU tensors the wrapper runs
+the plain version; on CUDA tensors it launches the kernel or raises.
 
 A row's destination: P (never sent) outside `mask`; else `rank` where the
 optional `heavy` table (bool [256], by the hash's top 8 bits) marks its
@@ -31,8 +33,38 @@ import torch
 
 from . import _build
 
-MAX_P = 1024
 _M32 = 0xFFFFFFFF
+# csrc/dest_pack.cu's launch plan, in the order of its dfp_dest_pack_plan
+# (`compiled_plan`)
+ROUNDS = 8                   # 32-row rounds a warp takes
+TILE = 256 * ROUNDS          # rows a block of the pass takes
+MAX_P = 1024                 # destinations a launch takes
+PLAN = ("ROUNDS", "TILE", "MAX_P")
+
+
+def compiled_plan() -> dict:
+    """PLAN's constants as csrc/dest_pack.cu was built with them (builds
+    the kernel), to hold against this module's copies."""
+    fn = _build.function("dfp_dest_pack_plan", (_build.I32,), _build.I64)
+    return {name: fn(i) for i, name in enumerate(PLAN)}
+
+
+def compiled_scratch_bytes(cap: int, P: int) -> int:
+    """The kernel's own scratch bytes of a launch (builds the kernel), to
+    hold against `scratch_bytes`; -1 for a P it does not take."""
+    return _build.function("dfp_dest_pack_scratch_bytes", (_build.I64, _build.I32),
+                           _build.I64)(cap, P)
+
+
+def pack_tiles(cap: int) -> int:
+    """Blocks of the pass: tiles of TILE rows."""
+    return -(-cap // TILE)
+
+
+def scratch_bytes(cap: int, P: int) -> int:
+    """The launch's scratch, zeroed by the launcher: a look-back status
+    word a tile and destination, then the tile counter (8 bytes each)."""
+    return 8 * (pack_tiles(cap) * P + 1)
 
 
 def route_of(hashes: torch.Tensor, P: int) -> torch.Tensor:
@@ -107,13 +139,15 @@ def dest_pack(hashes: torch.Tensor, mask: torch.Tensor, P: int, send_cap: int,
     """dest_pack_plain's contract; launches K18 for CUDA tensors."""
     if not hashes.is_cuda:
         return dest_pack_plain(hashes, mask, P, send_cap, heavy, rank, replicate, heavy_to_all)
+    return _launch(hashes, mask, P, send_cap, heavy, rank, replicate, heavy_to_all)
+
+
+def _launch(hashes, mask, P, send_cap, heavy, rank, replicate, heavy_to_all):
     cap = check_args(hashes, mask, P, send_cap, heavy, rank, replicate, heavy_to_all)
     dev = hashes.device
-    scratch_bytes = _build.function("dfp_dest_pack_scratch_bytes", (_build.I64, _build.I32),
-                                    _build.I64)
     fn = _build.function("dfp_dest_pack", (
         _build.P, _build.P, _build.I64, _build.I32, _build.P, _build.I32, _build.I32, _build.P,
-        _build.I64, _build.P, _build.P, _build.P, _build.P, _build.I64, _build.P))
+        _build.I64, _build.P, _build.P, _build.P, _build.P, _build.I64, _build.I32, _build.P))
     grid = torch.empty((P, send_cap), dtype=torch.int32, device=dev)
     counts = torch.empty(P, dtype=torch.int32, device=dev)
     dropped = torch.empty((), dtype=torch.int32, device=dev)
@@ -123,7 +157,7 @@ def dest_pack(hashes: torch.Tensor, mask: torch.Tensor, P: int, send_cap: int,
              heavy.data_ptr() if heavy is not None else None, rank, int(heavy_to_all),
              replicate.data_ptr() if replicate is not None else None, send_cap,
              grid.data_ptr(), counts.data_ptr(), dropped.data_ptr(), scratch.data_ptr(), nbytes,
-             _build.stream(dev))
+             _build.device_limits(dev).sms, _build.stream(dev))
     dest_pack.launches += 1
     _build.check(err, "dest_pack")
     return grid, counts, dropped

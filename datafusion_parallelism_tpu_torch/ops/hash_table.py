@@ -199,25 +199,21 @@ def table_ranges(table: JoinTable, hashes: torch.Tensor, slot: torch.Tensor,
                  sorted_probe: Callable = k14.sorted_probe,
                  oa_probe: Callable = k16.oa_probe) -> k3.Ranges:
     """(start, count, base, total) of probe rows with hashes int32[m], their
-    slots in [0, T) (None under SORT) and `ok` (in range, keys valid): K3's
-    first pass under CSR, K14 under SORT, K16 under OA."""
+    buckets in [0, T) (CSR; None under SORT and OA, whose probes work from
+    the hashes) and `ok` (in range, keys valid): K3's first pass under CSR,
+    K14 under SORT, K16 under OA."""
     if table.is_sort:
         return sorted_probe(hashes, ok, table.sorted_hash)
     if table.is_oa:
-        return oa_probe(slot, hashes, ok, table.sorted_hash)
+        return oa_probe(hashes, ok, table.sorted_hash)
     return probe_ranges(slot, ok, table.offsets)
-
-
-def _table_T(table: JoinTable) -> int:
-    if table.is_oa:
-        return 4 * table.sorted_hash.shape[0] // 5
-    return table.offsets.shape[0] - 2
 
 
 def probe_candidates(table: JoinTable, probe_hashes, probe_key_valid,
                      probe_num_rows) -> CandidateRanges:
     ok = _valid_rows(probe_hashes, probe_key_valid, probe_num_rows)
-    slot = None if table.is_sort else slot_of(probe_hashes, _table_T(table))
+    slot = (None if table.is_sort or table.is_oa
+            else slot_of(probe_hashes, table.offsets.shape[0] - 2))
     return CandidateRanges(*table_ranges(table, probe_hashes, slot, ok))
 
 

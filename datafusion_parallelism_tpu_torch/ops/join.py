@@ -15,7 +15,8 @@ the JAX package:
 
 The kernels, each reached through a `JoinKernels` table:
 
-  K1  hash_slot       row hash and bucket (OA: home slot) of both sides
+  K1  hash_slot       row hash of both sides; the CSR buckets of both,
+                      the SORT and OA builds' null/padding rows (slot T)
   K2  csr_build       CSR table + build rows in bucket order (row-major
                       for the deferred path's recheck)
   K3  probe_expand    CSR candidate ranges (probe_ranges); the candidate
@@ -265,9 +266,11 @@ def _build_table(strategy: JoinStrategy, kernels: JoinKernels, chain: ChainKerne
 
 
 def _probe_table(table: JoinTable, kernels: JoinKernels, words, cols, T: int, ok):
-    """K1 over the probe's key words, then the candidate ranges (start,
-    count, base, total): K3's first pass, K14 or K16."""
-    hashes, slot = kernels.hash_slot(words, cols, None if table.is_sort else T)
+    """K1 over the probe's key words (their buckets only under CSR: K14
+    and K16 work from the hashes), then the candidate ranges (start, count,
+    base, total): K3's first pass, K14 or K16."""
+    hashes, slot = kernels.hash_slot(words, cols,
+                                     None if table.is_sort or table.is_oa else T)
     return table_ranges(table, hashes, slot, ok, kernels.probe_ranges, kernels.sorted_probe,
                         kernels.oa_probe)
 

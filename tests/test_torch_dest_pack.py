@@ -4,6 +4,7 @@ code they replace (parallel/shuffle.py `_pack_by_dest` and
 host-side argument checks, and `utils/convert.py::shards_from_reference`
 against the port's own partition_table."""
 
+import ctypes
 from functools import partial
 
 import jax
@@ -12,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
+
+import chip_smoke
 
 from datafusion_parallelism_tpu.ops.hashing import hash_rows as jhash_rows
 from datafusion_parallelism_tpu.parallel import make_mesh as jmake_mesh
@@ -219,3 +222,159 @@ def test_shards_from_reference_equal_the_ports_partition_table():
         for name in a.schema.names:
             for x, y in zip(a.column(name), b.column(name)):
                 assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# K18's one-pass design replayed on the host
+# ---------------------------------------------------------------------------
+
+K18_CASES = [name for name, *_ in chip_smoke.K18_EDGES]
+
+
+def _round_ranks(run, dd, aa, P):
+    """One warp round as the kernel ranks it: (destination, position) of
+    each member of the round's 32 rows, against the warp's running counts
+    `run` [P] (updated). A round with a row of every destination (`aa`)
+    takes a ballot a destination; else the lanes of one destination are
+    its peers (__match_any_sync)."""
+    lanes = np.arange(32)
+    out = []
+    if not aa.any():
+        sent = dd < P
+        peers = (dd[:, None] == dd[None, :]) & (lanes[None, :] < lanes[:, None])
+        pos = run[np.minimum(dd, P - 1)] + peers.sum(1)
+        out = [(int(q), int(p), int(j)) for j, (q, p) in enumerate(zip(dd, pos)) if sent[j]]
+        np.add.at(run, dd[sent], 1)
+        return out
+    for q in range(P):
+        member = (dd == q) | aa
+        if not member.any():
+            continue
+        pos = run[q] + np.cumsum(member) - 1
+        out += [(q, int(pos[j]), int(j)) for j in np.flatnonzero(member)]
+        run[q] += int(member.sum())
+    return out
+
+
+def dest_pack_replay(h, mask, P, send_cap, heavy=None, rank=0, rep=None, to_all=False):
+    """(grid, counts, dropped) as K18's launches write them: tiles of TILE
+    rows, each warp ROUNDS rounds of 32 consecutive rows ranked twice
+    (counts, then positions from the tile's prefix, carried tile to tile as
+    the look-back carries it per destination), the members below send_cap
+    written, then the zeros past each destination's members; raises unless
+    every grid entry is written exactly once."""
+    cap = len(h)
+    hh = h.astype(np.int64) & 0xFFFFFFFF
+    d = ((hh >> 16) * P) >> 16
+    all_ = mask & rep if rep is not None else np.zeros(cap, bool)
+    if heavy is not None:
+        hv = mask & heavy[hh >> 24]
+        if to_all:
+            all_ = all_ | hv
+        else:
+            d = np.where(hv, rank, d)
+    d = np.where(mask, d, P)
+    grid = np.zeros((P, send_cap), np.int64)
+    writes = np.zeros((P, send_cap), np.int64)
+    carried = np.zeros(P, np.int64)     # per destination, the tiles before
+    for f in range(0, cap, k18.TILE):
+        run = np.zeros((8, P), np.int64)
+        rounds = []
+        for w in range(8):
+            for k in range(k18.ROUNDS):
+                rows = f + w * k18.ROUNDS * 32 + k * 32 + np.arange(32)
+                inside = rows < cap
+                at = np.minimum(rows, cap - 1)
+                rounds.append((w, rows, np.where(inside, d[at], P), inside & all_[at]))
+        for w, _, dd, aa in rounds:                   # counts
+            _round_ranks(run[w], dd, aa, P)
+        tile = run.sum(0)
+        run = np.cumsum(run, 0) - run + carried       # each warp's first positions
+        carried += tile
+        for w, rows, dd, aa in rounds:                # positions
+            for q, pos, j in _round_ranks(run[w], dd, aa, P):
+                if pos < send_cap:
+                    grid[q, pos] = rows[j]
+                    writes[q, pos] += 1
+    for q in range(P):                                # the tail
+        writes[q, min(carried[q], send_cap):] += 1
+    assert (writes == 1).all(), f"grid entries written {writes.min()}-{writes.max()} times"
+    return grid, carried, int(np.maximum(carried - send_cap, 0).sum())
+
+
+@pytest.mark.parametrize("case", K18_CASES)
+def test_dest_pack_replay_matches_plain(case):
+    """K18's one pass and tail give dest_pack_plain's grid, counts and
+    dropped on its edge cases (at the host's size), each grid entry written
+    once."""
+    h, mask, P, send_cap, heavy, rank, rep, to_all = chip_smoke.k18_edge(case, on_card=False)
+    got = dest_pack_replay(h, mask, P, send_cap, heavy, rank, rep, to_all)
+    on = (lambda a: None if a is None else torch.from_numpy(a))
+    want = k18.dest_pack_plain(torch.from_numpy(h.view(np.int32)), on(mask), P, send_cap,
+                               on(heavy), rank, on(rep), to_all)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), w.numpy())
+
+
+@pytest.mark.parametrize("cap, P, tiles, nbytes", [
+    (0, 1, 0, 8), (1, 8, 1, 72), (2048, 8, 1, 72), (2049, 8, 2, 136),
+    (8_388_608, 8, 4096, 8 * 32769), (1 << 20, 1024, 512, 8 * (512 * 1024 + 1))])
+def test_dest_pack_scratch_layout(cap, P, tiles, nbytes):
+    """A look-back status word a tile and destination, then the tile
+    counter."""
+    assert k18.pack_tiles(cap) == tiles
+    assert k18.scratch_bytes(cap, P) == nbytes
+
+
+@pytest.fixture
+def stub_launch(monkeypatch):
+    """_build's device checks pass, its C entry points record their
+    arguments and succeed; the device has 132 SMs."""
+    calls = []
+
+    def function(name, argtypes, restype=ctypes.c_int):
+        def fn(*args):
+            calls.append((name, args))
+            return 0
+        return fn
+
+    class Limits:
+        sms = 132
+    monkeypatch.setattr(_build, "require", _require_on_any_device)
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(_build, "stream", lambda dev: 0)
+    monkeypatch.setattr(_build, "device_limits", lambda dev: Limits)
+    return calls
+
+
+def test_dest_pack_launch_plan(stub_launch):
+    """The launch hands the kernel cap, P, send_cap, the grid, scratch_bytes
+    of (cap, P) and the SM count, in the C entry's order."""
+    cap, P, send_cap = 5000, 8, 700
+    h, m = torch.zeros(cap, dtype=torch.int32), torch.ones(cap, dtype=torch.bool)
+    grid, counts, dropped = k18._launch(h, m, P, send_cap, None, 0, None, False)
+    (name, args), = stub_launch
+    assert name == "dfp_dest_pack" and args[2:4] == (cap, P) and args[8] == send_cap
+    assert args[4] is None and args[7] is None and args[6] == 0
+    assert args[9] == grid.data_ptr() and args[10] == counts.data_ptr()
+    assert args[13] == k18.scratch_bytes(cap, P) and args[14] == 132
+    assert grid.shape == (P, send_cap) and counts.shape == (P,) and dropped.shape == ()
+
+
+@pytest.mark.parametrize("bad", [dict(P=0), dict(P=1025), dict(send_cap=-1)],
+                         ids=["P = 0", "P = 1025", "a negative send_cap"])
+def test_dest_pack_refuses_before_a_launch(stub_launch, bad):
+    args = dict(hashes=torch.zeros(10, dtype=torch.int32), mask=torch.ones(10, dtype=torch.bool),
+                P=8, send_cap=16, heavy=None, rank=0, replicate=None, heavy_to_all=False)
+    args.update(bad)
+    with pytest.raises(ValueError):
+        k18._launch(*args.values())
+    assert stub_launch == []
+
+
+@pytest.mark.parametrize("name", ["dfp_dest_pack_plan"])
+def test_dest_pack_compiled_plan_reads_the_plan_entry(monkeypatch, name):
+    values = [getattr(k18, n) for n in k18.PLAN]
+    monkeypatch.setattr(_build, "function",
+                        lambda n, a, r=None: (lambda i: values[i] if 0 <= i < len(values) else -1))
+    assert k18.compiled_plan() == {n: getattr(k18, n) for n in k18.PLAN}

@@ -149,8 +149,7 @@ def test_kernel_plain_versions_match_jax(case):
     np.testing.assert_array_equal(perm.numpy(), np.asarray(jo.perm))
     # K16 against the JAX walk
     jstart, jcount = jht._probe_oa(jo, jnp.asarray(ph), jnp.asarray(pok))
-    start, count, base, total = k16.oa_probe_plain(tht.slot_of(_i32(ph), T), _i32(ph),
-                                                   torch.from_numpy(pok), slots)
+    start, count, base, total = k16.oa_probe_plain(_i32(ph), torch.from_numpy(pok), slots)
     np.testing.assert_array_equal(start.numpy(), np.asarray(jstart))
     np.testing.assert_array_equal(count.numpy(), np.asarray(jcount))
     assert int(total) == int(np.asarray(jcount).sum())

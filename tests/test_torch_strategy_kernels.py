@@ -1,6 +1,7 @@
-"""K14 sorted_probe and K15 oa_place on the host: their CUDA designs
-replayed in numpy from their launch plans, against the plain versions and
-the JAX package's `probe_candidates` (SORT) and `build_oa`, bit for bit.
+"""K14 sorted_probe, K15 oa_place and K16 oa_probe on the host: their CUDA
+designs replayed in numpy from their launch plans, against the plain
+versions and the JAX package's `probe_candidates` (SORT), `build_oa` and
+`_probe_oa`, bit for bit.
 
 K14's replay builds the bucket directory as csrc/sorted_probe.cu does
 (each fill tile's first key by a search; the entries a tile's keys start,
@@ -11,9 +12,13 @@ the bases tile by tile. K15's replay counts the valid rows, carries the
 displacement as a max of home - i + cap (home computed from the hash)
 through tiles of PLACE_ITEMS-row threads,
 writes each tile's slot span in SPAN_CHUNK chunks and the tail past the
-last row, and checks that every slot is written exactly once. Also the
-launch plans (directory bits, tiles, scratch bytes) and the wrappers' host
-checks with the launchers stubbed."""
+last row, and checks that every slot is written exactly once. K16's
+replay walks every ok probe row from its home, slot_of(hash, T): its
+first THREAD_SLOTS slots on its own thread, the rest by its warp, 64 slots a read
+settled by ballots, clamped at slot S - 1 as the JAX loop; then the bases
+tile by tile. Also the launch plans
+(directory bits, tiles, scratch bytes) and the wrappers' host checks with
+the launchers stubbed."""
 
 import ctypes
 
@@ -26,6 +31,7 @@ import torch
 from datafusion_parallelism_tpu.ops import hash_table as jht
 from datafusion_parallelism_tpu_torch.kernels import _build
 from datafusion_parallelism_tpu_torch.kernels import oa_place as k15
+from datafusion_parallelism_tpu_torch.kernels import oa_probe as k16
 from datafusion_parallelism_tpu_torch.kernels import sorted_probe as k14
 from datafusion_parallelism_tpu_torch.ops import hash_table as tht
 
@@ -156,18 +162,125 @@ def oa_place_replay(order: np.ndarray, home: np.ndarray, hashes: np.ndarray, ok:
     return slots, perm
 
 
+def _walk_steps(slots, S, h, home, cur, st, cnt, counting, live, steps):
+    """`steps` of the JAX walk on each live row's own thread (the kernel's
+    first THREAD_SLOTS slots), from `cur`: a step at slot S - 1 ends the walk,
+    counting the steps left (home of them) where it is counting."""
+    for _ in range(steps):
+        at = np.flatnonzero(live)
+        c = cur[at]
+        v = slots[c]
+        match = (v != 0) & (((v >> 32) & 0xFFFFFFFF) == h[at])
+        was = counting[at]
+        end = np.where(was, ~match, ~match & (v == 0))
+        found = ~was & match
+        st[at[found]] = c[found]
+        cnt[at] += found | (was & match)
+        counting[at] |= found
+        last = ~end & (c == S - 1)
+        cnt[at[last & counting[at]]] += home[at][last & counting[at]]
+        live[at[end | last]] = False
+        cur[at] += 1
+
+
+def _warp_walks(slots, S, h, home, cur, st, cnt, counting, live):
+    """The warp's walk of each live row from `cur`, 64 slots a read, two
+    halves of 32 lanes each settled by the kernel's ballots: a seek stops
+    at the first slot that matches or is empty, a run ends at the first
+    in-range slot past its start that does not match; lanes past S - 1
+    are out of range."""
+    lanes = np.arange(32)
+    while live.any():
+        for half in (0, 1):
+            at = np.flatnonzero(live)
+            base = cur[at] + 32 * half
+            p = base[:, None] + lanes
+            inn = p <= S - 1
+            v = np.where(inn, slots[np.minimum(p, S - 1)], 0)
+            M = inn & (v != 0) & (((v >> 32) & 0xFFFFFFFF) == h[at][:, None])
+            E = inn & (v == 0)
+            every = inn.all(1)
+            seeking = ~counting[at]
+            stop = M | E
+            first = np.argmax(stop, 1)
+            stopped = stop.any(1)
+            lost = seeking & ((~stopped & ~every) | (stopped & ~M[np.arange(len(at)), first]))
+            found = seeking & stopped & ~lost
+            st[at[found]] = base[found] + first[found]
+            cnt[at[found]] = 0
+            counting[at[found]] = True
+            g0 = np.where(found, first, 0)
+            live[at[lost]] = False
+            going = counting[at] & ~lost
+            ends = ~M & inn & (lanes >= g0[:, None])
+            ended = going & ends.any(1)
+            cnt[at[ended]] += (np.argmax(ends, 1) - g0)[ended]
+            edge = going & ~ends.any(1) & ~every        # the run reaches slot S - 1
+            cnt[at[edge]] += (inn.sum(1) - g0 + home[at])[edge]
+            on = going & ~ended & ~edge
+            cnt[at[on]] += 32 - g0[on]
+            live[at[ended | edge]] = False
+        cur[live] += 64
+
+
+def oa_probe_replay(hashes: np.ndarray, ok: np.ndarray, slots: np.ndarray):
+    """(start, count, base, total, rows the warps walked on) as K16's
+    launch computes them: each ok row's first THREAD_SLOTS slots from its
+    home on its own thread, then the warp's 64-slot reads, the bases tile
+    by tile."""
+    S = len(slots)
+    T = k16.home_slots(S)
+    h = hashes.astype(np.int64) & 0xFFFFFFFF
+    home = h & (T - 1) if T & (T - 1) == 0 else (h * T) >> 32
+    rows = np.flatnonzero(ok)
+    hr, hm = h[rows], home[rows]
+    cur = hm.copy()
+    st = np.zeros(len(rows), np.int64)
+    cnt = np.zeros(len(rows), np.int64)
+    counting = np.zeros(len(rows), bool)
+    live = np.ones(len(rows), bool)
+    _walk_steps(slots, S, hr, hm, cur, st, cnt, counting, live, k16.THREAD_SLOTS)
+    assert (cur[live] == hm[live] + k16.THREAD_SLOTS).all()
+    warp = live.copy()
+    _warp_walks(slots, S, hr, hm, cur, st, cnt, counting, live)
+    start = np.zeros(len(h), np.int64)
+    count = np.zeros(len(h), np.int64)
+    start[rows] = np.where(counting, st, 0)
+    count[rows] = np.where(counting, cnt, 0)
+    base = np.empty_like(count)
+    carried = 0                          # the look-back's exclusive prefix
+    for f in range(0, len(h), k16.PROBE_TILE):
+        c = count[f:f + k16.PROBE_TILE]
+        base[f:f + len(c)] = carried + np.concatenate([[0], np.cumsum(c)[:-1]])
+        carried += int(c.sum())
+    return start, count, base, carried, int(warp.sum())
+
+
 # ---------------------------------------------------------------------------
 # the cases
 # ---------------------------------------------------------------------------
 
 
 CASES = [name for name, *_ in chip_smoke.STRATEGY_EDGES]
+# K16's cases: the strategy cases whose walks the plain lockstep loop runs
+# in good time (the hot key's 70,000-slot walk takes it a minute on the
+# host; phase 2c runs it on the card), and K16's own
+K16_CASES = ([c for c in CASES if c not in chip_smoke.K16_LONG_WALKS
+              and c != "a hot key past a fill tile's scan (70,000 rows)"]
+             + [f"K16: {name}" for name, *_ in chip_smoke.K16_EDGES])
 
 
 def _case(case):
     """(build hashes uint32[cap], ok bool[cap], probe hashes uint32[m],
     probe ok bool[m]): chip_smoke's edge case at the host's size."""
     return chip_smoke.strategy_edge(case, on_card=False)
+
+
+def _k16_case(case):
+    """(build hashes, ok, probe hashes, probe ok) of a K16 case."""
+    if case.startswith("K16: "):
+        return chip_smoke.k16_edge(case[len("K16: "):])
+    return _case(case)
 
 
 def _i32(u32):
@@ -249,6 +362,66 @@ def test_oa_place_replay_matches_plain_and_jax(case):
     if case == "a one-home cluster over three tiles":   # its run crosses two tile edges
         run = np.flatnonzero(got[0][T // 3:] != 0)
         assert run[:3 * k15.PLACE_TILE].tolist() == list(range(3 * k15.PLACE_TILE))
+
+
+@pytest.mark.parametrize("case", K16_CASES)
+def test_oa_probe_replay_matches_plain_and_jax(case):
+    """K16's walks from the homes it computes, through the pairs it loads,
+    and its tiled bases give oa_probe_plain's ranges and the JAX package's
+    `_probe_oa` over the JAX `build_oa` table (start, count; base and total
+    its cumsum)."""
+    h, ok, ph, pok = _k16_case(case)
+    jo = jht.build_oa(jnp.asarray(h), jnp.asarray(ok), len(h))
+    slots = np.asarray(jo.sorted_hash)
+    got = oa_probe_replay(ph, pok, slots)
+    want = k16.oa_probe_plain(_i32(ph), torch.from_numpy(pok), torch.from_numpy(slots))
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, w.numpy())
+    assert got[3] == int(want[3])
+    jstart, jcount = jht._probe_oa(jo, jnp.asarray(ph), jnp.asarray(pok))
+    np.testing.assert_array_equal(got[0], np.asarray(jstart))
+    np.testing.assert_array_equal(got[1], np.asarray(jcount))
+    if case in ("a one-home cluster over three tiles", "K16: a walk to the spill's end"):
+        assert got[4] > 0                              # walks the warps take on
+    if case == "K16: a walk to the spill's end":      # the last run ends at slot S - 2
+        assert slots[-2] != 0 and slots[-1] == 0
+        last = (slots[-2] >> 32) & 0xFFFFFFFF
+        on_last = pok & (ph.astype(np.int64) == last)
+        assert on_last.any() and (got[0][on_last] + got[1][on_last] == len(slots) - 1).all()
+
+
+@pytest.mark.parametrize("S", [80, 81, 86])
+def test_oa_probe_clamps_at_the_last_slot(S):
+    """On slots that no build makes (slot S - 1 occupied), a walk that
+    reaches S - 1 reads it for every step it has left, as the JAX loop's
+    clamped position: a run there counts them all, a seek past it finds
+    nothing. Replay, plain version and JAX agree, at an odd S too."""
+    T = k16.home_slots(S)
+    rng = np.random.default_rng(S)
+    x, y = _home_hashes_at(rng, T, T - 5, 2).tolist()
+    slots = np.zeros(S, np.int64)
+    slots[T - 5:] = (np.int64(x) << 32) | 7          # one run from T - 5 to the end
+    slots[T - 12:T - 9] = (np.int64(y) << 32) | 3
+    z = _home_hashes_at(rng, T, T - 12, 1).tolist()
+    ph = np.array([x, y, x, y] + z + [x], np.uint32)
+    pok = np.array([True, True, False, True, True, True])
+    got = oa_probe_replay(ph, pok, slots)
+    want = k16.oa_probe_plain(_i32(ph), torch.from_numpy(pok), torch.from_numpy(slots))
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, w.numpy())
+    table = jht.JoinTable(jnp.zeros((2,), jnp.int32), jnp.zeros((S,), jnp.int32),
+                          jnp.asarray(slots), jnp.zeros((1,), jnp.int64))
+    jstart, jcount = jht._probe_oa(table, jnp.asarray(ph), jnp.asarray(pok))
+    np.testing.assert_array_equal(got[0], np.asarray(jstart))
+    np.testing.assert_array_equal(got[1], np.asarray(jcount))
+    # x: found at its home T - 5 on step 0, every one of the S steps counts
+    assert (got[0][0], got[1][0]) == (T - 5, S)
+    # y from T - 5: seeks past x's run to the end, never finds it
+    assert (got[0][1], got[1][1]) == (0, 0) and got[1][2] == 0
+
+
+def _home_hashes_at(rng, T, home, count):
+    return chip_smoke._home_hashes(rng, T, home, count).astype(np.int64)
 
 
 def _place_recorder(seen):
@@ -350,7 +523,7 @@ def test_chip_smoke_bounds_k15_by_what_it_reads(case):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mod", [k14, k15], ids=["K14", "K15"])
+@pytest.mark.parametrize("mod", [k14, k15, k16], ids=["K14", "K15", "K16"])
 def test_compiled_plan_reads_the_plan_entry_by_index(monkeypatch, mod):
     """compiled_plan asks the C plan entry for PLAN's constants in order,
     which chip_smoke holds against the module's copies."""
@@ -465,3 +638,93 @@ def test_oa_place_refuses_a_slot_count_out_of_range(stub_launch, S):
     z = torch.zeros(5000, dtype=torch.int32)
     with pytest.raises(ValueError, match="slot count"):
         k15._launch(z, z, z, torch.ones(5000, dtype=torch.bool), S)
+
+
+@pytest.mark.parametrize("m, tiles, nbytes", [(1, 1, 16), (8192, 1, 16), (8193, 2, 24),
+                                              (5 * 8192 + 7, 6, 56),
+                                              (1 << 26, 8192, 8 * 8193)])
+def test_oa_probe_plan(m, tiles, nbytes):
+    """A look-back status word a tile of PROBE_TILE probe rows, then the
+    tile counter."""
+    assert k16.probe_tiles(m) == tiles
+    assert k16.scratch_bytes(m) == nbytes
+
+
+@pytest.mark.parametrize("m, S", [(5000, 81_920), (1, 2), (2049, 25_601)])
+def test_oa_probe_launch_plan(stub_launch, monkeypatch, m, S):
+    """The launch hands the kernel m, S and T = 4S/5 (no home slots) and
+    scratch_bytes(m), in the C entry's order."""
+    monkeypatch.setattr(k16, "check_total", lambda total: total.to(torch.int32))
+    hashes, ok = torch.zeros(m, dtype=torch.int32), torch.ones(m, dtype=torch.bool)
+    slots = torch.zeros(S, dtype=torch.int64)
+    start, count, base, _ = k16._launch(hashes, ok, slots)
+    (name, args), = stub_launch
+    assert name == "dfp_oa_probe" and len(args) == 13
+    assert args[:6] == (hashes.data_ptr(), ok.data_ptr(), m, slots.data_ptr(), S, 4 * S // 5)
+    assert args[6:9] == (start.data_ptr(), count.data_ptr(), base.data_ptr())
+    assert args[11] == k16.scratch_bytes(m) == 8 * (k16.probe_tiles(m) + 1)
+    assert start.shape == count.shape == base.shape == (m,)
+
+
+@pytest.mark.parametrize("m, slots, match", [
+    (0, torch.zeros(80, dtype=torch.int64), "no rows"),
+    (4, torch.zeros(1, dtype=torch.int64), "slots"),
+    (4, torch.zeros((2, 40), dtype=torch.int64), "slots")],
+    ids=["an empty probe", "one slot", "a matrix"])
+def test_oa_probe_refuses(stub_launch, m, slots, match):
+    with pytest.raises(ValueError, match=match):
+        k16._launch(torch.zeros(m, dtype=torch.int32), torch.ones(m, dtype=torch.bool), slots)
+    assert stub_launch == []
+
+
+@pytest.mark.parametrize("case", ["repeats, nulls and padding", "every row invalid"])
+def test_chip_smoke_bounds_k16_by_what_it_reads(case):
+    """K16's bound in chip_smoke: `hashes` and `ok` whole, each ok row's
+    run and the slot that ends its walk, the three outputs and the int32
+    total;
+    phase 15 also prints it as counted before, with the int32 home array."""
+    h, ok, ph, pok = _case(case)
+    jo = jht.build_oa(jnp.asarray(h), jnp.asarray(ok), len(h))
+    args = (_i32(ph), torch.from_numpy(pok), torch.from_numpy(np.asarray(jo.sorted_hash)))
+    out = k16.oa_probe_plain(*args)
+    m, total = len(ph), int(out[3])
+    want = 5 * m + min(8 * len(args[2]), 8 * (int(pok.sum()) + total)) + 12 * m + 4
+    got = chip_smoke.work(("join", "oa_probe"), args, out)
+    assert got == (want, 0)
+    before = (want + 4 * m) / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert f"bound as counted before (with a home array) {before:.3f}" in chip_smoke.join_detail(
+        ("join", "oa_probe"), args, out)
+
+
+@pytest.mark.parametrize("strategy", ["CSR", "SORT", "OA"])
+def test_the_join_asks_k1_for_a_probe_slot_only_under_csr(strategy):
+    """The probe side's K1 call gets T under CSR (K3 reads the buckets) and
+    none under SORT and OA (K14 and K16 work from the hashes); K16 gets
+    the probe's hashes, ok rows and the table's slots."""
+    from datafusion_parallelism_tpu_torch import HostTable
+    from datafusion_parallelism_tpu_torch.ops import join as tjoin
+    rng = np.random.default_rng(7)
+
+    def side(n, p):
+        k = rng.integers(0, 300, n).astype(np.int32)
+        return HostTable.from_numpy({f"{p}k": k}, validity={f"{p}k": rng.random(n) >= 0.1}
+                                    ).to_device(device="cpu")
+    build, probe = side(3000, "b"), side(4000, "p")
+    hashed, probed = [], []
+
+    def hash_slot(words, cols, T=None, *rest):
+        hashed.append((words.shape[1], T))
+        return tjoin.PLAIN.hash_slot(words, cols, T, *rest)
+
+    def oa_probe(*args):
+        probed.append(len(args))
+        return tjoin.PLAIN.oa_probe(*args)
+    kernels = tjoin.PLAIN._replace(hash_slot=hash_slot, oa_probe=oa_probe)
+    out, _ = tjoin.hash_join(build, probe, ["bk"], ["pk"], tjoin.JoinType.INNER, 1 << 16,
+                             strategy=tjoin.JoinStrategy[strategy], kernels=kernels)
+    T = tht.table_size_for(build.capacity)
+    assert hashed == [(build.capacity, T), (probe.capacity, T if strategy == "CSR" else None)]
+    assert probed == ([3] if strategy == "OA" else [])
+    want, _ = tjoin.hash_join(build, probe, ["bk"], ["pk"], tjoin.JoinType.INNER, 1 << 16,
+                              strategy=tjoin.JoinStrategy.CSR, kernels=tjoin.PLAIN)
+    assert out.num_rows == want.num_rows
