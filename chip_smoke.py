@@ -76,7 +76,16 @@ expression of every path is K17 expr_eval. Phases, one line each:
      a tile edge and at a window edge, out_cap 0 and above the group
      count, float keys with -0.0, NaN and NULLs, a 17-column key with 33
      requests, every input type, 4,473 valid rows in 2^25; its scratch
-     bytes == kernels/segment_agg.py's layout (2h)
+     bytes == kernels/segment_agg.py's layout (2h); K10 and K19 bit for
+     bit, each run twice with the same bits: K10 under each flag selection
+     (the visited flags, the probe flags, both) at n = 0, 1 and not a
+     multiple of 16, total 0, mid and past n and none, slices at offsets
+     1, 7 and 15 (its scalar head and tail), half the matches on one build
+     row, no match and an incoming visited buffer; K19 over 1, 2, 3, 8
+     and 64 shards (MAX_SHARDS), an empty shard, capacities not a multiple
+     of 4, row counts below the capacity, past it and negative, validity
+     masks, one and four hash buckets, hashes and validity off their
+     16-byte boundary, 3 rows; its compiled plan == the wrapper's (2i)
   3. the `entry()` twin on the card against the same step on the CPU
   4. Size512 (4,194,304 build and probe rows): kernel path == plain path
      word for word, match count == a numpy count, rows/s of both paths
@@ -154,7 +163,8 @@ expression of every path is K17 expr_eval. Phases, one line each:
      varying bits, key width and passes, each K11 and K13 call with its
      shapes and counts, K2's with n, T, R, its digit passes and its bound as
      counted before its outputs shared storage, K3's with m, T, total,
-     out_cap and key groups
+     out_cap and key groups, K10's with n, total, matches, bcap, mcap, the
+     flags asked and its bound as counted before (every slot, both flags)
  19. (run after 18) the distributed hash join at P = 8 in process on the one card (the
      all-to-all a copy on the card, not NVLink): Size512 under all eight
      join types partitioned, INNER broadcast and skew_salted, partitioned
@@ -163,7 +173,9 @@ expression of every path is K17 expr_eval. Phases, one line each:
      lineitem INNER join partitioned; rows == numpy's counts (and the
      price sum), INNER rows equal under the three modes, each retry
      logged; per run the step's ms, comm bytes and peak; K18 and K19
-     launched, and == their plain versions at the largest calls; then K18
+     launched, K19 once a histogram over the 8 shards (its launches and
+     shards a launch printed), and both == their plain versions at the
+     largest calls; then K18
      on its edge cases twice (P 1 and 1024, send_cap 0 and below the
      counts, a capacity off the tile, no rows, replicate flags, salted and
      heavy_to_all routes)
@@ -1673,6 +1685,135 @@ def phase_segment_agg_edges(device) -> None:
     log("phase 2h ok: K7 == segment_agg_plain, the same bits twice: " + "; ".join(lines))
 
 
+# K10's edge cases: (name, n, total or None, offset of the slices into
+# larger buffers, what else: a share of the matches on one build row, an
+# incoming visited buffer); each runs with every flag selection
+K10_EDGES = (
+    ("n = 0", 0, 0, 0, {}),
+    ("n = 1", 1, 1, 0, {"density": 1.0}),
+    ("n not a multiple of 16, no total", 1_000_003, None, 0, {}),
+    ("total 0", 100_000, 0, 0, {}),
+    ("total mid", 1_000_003, 500_001, 0, {}),
+    ("total past n", 999_999, 5_000_000, 0, {}),
+    ("slices at offset 1", 65_537, 40_000, 1, {}),
+    ("slices at offset 7", 65_537, 65_537, 7, {}),
+    ("slices at offset 15, n 20", 20, 18, 15, {}),
+    ("duplicate build ids (half the matches on one row)", 1_000_000, 900_000, 0,
+     {"hot": 0.5}),
+    ("no slot matches", 100_000, 100_000, 0, {"density": 0.0}),
+    ("accumulate", 1_000_003, 700_000, 0, {"incoming": 0.3}),
+)
+K10_SELECTIONS = {"visited": (True, False), "probe flags": (False, True), "both": (True, True)}
+
+
+def k10_edge(name: str, device):
+    """match_flags' arguments (match, build_id, probe_idx, bcap, mcap with
+    both flags asked, visited buffer or None, total or None) of the
+    K10_EDGES case `name`, seeded by its place in the list: K3's layout
+    below the total (a probe row's candidates together, 60% matches),
+    random slots past it that the total must hide, each array a slice of
+    a larger buffer at the case's offset."""
+    import torch
+    i = [e[0] for e in K10_EDGES].index(name)
+    _, n, total, off, edit = K10_EDGES[i]
+    rng = np.random.default_rng(100 + i)
+    bcap, mcap = 50_000, max(n, 1)
+    match = rng.random(n) < edit.get("density", 0.6)
+    bid = rng.integers(0, bcap, n).astype(np.int32)
+    if "hot" in edit:
+        bid[rng.random(n) < edit["hot"]] = 3
+    pidx = np.sort(rng.integers(0, mcap, n)).astype(np.int32)
+
+    def on(a):
+        buf = np.zeros(off + a.shape[0], a.dtype)
+        buf[off:] = a
+        return torch.from_numpy(buf).to(device)[off:]
+    visited = None
+    if "incoming" in edit:
+        visited = torch.from_numpy(rng.random(bcap) < edit["incoming"]).to(device)
+    t = None if total is None else torch.tensor(total, dtype=torch.int32, device=device)
+    return on(match), on(bid), on(pidx), bcap, mcap, visited, t
+
+
+# K19's edge cases: (name, per shard (capacity, rows, buckets or None,
+# validity share or None), offset of the hashes and validity into larger
+# buffers)
+K19_EDGES = (
+    ("1 shard, 524,288 rows", [(524_288, 524_288, None, None)], 0),
+    ("8 shards, one empty, capacity not a multiple of 4",
+     [(100_003, 100_003 - 7 * k if k != 3 else 0, None, None) for k in range(8)], 0),
+    ("rows below the capacity, with validity", [(300_001, 200_000, None, 0.9)] * 3, 0),
+    ("a single-bucket shard beside a uniform one",
+     [(524_288, 524_288, 1, None), (524_288, 500_000, None, 0.5)], 0),
+    ("4 buckets", [(524_288, 524_288, 4, None)], 0),
+    ("hashes and validity off 16 bytes", [(100_000, 99_999, None, 0.8)] * 2, 3),
+    ("64 shards (MAX_SHARDS)", [(1_000, 1_000 - k, None, None) for k in range(64)], 0),
+    ("3 rows", [(3, 3, None, None)], 0),
+    ("row counts past the capacity and negative", [(5_000, 2**31 - 1, None, None),
+                                                   (5_000, -5, None, None)], 0),
+)
+
+
+def k19_edge(name: str, device):
+    """key_histogram's arguments (hashes, num_rows, valid) of the K19_EDGES
+    case `name`, seeded by its place in the list."""
+    import torch
+    i = [e[0] for e in K19_EDGES].index(name)
+    _, shards, off = K19_EDGES[i]
+    rng = np.random.default_rng(190 + i)
+    hashes, num_rows, valid = [], [], []
+    for cap, rows, buckets, share in shards:
+        h = rng.integers(0, 1 << 32, cap, dtype=np.uint64)
+        if buckets is not None:
+            h = (rng.integers(0, buckets, cap).astype(np.uint64) * 67 + 11) << 24 | (h & 0xFFFFFF)
+        hbuf = np.zeros(off + cap, np.uint32)
+        hbuf[off:] = h.astype(np.uint32)
+        hashes.append(torch.from_numpy(hbuf.view(np.int32)).to(device)[off:])
+        num_rows.append(torch.tensor(rows, dtype=torch.int32, device=device))
+        if share is None:
+            valid.append(None)
+        else:
+            vbuf = np.zeros(off + cap, bool)
+            vbuf[off:] = rng.random(cap) < share
+            valid.append(torch.from_numpy(vbuf).to(device)[off:])
+    return hashes, num_rows, valid
+
+
+def phase_flags_hist_edges(device) -> None:
+    """Phase 2i: K10 and K19 against their plain versions bit for bit on
+    their edge cases, each run twice with the same bits: K10 under every
+    flag selection (K10_EDGES), K19 (K19_EDGES); K19's compiled plan
+    against the wrapper's."""
+    from datafusion_parallelism_tpu_torch.kernels import key_histogram as k19
+    from datafusion_parallelism_tpu_torch.kernels import match_flags as k10
+    plans_agree((("K19", k19),))
+    lines = []
+    for name, *_ in K10_EDGES:
+        match, bid, pidx, bcap, mcap, visited, total = k10_edge(name, device)
+        for sel, (want_v, want_p) in K10_SELECTIONS.items():
+            if visited is not None and not want_v:   # an incoming buffer is the visited flags
+                continue
+
+            def run(fn, bcap=bcap if want_v else None, mcap=mcap if want_p else None):
+                # each call ORs into its own copy of the incoming buffer
+                return lambda: fn(match, bid, pidx, bcap, mcap,
+                                  None if visited is None else visited.clone(), total)
+            got = kernel_twice(f"K10 {name}, {sel}", run(k10.match_flags),
+                               run(k10.match_flags_plain), ())
+            if [g is None for g in got] != [not want_v, not want_p]:
+                raise AssertionError(f"K10 {name}, {sel}: flags "
+                                     f"{['none' if g is None else 'made' for g in got]}")
+        lines.append(f"K10 {name} (n {match.shape[0]}, total "
+                     f"{None if total is None else int(total)}, {int(match.sum())} matches, "
+                     f"{int(got[0].sum())} build and {int(got[1].sum())} probe rows set)")
+    for name, *_ in K19_EDGES:
+        args = k19_edge(name, device)
+        hist = kernel_twice(f"K19 {name}", k19.key_histogram, k19.key_histogram_plain, args)
+        lines.append(f"K19 {name} ({len(args[0])} shards, {int(hist.sum())} rows counted)")
+    log("phase 2i ok: K10 == match_flags_plain under every flag selection and K19 == "
+        "key_histogram_plain, bit for bit, the same bits twice: " + "; ".join(lines))
+
+
 def strategy_join_variants(rng, n, device):
     """Joins under SORT and OA, every stage run through the kernel and its
     plain version (Checked), equal to the plain path word for word."""
@@ -2796,6 +2937,15 @@ def join_detail(key, args, out) -> str:
         return (f", m {start.shape[0]}, total {int(total)}, out_cap {out_cap}, build rows "
                 f"{bwords.shape[1]} ({layout}), {len(compares)} keys in "
                 f"{len(k3.key_groups(compares))} key groups")
+    if key[1] in ("match_flags", "match_flags_acc"):
+        match, _, _, bcap, mcap, visited, total = args
+        k = match.shape[0] if total is None else max(0, min(int(total), match.shape[0]))
+        asked = "both" if bcap and mcap else "visited" if bcap else "probe flags"
+        before = (9 * match.shape[0] + (bcap or 0) + (mcap or 0)) / HBM_BYTES_PER_S * 1e3
+        return (f", n {match.shape[0]}, total {None if total is None else int(total)}, "
+                f"{int(match[:k].sum())} matches, bcap {bcap}, mcap {mcap}, asked {asked}"
+                f"{', accumulate' if visited is not None else ''}, bound as counted before "
+                f"(every slot, both flags) {before:.3f}")
     if key[1] == "compact_gather":
         match, _, _, bcols, pcols, total = args
         return (f", out_cap {match.shape[0]}, total {None if total is None else int(total)}, "
@@ -2807,7 +2957,7 @@ def join_detail(key, args, out) -> str:
 def call_key(key, args):
     """The entry point a call is noted under: K10's accumulate mode (a
     visited buffer given) apart from its fresh-flags calls."""
-    if key == ("join", "match_flags") and len(args) == 6:
+    if key == ("join", "match_flags") and args[5] is not None:
         return ("join", "match_flags_acc")
     if key == ("join", "table_sort") and args[0].shape[0] == 3:   # OA's (invalid, home, hash)
         return ("join", "table_sort_oa")
@@ -2824,7 +2974,7 @@ def fresh_args(key, args):
     buffer, K13's accumulator) cloned, so that a replay starts from the
     state the call saw."""
     if key[1] == "match_flags_acc":
-        return args[:5] + (args[5].clone(),)
+        return args[:5] + (args[5].clone(),) + args[6:]
     if key[1] == "append_rows":
         return (args[0].clone(), args[1].clone()) + tuple(args[2:])
     return args
@@ -3086,7 +3236,12 @@ def work(key, args, out):
         k = max(0, min(int(num_rows), words.shape[1], acc.shape[1] - int(acc_rows)))
         return 2 * k * _row_bytes(words, f64) + 12, 0
     elif entry == "match_flags":
-        reads = _bytes(args[:3])
+        # the match bytes below the total; each asked flag's ids at the
+        # matched slots (its flags are written once: the outputs)
+        match, _, _, bcap, mcap, _, total = args
+        k = match.shape[0] if total is None else max(0, min(int(total), match.shape[0]))
+        hits = int(match[:k].sum())
+        reads = k + 4 * hits * ((bcap is not None) + (mcap is not None))
     elif entry == "segment_agg":
         return k7_work(*args), 0
     else:
@@ -3188,16 +3343,21 @@ def library_call(key, args):
         mask, words, f64, _ = args
         return lambda: (words[:, mask], f64[:, mask])
     if entry in ("match_flags", "match_flags_acc"):
-        # index_fill_ at the matched ids, selected inside the timing
-        match, build_id, probe_idx, bcap, mcap = args[:5]
-        visited = args[5].clone() if len(args) > 5 else None
+        # index_fill_ of the asked flags at the matched ids below the total,
+        # selected inside the timing
+        match, build_id, probe_idx, bcap, mcap, visited, total = args
+        visited = visited.clone() if visited is not None else None
 
         def flags():
-            v = (visited if visited is not None
-                 else torch.zeros(bcap, dtype=torch.bool, device=match.device))
-            return (v.index_fill_(0, build_id[match].long(), True),
-                    torch.zeros(mcap, dtype=torch.bool, device=match.device)
-                    .index_fill_(0, probe_idx[match].long(), True))
+            hit = match if total is None else match & (
+                torch.arange(match.shape[0], device=match.device) < total)
+            out = []
+            for cap, ids, buf in ((bcap, build_id, visited), (mcap, probe_idx, None)):
+                if cap is not None:
+                    buf = buf if buf is not None else torch.zeros(cap, dtype=torch.bool,
+                                                                  device=match.device)
+                    out.append(buf.index_fill_(0, ids[hit].long(), True))
+            return out
         return flags
     if entry == "concat_rows":
         # torch.cat of the parts' valid prefixes (their counts read first)
@@ -3729,11 +3889,11 @@ def size512_host_tables(rng, skew_range=None):
 class DistRecorder:
     """The distributed layer's kernel table (K18, K19) recording the
     largest call of each kind: K18 routing by hash, salted, replicating;
-    K19."""
+    K19 (and the shards of each of its launches)."""
 
     def __init__(self):
         from datafusion_parallelism_tpu_torch.parallel.shuffle import KERNELS, DistKernels
-        self.calls = {}
+        self.calls, self.hist_shards = {}, []
 
         def keep(kind, args, size):
             if size > self.calls.get(kind, (-1, None))[0]:
@@ -3747,9 +3907,10 @@ class DistRecorder:
             keep(kind, args, h.numel() + P * send_cap)
             return KERNELS.dest_pack(*args)
 
-        def key_histogram(h, mask):
-            keep("histogram", (h, mask), h.numel())
-            return KERNELS.key_histogram(h, mask)
+        def key_histogram(hashes, num_rows, valid=None):
+            keep("histogram", (hashes, num_rows, valid), sum(h.numel() for h in hashes))
+            self.hist_shards.append(len(hashes))
+            return KERNELS.key_histogram(hashes, num_rows, valid)
 
         self.table = DistKernels(dest_pack, key_histogram)
 
@@ -3830,9 +3991,12 @@ def _dist_run(par, ex, build, probe, bkeys, pkeys, cfg, rec, label):
 def _k18_k19_vs_plain(rec):
     """The largest recorded K18 call of each kind and K19's, through the
     kernel and its plain version: equal, timed, beside the bound (bytes
-    moved at 3.35 TB/s) and, for K19, torch.bincount of the buckets."""
+    moved at 3.35 TB/s) and, for K19, one torch.bincount of the shards'
+    buckets offset by 256 a shard (rows in the mask, selected before the
+    timing)."""
     import torch
     from datafusion_parallelism_tpu_torch.kernels.dest_pack import bucket_of
+    from datafusion_parallelism_tpu_torch.kernels.key_histogram import row_mask as k19_row_mask
     from datafusion_parallelism_tpu_torch.parallel.shuffle import KERNELS, PLAIN
     out, lines = {}, []
     for kind, (_, args) in sorted(rec.calls.items()):
@@ -3843,6 +4007,7 @@ def _k18_k19_vs_plain(rec):
             want = plain(*args)
         err = max_abs_err(got, want)
         h = args[0]
+        rows = h.numel() if name == "dest_pack" else sum(x.numel() for x in h)
         if name == "dest_pack":
             P, send_cap, heavy, rep = args[2], args[3], args[4], args[6]
             # hash + mask (+ replicate flags, heavy table) read, the grid and
@@ -3851,9 +4016,20 @@ def _k18_k19_vs_plain(rec):
                       + 4 * P * (send_cap + 1) + 4)
             lib_ms = None
         else:
-            nbytes = h.numel() * 5 + 256 * 4
-            buckets = ((h.long() & 0xFFFFFFFF) >> 24)[args[1]]
-            lib_ms = cuda_ms(lambda: torch.bincount(buckets, minlength=256), reps=3)
+            # each shard's hashes (and validity) below its row count read
+            # once, its histogram row written once; the bound as counted
+            # before: every hash and a mask byte of every row
+            hashes, num_rows, valid = args
+            valid = valid or [None] * len(hashes)
+            counted = [min(max(int(n), 0), x.numel()) for x, n in zip(hashes, num_rows)]
+            nbytes = sum(k * (4 + (v is not None)) for k, v in zip(counted, valid))
+            nbytes += 256 * 4 * len(hashes)
+            before = sum(x.numel() * 5 + 256 * 4 for x in hashes) / HBM_BYTES_PER_S * 1e3
+            keys = torch.cat([(((x.long() & 0xFFFFFFFF) >> 24) + 256 * s)[
+                k19_row_mask(x, n, v)] for s, (x, n, v) in enumerate(zip(hashes, num_rows,
+                                                                          valid))])
+            S = len(hashes)
+            lib_ms = cuda_ms(lambda: torch.bincount(keys, minlength=256 * S), reps=3)
         ms = cuda_ms(kernel, *args, reps=3)
         with no_launches():
             plain_ms = cuda_ms(plain, *args, reps=1)
@@ -3867,10 +4043,13 @@ def _k18_k19_vs_plain(rec):
         acc["bytes_ms"] += b_ms
         acc["bound_ms"] += b_ms
         acc["library_ms"] = None if lib_ms is None else acc["library_ms"] + lib_ms
-        acc["calls"].append(f"{name}.{kind}@{h.numel()} rows")
-        lines.append(f"{name} {kind} ({h.numel()} rows, {nbytes} bytes moved) {ms:.3f}/"
+        shape = (f"{rows} rows" if name == "dest_pack" else
+                 f"{len(h)} shards, {rows} rows, {sum(counted)} in the masks, bound as counted "
+                 f"before {before:.4f}")
+        acc["calls"].append(f"{name}.{kind}@{shape}")
+        lines.append(f"{name} {kind} ({shape}, {nbytes} bytes moved) {ms:.3f}/"
                      f"{plain_ms:.3f}" + (f"/{lib_ms:.3f}" if lib_ms is not None else "")
-                     + f" bound {b_ms:.3f}")
+                     + f" bound {b_ms:.4f}")
         del got, want
     # K18's replicate-flags input (replicating_shuffle(replicate=)), which the
     # join does not take: the heavy rows of the largest heavy_to_all call as
@@ -4044,13 +4223,19 @@ def phase_distributed(device):
                 "key_histogram": key_histogram.key_histogram.launches}
     if min(launches.values()) < 1:
         raise AssertionError(f"K18/K19 not launched on the distributed path: {launches}")
+    if launches["key_histogram"] != len(rec.hist_shards):
+        raise AssertionError(f"K19 launched {launches['key_histogram']} times for "
+                             f"{len(rec.hist_shards)} histograms")
+    hist_line = (f"K19: {launches['key_histogram']} launches, one a histogram, shards a "
+                 f"launch {sorted(set(rec.hist_shards))}")
     per_kernel, klines = _k18_k19_vs_plain(rec)
     klines.append("K18 edge cases, twice with the same bits: " + "; ".join(k18_edges(device)))
     del rec
     torch.cuda.empty_cache()
     log(f"phase 19 ok: distributed hash join at P = {DIST_P} in process on one card (the "
         "all-to-all a copy on the card): " + " | ".join(lines) + f"; INNER rows equal under "
-        f"the three modes; launches {launches}; K18/K19 == plain at the largest calls, ms "
+        f"the three modes; launches {launches}; {hist_line}; K18/K19 == plain at the largest "
+        "calls, ms "
         "kernel/plain[/library] (median of 3 / one run / median of 3): " + "; ".join(klines))
     return res, launches, per_kernel
 
@@ -4135,6 +4320,7 @@ def main() -> int:
     phase_csr_edges(device)
     phase_agg_compact_edges(device)
     phase_segment_agg_edges(device)
+    phase_flags_hist_edges(device)
 
     wrappers = launch_counters()
     for w in wrappers.values():

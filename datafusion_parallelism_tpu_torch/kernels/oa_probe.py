@@ -71,7 +71,11 @@ def oa_probe_plain(hashes: torch.Tensor, ok: torch.Tensor, slots: torch.Tensor) 
     clamped at S - 1): seeking, an empty slot (0) ends it with count 0;
     the first slot whose high word is the row's hash (uint32 bits in
     int32) sets start and count 1; counting, each further equal hash adds
-    one, anything else ends it. Rows without `ok`: start 0, count 0."""
+    one, anything else ends it. Rows without `ok`: start 0, count 0.
+
+    The steps are taken a window at a time over the rows still walking
+    (`_walk_window`), which gives the lockstep's result in as many
+    rounds as the longest walk has windows."""
     from ..ops.hash_table import slot_of
     S, m, dev = slots.shape[0], hashes.shape[0], hashes.device
     h = hashes.long() & _M32
@@ -81,23 +85,49 @@ def oa_probe_plain(hashes: torch.Tensor, ok: torch.Tensor, slots: torch.Tensor) 
     phase = torch.where(ok, 0, 2)          # 0 seeking, 1 counting, 2 done
     k = 0
     while k < S:
-        if k % 16 == 0 and not bool((phase < 2).any()):
+        act = torch.nonzero(phase < 2).flatten()
+        if act.numel() == 0:
             break
-        v = slots.index_select(0, cur)
-        empty = v == 0
-        match = ~empty & (((v >> 32) & _M32) == h)
-        seeking, counting = phase == 0, phase == 1
-        found = seeking & match
-        start = torch.where(found, cur, start)
-        count = torch.where(found, 1, torch.where(counting & match, count + 1, count))
-        phase = torch.where(seeking & empty, 2,
-                            torch.where(found, 1, torch.where(counting & ~match, 2, phase)))
-        cur = torch.clamp(torch.where(phase < 2, cur + 1, cur), max=S - 1)
-        k += 1
+        W = min(S - k, max(16, min(1024, (1 << 22) // act.numel())))
+        phase[act], start[act], count[act], cur[act] = _walk_window(
+            slots, h[act], cur[act], phase[act], start[act], count[act], W)
+        k += W
     count = count.to(torch.int32)
     cum = torch.cumsum(count, 0, dtype=torch.int64)
     total = check_total(cum[-1])
     return start.to(torch.int32), count, (cum - count).to(torch.int32), total
+
+
+def _walk_window(slots, h, cur, phase, start, count, W: int):
+    """W lockstep steps of oa_probe_plain's walk for the rows given (none
+    done): each reads the slots min(cur + i, S - 1), i < W; a seeking row
+    ends at its first empty slot or turns to counting at its first equal
+    hash; a counting row adds the equal hashes up to its first other
+    slot. Returns (phase, start, count, cur) after the W steps."""
+    S = slots.shape[0]
+    i = torch.arange(W, device=h.device)
+    pos = torch.clamp(cur[:, None] + i, max=S - 1)
+    v = slots[pos]
+    empty = v == 0
+    hit = ~empty & (((v >> 32) & _M32) == h[:, None])
+
+    def first(mask):   # the first index where mask is set, W where none
+        return torch.where(mask.any(1), torch.argmax(mask.to(torch.uint8), 1), W)
+
+    j0 = first(empty | hit)
+    at = j0.clamp(max=W - 1)[:, None]
+    seeking = phase == 0
+    found = seeking & (j0 < W) & hit.gather(1, at).squeeze(1)
+    ended = seeking & (j0 < W) & ~found
+    counting = found | (phase == 1)
+    jc = torch.where(found, j0 + 1, torch.where(phase == 1, 0, W))
+    je = first(~hit & (i[None, :] >= jc[:, None]))
+    add = je - jc.clamp(max=W)
+    count = torch.where(found, 1 + add, torch.where(phase == 1, count + add, count))
+    start = torch.where(found, pos.gather(1, at).squeeze(1), start)
+    done = ended | (counting & (je < W))
+    phase = torch.where(done, 2, torch.where(counting, 1, phase))
+    return phase, start, count, torch.clamp(cur + W, max=S - 1)
 
 
 def check_args(hashes, ok, slots) -> int:

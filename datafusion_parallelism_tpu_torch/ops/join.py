@@ -400,12 +400,14 @@ def hash_join(build: DeviceTable, probe: DeviceTable,
             if inner_expanded:   # late-materialized: the uncompacted pairs
                 return pairs, match, total
 
+    # K10 makes only the flags the join type reads (the JAX package makes
+    # both, and XLA drops the unread one), from the slots below the total
     visited = probe_matched = None
-    if join_type in _READS_VISITED or join_type in _READS_PROBE_MATCHED or return_visited:
-        flag_args = (match, build_id, probe_idx, build.capacity, probe.capacity)
-        if visited_into is not None:
-            flag_args += (visited_into,)
-        visited, probe_matched = kernels.match_flags(*flag_args)
+    reads_visited = join_type in _READS_VISITED or return_visited
+    if reads_visited or join_type in _READS_PROBE_MATCHED:
+        visited, probe_matched = kernels.match_flags(
+            match, build_id, probe_idx, build.capacity if reads_visited else None,
+            probe.capacity if join_type in _READS_PROBE_MATCHED else None, visited_into, total)
     # each side's live rows, made only where the join type reads them (an
     # INNER join reads neither: XLA drops them as dead code in JAX)
     def build_in() -> torch.Tensor:

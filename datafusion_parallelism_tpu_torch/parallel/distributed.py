@@ -32,8 +32,8 @@ from ..ops.hash_table import JoinStrategy
 from ..ops.join import JoinType, hash_join
 from ..utils.columnar import DeviceTable, HostTable, round_capacity
 from .exchange import Exchange
-from .shuffle import (KERNELS, DistKernels, all_gather_table, gather_shards, local_shards,
-                      partition_table, replicating_shuffle, shuffle_by_hash)
+from .shuffle import (KERNELS, DistKernels, _hashes, all_gather_table, gather_shards,
+                      local_shards, partition_table, replicating_shuffle, shuffle_by_hash)
 from .skew import heavy_buckets, key_histogram
 
 Shards = List[DeviceTable]
@@ -72,12 +72,14 @@ def dist_join_shard(ex: Exchange, builds: Shards, probes: Shards, build_keys: Li
     elif cfg.mode == "skew_salted":
         if not cfg.probe_driven():
             raise ValueError(f"salted join invalid for {cfg.join_type}")
-        hist = key_histogram(ex, probes, probe_keys, kernels=kernels)
+        # each probe shard hashed once, for the histogram and the shuffle
+        hashes = [_hashes(t, probe_keys) for t in probes]
+        hist = key_histogram(ex, probes, probe_keys, kernels=kernels, hashes=hashes)
         heavy = heavy_buckets(hist, cfg.skew_factor)
         b, d1 = replicating_shuffle(ex, builds, build_keys, cfg.build_send_cap,
                                     kernels=kernels, heavy=heavy)
         p, d2 = shuffle_by_hash(ex, probes, probe_keys, cfg.probe_send_cap, heavy=heavy,
-                                kernels=kernels)
+                                kernels=kernels, hashes=hashes)
         dropped = d1 + d2
     elif cfg.mode == "partitioned":
         b, d1 = shuffle_by_hash(ex, builds, build_keys, cfg.build_send_cap, kernels=kernels)

@@ -80,16 +80,20 @@ def _exchange_and_compact(ex: Exchange, schema: Schema, packs, P: int,
 def _shuffle(ex: Exchange, shards: Shards, keys: List[str], send_cap: int, valid,
              kernels: DistKernels, heavy: Optional[torch.Tensor] = None,
              replicate: Optional[Sequence[torch.Tensor]] = None,
-             heavy_to_all: bool = False) -> Tuple[Shards, torch.Tensor]:
-    """K1 and K18 per local shard (K18's route arguments as dest_pack
-    takes them, `valid` and `replicate` per shard), the send blocks, the
-    exchange; and the dropped rows summed over the partitions."""
+             heavy_to_all: bool = False,
+             hashes: Optional[Sequence[torch.Tensor]] = None) -> Tuple[Shards, torch.Tensor]:
+    """K1 (unless the shards' `hashes` are given) and K18 per local shard
+    (K18's route arguments as dest_pack takes them, `valid` and
+    `replicate` per shard), the send blocks, the exchange; and the dropped
+    rows summed over the partitions."""
     valid = valid or [None] * len(shards)
     replicate = replicate or [None] * len(shards)
+    hashes = hashes or [None] * len(shards)
     packs, dropped = [], []
-    for rank, t, v, rep in zip(ex.ranks, shards, valid, replicate):
-        grid, counts, d = kernels.dest_pack(_hashes(t, keys), _row_mask(t, v), ex.P, send_cap,
-                                            heavy, rank, rep, heavy_to_all)
+    for rank, t, v, rep, h in zip(ex.ranks, shards, valid, replicate, hashes):
+        h = _hashes(t, keys) if h is None else h
+        grid, counts, d = kernels.dest_pack(h, _row_mask(t, v), ex.P, send_cap, heavy, rank, rep,
+                                            heavy_to_all)
         send_valid = (torch.arange(send_cap, dtype=torch.int32, device=t.device)[None, :]
                       < counts[:, None])
         packs.append((pack_table(t).take_rows(grid.reshape(ex.P * send_cap)), send_valid))
@@ -101,14 +105,18 @@ def _shuffle(ex: Exchange, shards: Shards, keys: List[str], send_cap: int, valid
 def shuffle_by_hash(ex: Exchange, shards: Shards, keys: List[str], send_cap: int,
                     heavy: Optional[torch.Tensor] = None,
                     valid: Optional[Sequence[Optional[torch.Tensor]]] = None,
-                    kernels: DistKernels = KERNELS) -> Tuple[Shards, torch.Tensor]:
+                    kernels: DistKernels = KERNELS,
+                    hashes: Optional[Sequence[torch.Tensor]] = None
+                    ) -> Tuple[Shards, torch.Tensor]:
     """Repartition the local shards by key hash: (received shards, each of
     capacity P * send_cap, and the dropped row count summed over the
     partitions). `heavy` (bool [256]) salts the route as the JAX
     package's `salted_route` dest_override does: a row in a heavy hash
     bucket stays on its own partition. `valid` (per shard, or None): late
-    materialization, rows where it is False are never sent."""
-    return _shuffle(ex, shards, keys, send_cap, valid, kernels, heavy=heavy)
+    materialization, rows where it is False are never sent. `hashes`: the
+    shards' key hashes where the caller made them already (the salted
+    step's histogram reads the same ones)."""
+    return _shuffle(ex, shards, keys, send_cap, valid, kernels, heavy=heavy, hashes=hashes)
 
 
 def replicating_shuffle(ex: Exchange, shards: Shards, keys: List[str], send_cap: int,

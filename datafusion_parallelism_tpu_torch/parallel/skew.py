@@ -5,10 +5,10 @@ Counterpart of the JAX package's `parallel/skew.py`: buckets holding more
 than `factor` x the mean row count are heavy; build rows in heavy buckets
 go to every partition (replicating_shuffle), probe rows in heavy buckets
 stay on their own partition, the rest shuffle by hash. The histogram is
-K19 `key_histogram` per shard plus the exchange's all-reduce; both
-routes are K18 `dest_pack`'s heavy-table input: shuffle_by_hash(heavy=)
-keeps the heavy probe rows, replicating_shuffle(heavy=) replicates the
-heavy build rows. `salted_route` and `build_replication_mask` give the
+one K19 `key_histogram` launch over the local shards plus the exchange's
+all-reduce; both routes are K18 `dest_pack`'s heavy-table input:
+shuffle_by_hash(heavy=) keeps the heavy probe rows,
+replicating_shuffle(heavy=) replicates the heavy build rows. `salted_route` and `build_replication_mask` give the
 same routes as tensors, as the JAX package's functions do, for the tests.
 """
 
@@ -29,13 +29,14 @@ HIST_SIZE = 1 << HIST_BITS
 
 def key_histogram(ex: Exchange, shards: Sequence[DeviceTable], keys: List[str],
                   valid: Optional[Sequence[Optional[torch.Tensor]]] = None,
-                  kernels: DistKernels = KERNELS) -> torch.Tensor:
+                  kernels: DistKernels = KERNELS,
+                  hashes: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """The HIST_SIZE-bucket histogram (int32) of the key hashes over every
-    partition's rows (in `valid`, where given)."""
-    valid = valid or [None] * len(shards)
-    local = [kernels.key_histogram(_hashes(t, keys), _row_mask(t, v))
-             for t, v in zip(shards, valid)]
-    return ex.all_reduce(local)[0]
+    partition's rows (in `valid`, where given). `hashes`: the shards' key
+    hashes where the caller made them already."""
+    hashes = hashes or [_hashes(t, keys) for t in shards]
+    local = kernels.key_histogram(hashes, [t.num_rows for t in shards], valid)
+    return ex.all_reduce(list(local))[0]
 
 
 def heavy_buckets(hist: torch.Tensor, factor: float = 8.0) -> torch.Tensor:

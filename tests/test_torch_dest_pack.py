@@ -164,7 +164,8 @@ def test_key_histogram_plain_equals_jax(n):
     def hist():
         return jskew.key_histogram(jt, ["k"], axis, valid=jnp.asarray(late))
 
-    got = k19.key_histogram_plain(h, mask & torch.from_numpy(late))
+    got = k19.key_histogram_plain([h], [torch.tensor(n, dtype=torch.int32)],
+                                  [torch.from_numpy(late)])[0]
     np.testing.assert_array_equal(got.numpy(), np.asarray(jax.jit(hist)()))
     assert got.dtype == torch.int32
 
@@ -197,11 +198,12 @@ def test_wrapper_argument_checks(monkeypatch):
         k18.check_args(h.long(), m, 8, 16)
     with pytest.raises(ValueError):
         k18.check_args(h, m[:9], 8, 16)
-    assert k19.check_args(h, m) == 10
+    n = torch.tensor(10, dtype=torch.int32)
+    assert k19.check_args([h], [n], [m]) == 1
     with pytest.raises(TypeError):
-        k19.check_args(h, m.to(torch.uint8))
+        k19.check_args([h], [n], [m.to(torch.uint8)])
     with pytest.raises(ValueError):
-        k19.check_args(h[:5], m)
+        k19.check_args([h[:5]], [n], [m])
 
 
 def test_shards_from_reference_equal_the_ports_partition_table():
