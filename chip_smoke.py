@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives `datafusion_parallelism_tpu_torch`'s six main paths through its
+Drives `datafusion_parallelism_tpu_torch`'s seven main paths through its
 nineteen hand-written CUDA kernels and holds every result against the
 plain torch versions: the single-device INNER CSR hash join (K1-K4), the
 single-table chain filter -> project -> hash aggregate -> sort -> limit
@@ -15,8 +15,11 @@ K13 append_rows, K10's accumulate mode), and the SORT and OA join
 strategies (K14 sorted_probe, K15 oa_place, K16 oa_probe, K6 and K5 in
 their builds, K3's second pass expand_ranges over their ranges), and the
 distributed hash join over P partitions (K18 dest_pack, K19
-key_histogram, with K1, K5, K11 and K12 around the exchange); every
-expression of every path is K17 expr_eval. Phases, one line each:
+key_histogram, with K1, K5, K11 and K12 around the exchange), and SQL
+over 8 partitions (the distributed executor: every shard's operators
+through K1-K12 and K17, the shuffles and owner-dedup through K5, K10,
+K11, K18 and K19); every expression of every path is K17 expr_eval.
+Phases, one line each:
 
   1. build the kernels with nvcc, one process per source, all at once;
      print the card's name and power limit
@@ -181,6 +184,17 @@ expression of every path is K17 expr_eval. Phases, one line each:
      heavy_to_all routes)
  20. (run after 19) a one-rank NCCL process group: the Size512 INNER join partitioned
      through ProcessGroupExchange == single-device hash_join row for row
+ 21. (run after 15) SQL through SessionContext(SessionConfig(target_partitions=8))
+     in process on the card: the 22 TPC-H queries at SF10 (the tables of
+     phase 10), one collect() settling the capacities and one timed, each
+     == the numpy oracle and == phase 14's rows; per query ms, staged or
+     whole plan, retries, comm bytes, the largest max/min of a join's
+     per-partition candidate totals, the largest stage's bytes a
+     partition and the peak; nation LEFT JOIN supplier on a rare balance
+     through the broadcast owner-dedup == numpy; LEFT, FULL, EXISTS and
+     NOT EXISTS over phase 19's Size512 exponential-key tables under
+     skew_salting, each join skew_salted, counts == numpy's; K5, K10,
+     K11, K18 and K19 launched during the phase
 
 Exact means bit for bit, except float64 sums (and the averages built on
 them), which K7 and K8 add in another order than the plain versions:
@@ -3113,7 +3127,7 @@ def phase_tpch_sql(device, tables, meanwhile=None):
         "numpy oracle (diff_results rule); median of 3 collect()s after a settling one: "
         + " | ".join(lines) + f"; launches over the phase: {launches}; after the last query "
         f"the oracle's {ORACLE_WORKERS} processes took {oracle_wait_s:.1f} s more")
-    return res, launches, ctx, sizes, oracle, extra
+    return res, launches, ctx, sizes, oracle, got, extra
 
 
 def _run_tpch_sql(device, tables, queries):
@@ -4280,6 +4294,202 @@ def phase_nccl(device):
         f"{cfg}")
 
 
+# phase 21's broadcast owner-dedup: nation (25 rows, under broadcast_threshold)
+# LEFT JOIN supplier on a rare balance, so most nations emit an unmatched row
+DIST_BROADCAST_SQL = ("SELECT n.n_name, COUNT(s.s_suppkey) AS suppliers, "
+                      "SUM(s.s_suppkey) AS keys FROM nation n LEFT JOIN supplier s "
+                      "ON n.n_nationkey = s.s_nationkey AND s.s_acctbal > 9999 "
+                      "GROUP BY n.n_name")
+# phase 21's salted owner-dedup over phase 19's exponential probe keys
+DIST_SALTED_SQL = {
+    "left": "SELECT COUNT(*) AS c FROM build b LEFT JOIN probe p ON b.b_key = p.p_key",
+    "full": "SELECT COUNT(*) AS c FROM build b FULL JOIN probe p ON b.b_key = p.p_key",
+    "left_semi": ("SELECT COUNT(*) AS c FROM build b WHERE EXISTS "
+                  "(SELECT 1 FROM probe p WHERE p.p_key = b.b_key)"),
+    "left_anti": ("SELECT COUNT(*) AS c FROM build b WHERE NOT EXISTS "
+                  "(SELECT 1 FROM probe p WHERE p.p_key = b.b_key)"),
+}
+DIST_SQL_KERNELS = ("filter_compact", "match_flags", "concat_rows", "dest_pack",
+                    "key_histogram")
+
+
+def _dist_joins(handle):
+    from datafusion_parallelism_tpu_torch.models.physical import PHashJoin
+    return [n for n in handle.plan.walk() if isinstance(n, PHashJoin)]
+
+
+def _dist_query(device, ctx, sql):
+    """One query through a distributed session: the settling collect(),
+    then one more from a synchronize to a synchronize with the peak device
+    memory over it: (the rows of each run, handle, stats); the caller
+    checks both runs' rows."""
+    import torch
+    from datafusion_parallelism_tpu_torch.runtime.distributed_executor import \
+        DistributedQueryHandle
+    t0 = time.perf_counter()
+    handle = ctx.sql(sql)
+    plan_s = time.perf_counter() - t0
+    if not isinstance(handle, DistributedQueryHandle) or handle.mesh.P != DIST_P:
+        raise AssertionError(f"not a distributed handle over {DIST_P} partitions: {handle}")
+    t0 = time.perf_counter()
+    rows = handle.collect().to_pylist()
+    first_s = time.perf_counter() - t0
+    retries = handle.metrics.retries
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    again = handle.collect()
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    if handle.metrics.retries != retries:
+        raise AssertionError("the settled capacities retried")
+    m = handle.metrics
+    ratios = [max(b) / max(min(b), 1) for b in m.balance.values() if b]
+    stats = {"ms": ms, "first_ms": first_s * 1e3, "plan_ms": plan_s * 1e3,
+             "retries": retries, "staged": m.staged,
+             "comm_bytes": m.comm_bytes,
+             "balance_max_min": max(ratios) if ratios else None,
+             "stage_bytes": max((sb["leaf_bytes_per_device"] + sb["mat_bytes_per_device"]
+                                 + sb["out_bytes_per_device"] for sb in m.stage_bytes),
+                                default=None),
+             "peak_bytes": torch.cuda.max_memory_allocated(device),
+             "base_bytes": base, "modes": [(j.join_type.value, j.dist_mode)
+                                           for j in _dist_joins(handle)]}
+    return (rows, again.to_pylist()), handle, stats
+
+
+def _dist_line(label, rows, st) -> str:
+    bal = (f"{st['balance_max_min']:.3f}" if st["balance_max_min"] is not None else "no join")
+    sb = st["stage_bytes"] if st["stage_bytes"] is not None else "-"
+    return (f"{label} {st['ms']:.3f} ms (first run {st['first_ms']:.1f}, planning "
+            f"{st['plan_ms']:.1f}), {len(rows)} rows, "
+            f"{'staged' if st['staged'] else 'whole plan'}, {st['retries']} retries, comm "
+            f"{st['comm_bytes']} bytes, balance max/min {bal}, largest stage {sb} bytes a "
+            f"partition, peak {st['peak_bytes']} bytes ({st['peak_bytes'] - st['base_bytes']} "
+            f"over the {st['base_bytes']} held before)")
+
+
+def _broadcast_expect(tables):
+    """numpy's answer to DIST_BROADCAST_SQL: per nation, its suppliers
+    with a balance over 9999 (cents past 999900), and their keys' sum."""
+    n, s = tables["nation"], tables["supplier"]
+    names = n.schema.field("n_name").dictionary
+    nk = np.asarray(n.columns["n_nationkey"][0])
+    codes = np.asarray(n.columns["n_name"][0])
+    sk = np.asarray(s.columns["s_suppkey"][0]).astype(np.int64)
+    snk = np.asarray(s.columns["s_nationkey"][0])
+    rich = np.asarray(s.columns["s_acctbal"][0]) > 999900
+    out = {}
+    for key, code in zip(nk, codes):
+        hit = rich & (snk == key)
+        out[names.values[code]] = (int(hit.sum()), int(sk[hit].sum()) if hit.any() else None)
+    return out
+
+
+def _salted_expect(bk, pk, n):
+    """numpy's counts for DIST_SALTED_SQL."""
+    cnt_p = np.bincount(pk, minlength=n)
+    cnt_b = np.bincount(bk, minlength=n)
+    per_build = cnt_p[bk]
+    left = int(per_build.sum()) + int((per_build == 0).sum())
+    return {"left": left, "full": left + int((cnt_b[pk] == 0).sum()),
+            "left_semi": int((per_build > 0).sum()), "left_anti": int((per_build == 0).sum())}
+
+
+def phase_distributed_sql(device, tables, oracle, resident, statistics):
+    """SQL over SessionConfig(target_partitions=8) on the one card (P = 8
+    in process; the all-to-all a copy on the card, not NVLink): the 22
+    TPC-H queries at SF10, each == the numpy oracle
+    (tpch/diff_results.py's rule) and == phase 14's resident rows; nation
+    LEFT JOIN supplier at SF10 through the broadcast owner-dedup, ==
+    numpy; LEFT, FULL, EXISTS and NOT EXISTS over phase 19's Size512
+    exponential-key tables with skew_salting, each join skew_salted, the
+    counts == numpy's. Each query runs twice (settling, then timed), and
+    both runs' rows are checked. The kernel counters are zeroed
+    before the first query and read after the last: K5, K10, K11, K18 and
+    K19 each launched. The TPC-H tables are registered with phase 14's
+    `statistics` (the distinct counts and hot-key shares its planning
+    computed from the same tables)."""
+    import torch
+    from datafusion_parallelism_tpu_torch import SessionConfig, SessionContext
+    from datafusion_parallelism_tpu_torch.tpch import QUERIES
+
+    queries = sorted(QUERIES)
+    for fn in set(all_counters().values()):
+        fn.launches = 0
+    lines = []
+    ctx = SessionContext(SessionConfig(target_partitions=DIST_P), device=device)
+    for name, t in tables.items():
+        ctx.register_table(name, t, statistics[name])
+    res = {}
+    for q in queries:
+        runs, handle, st = _dist_query(device, ctx, QUERIES[q])
+        for run, rows in zip(("settling", "timed"), runs):
+            try:
+                diff_rule_match(rows, oracle[q])
+                diff_rule_match(rows, resident[q])
+            except AssertionError as e:
+                raise AssertionError(f"Q{q} at P = {DIST_P}, {run} run: {e}") from None
+        res[q] = st
+        lines.append(_dist_line(f"Q{q}", rows, st))
+        del handle
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # broadcast owner-dedup: nation (the build, 25 rows) LEFT JOIN supplier
+    ctx = SessionContext(SessionConfig(target_partitions=DIST_P), device=device)
+    for name in ("nation", "supplier"):
+        ctx.register_table(name, tables[name], statistics[name])
+    runs, handle, st = _dist_query(device, ctx, DIST_BROADCAST_SQL)
+    if st["modes"] != [("left", "broadcast")]:
+        raise AssertionError(f"nation LEFT JOIN supplier ran {st['modes']}")
+    want = _broadcast_expect(tables)
+    for run, rows in zip(("settling", "timed"), runs):
+        got = {r["n_name"]: (r["suppliers"], r["keys"]) for r in rows}
+        if got != want:
+            raise AssertionError(f"nation LEFT JOIN supplier, {run} run: {got} != numpy {want}")
+    unmatched = sum(1 for c, _ in want.values() if c == 0)
+    lines.append(_dist_line(f"nation LEFT JOIN supplier (broadcast, {unmatched} of 25 "
+                            "nations unmatched)", rows, st))
+    del ctx, handle
+
+    # salted owner-dedup at Size512 scale
+    build, probe, (bk, pk, _, _) = size512_host_tables(np.random.default_rng(1), SKEW_KEY_RANGE)
+    ctx = SessionContext(SessionConfig(target_partitions=DIST_P, skew_salting=True),
+                         device=device)
+    ctx.register_table("build", build)
+    ctx.register_table("probe", probe)
+    want = _salted_expect(bk, pk, SIZE512)
+    for jt, sql in DIST_SALTED_SQL.items():
+        runs, handle, st = _dist_query(device, ctx, sql)
+        if st["modes"] != [(jt, "skew_salted")]:
+            raise AssertionError(f"salted {jt}: the plan ran {st['modes']}")
+        for run, rows in zip(("settling", "timed"), runs):
+            if rows != [{"c": want[jt]}]:
+                raise AssertionError(f"salted {jt}, {run} run: {rows} != numpy {want[jt]}")
+        caps = {k: v for k, v in handle.metrics.join_caps.items()
+                if isinstance(k, tuple) and k[1] == "hv"}
+        lines.append(_dist_line(f"Size512 {jt} skew_salted (heavy block cap {caps})", rows, st))
+        del handle
+    del ctx, build, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = kernel_launches()
+    missing = [k for k in DIST_SQL_KERNELS if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the distributed SQL path: {missing}")
+    named = "; ".join(f"Q{q} {res[q]['ms']:.3f} ms" for q in (5, 9))
+    log(f"phase 21 ok: SQL at SessionConfig(target_partitions={DIST_P}) in process on one card "
+        f"(the collectives copies on the card, not NVLink), TPC-H SF{TPCH_SF} queries "
+        f"{queries}, both runs of each == the numpy oracle and phase 14's resident rows; "
+        f"BASELINE.json's fourth configuration (multi-join star queries Q5 / Q9): {named}; "
+        + " | ".join(lines) + f"; launches over the phase: {launches}")
+    return res, launches
+
+
 def launch_counters():
     from datafusion_parallelism_tpu_torch.kernels import (compact_gather, csr_build,
                                                           hash_slot, probe_expand)
@@ -4361,14 +4571,21 @@ def main() -> int:
     phase_nccl(device)
     gc.collect()
     torch.cuda.empty_cache()
-    sql_res, sql_launches, ctx, sizes, oracle, strategy_run = phase_tpch_sql(
+    sql_res, sql_launches, ctx, sizes, oracle, resident, strategy_run = phase_tpch_sql(
         device, tables, lambda res: run_strategies(device, tables, res))
     _, ooc_launches, ooc_ctx, ooc_sizes = phase_out_of_core(device, tables, oracle, sql_res)
     _, strategy_launches = phase_strategies(strategy_run, oracle)
     replay = phase_replay(device, {14: ctx, 16: ooc_ctx, **strategy_run["ctxs"]},
                           {**sizes, **ooc_sizes, **strategy_run["sizes"]})
-    del ctx, ooc_ctx, strategy_run, tables
+    statistics = {name: ctx.catalog.get(name).statistics for name in tables}
+    del ctx, ooc_ctx, strategy_run
     replay.update(dist_kernels)
+    # distributed SQL holds up to a shuffle's received shards of lineitem:
+    # it runs while the card holds nothing else
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_distributed_sql(device, tables, oracle, resident, statistics)
+    del tables, oracle, resident, statistics
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -8,12 +8,15 @@ under the CSR, SORT and OA strategies (`ops.join.hash_join`) and the
 single-table operators `filter_table`, `project_table`,
 `hash_aggregate_counted`, `sort_table` and `limit_table` with the
 expression classes, and out-of-core execution (morsel streaming and grace
-partitioning, `runtime/streaming.py`, `runtime/grace.py`) — through
-seventeen hand-written CUDA kernels for Hopper (`kernels/`, sources in
+partitioning, `runtime/streaming.py`, `runtime/grace.py`), and SQL over
+P partitions (`SessionConfig(target_partitions=P)`,
+`runtime/distributed_executor.py` over `parallel/`'s Exchange) — through
+nineteen hand-written CUDA kernels for Hopper (`kernels/`, sources in
 `csrc/`: K1-K4 and K9-K11 the join, K5-K8 the single-table operators, K12
 packing and unpacking tables, K13 the grace union append, K14-K16 the
-SORT and OA strategies' probes and placement, K17 every expression) with a
-plain torch version beside each.
+SORT and OA strategies' probes and placement, K17 every expression, K18
+and K19 the shuffle's routing and the skew histogram) with a plain torch
+version beside each.
 The package imports torch and never jax; the kernels are built with nvcc
 at first CUDA use, never at import.
 """

@@ -67,6 +67,9 @@ class ExecContext:
     overflow retry), the overflow totals reported by each node (device
     tensors), under staged execution the materialized join results of
     earlier stages, and the kernel tables the operators reach.
+    Distributed execution (runtime/distributed_executor.py) adds each
+    join's per-shard candidate totals (`join_balance`) and the sorts that
+    run shard-local (`local_sort_ids`).
 
     Out of core: `prepared` maps join_id -> PreparedBuild, the frozen
     build sides probed by every chunk; `stream_visited` maps the join_id
@@ -87,6 +90,11 @@ class ExecContext:
         self.prepared = prepared or {}
         self.stream_visited: Dict[int, torch.Tensor] = {}
         self.visited_out: Dict[int, torch.Tensor] = {}
+        # distributed only: join_id -> the local candidate total of each
+        # local shard (the work-balance proxy), and the sort nodes that run
+        # shard-local (a root ORDER BY merged at collection)
+        self.join_balance: Dict[int, List[torch.Tensor]] = {}
+        self.local_sort_ids = frozenset()
 
 
 def _zero(t: DeviceTable) -> torch.Tensor:
@@ -185,8 +193,15 @@ class PHashJoin(PhysicalPlan):
     join_type: JoinType
     strategy: JoinStrategy = JoinStrategy.CSR
     residual: Optional[Expr] = None
+    # distributed execution mode: partitioned | broadcast | skew_salted
+    # (set by the optimizer from statistics; single-device execution ignores it)
+    dist_mode: str = "partitioned"
     # planner's output-cardinality estimate; seeds the initial capacity
     est_rows: float = 0.0
+    # probe-side hot-key share (catalog mcv_share_of), recorded by
+    # ChooseDistModeRule; with salting off, the distributed shuffle seeds
+    # its per-destination send capacity from it
+    probe_mcv_share: float = 0.0
     join_id: int = field(default_factory=lambda: _JOIN_ID.__setitem__(0, _JOIN_ID[0] + 1) or _JOIN_ID[0])
     schema: Schema = None
 

@@ -410,7 +410,7 @@ class Planner:
         plan, scope = self._plan_from_where(stmt, outer)
         plan = self._plan_select(stmt, plan, scope)
         from .optimizer import optimize_plan
-        plan = optimize_plan(plan, self.catalog)
+        plan = optimize_plan(plan, self.catalog, self.config)
         return PlannedQuery(plan, self.scalar_subqueries)
 
     # -- FROM + WHERE ----------------------------------------------------------

@@ -12,7 +12,10 @@ The steps run over the local shards of the Exchange (a list of
 DeviceTables, one per partition this process holds) through the kernels:
 K1 hashes the keys, K18 `dest_pack` routes the rows and lays out the
 index grid, K12 packs the rows, K5 gathers the send blocks and compacts
-what arrives, K12 unpacks it.
+what arrives, K12 unpacks it. Past a budget of received bytes
+(RECV_BUDGET_BYTES over the local shards) the send capacity is sized
+from K18's counts instead of the static one (`_fit_send_cap`): the same
+rows, in smaller send blocks and received shards.
 """
 
 from __future__ import annotations
@@ -27,11 +30,20 @@ from ..kernels import key_histogram as k19
 from ..kernels.concat_rows import MAX_PARTS
 from ..ops.hashing import hash_rows
 from ..utils.columnar import (DeviceTable, HostTable, PackedTable, Schema, compact_rows,
-                              concat_tables, f64_matrix, pack_table, round_capacity,
-                              unpack_table)
+                              concat_tables, f64_matrix, pack_table, packed_layout,
+                              round_capacity, unpack_table)
 from .exchange import Exchange
 
 Shards = List[DeviceTable]
+
+# the bytes the received blocks of one shuffle may hold over the local shards
+# before their send capacity is sized from the rows sent (`_fit_send_cap`).
+# Set from tools/dist_sql_memory.py's readings (TPC-H SF10, 8 partitions on
+# one H100; PERF.md): at 1 GiB the 22 queries peak no higher than with
+# every shuffle sized from its counts, and take 7% longer in all; at 4 GiB
+# they peak 31% higher and take 48% longer; with no budget Q10, Q18 and Q20
+# exhaust the 80 GB. Below the budget the capacities are the JAX package's.
+RECV_BUDGET_BYTES = 1 << 30
 
 
 class DistKernels(NamedTuple):
@@ -77,6 +89,24 @@ def _exchange_and_compact(ex: Exchange, schema: Schema, packs, P: int,
     return out
 
 
+def _fit_send_cap(ex: Exchange, schema: Schema, hashes, masks, replicate, send_cap: int,
+                  kernels: DistKernels, heavy, heavy_to_all: bool) -> int:
+    """The per-destination send capacity a shuffle runs at: `send_cap`,
+    the JAX package's static capacity, unless the local shards' received
+    blocks (P x send_cap rows each) would pass RECV_BUDGET_BYTES; then
+    the most rows one source sends one destination, read from K18's
+    counts (a pass at send capacity 0, the max over the partitions in one
+    sync), rounded up: never more than `send_cap`, so rows drop (and the
+    caller grows the capacity) exactly where they would at `send_cap`."""
+    layout = packed_layout(schema)
+    row_bytes = 4 * layout.width + 8 * len(layout.f64_fields)
+    if len(hashes) * ex.P * send_cap * row_bytes <= RECV_BUDGET_BYTES:
+        return send_cap
+    most = [kernels.dest_pack(h, m, ex.P, 0, heavy, rank, rep, heavy_to_all)[1].max()
+            for rank, h, m, rep in zip(ex.ranks, hashes, masks, replicate)]
+    return min(send_cap, round_capacity(int(ex.all_reduce(most, "max")[0])))
+
+
 def _shuffle(ex: Exchange, shards: Shards, keys: List[str], send_cap: int, valid,
              kernels: DistKernels, heavy: Optional[torch.Tensor] = None,
              replicate: Optional[Sequence[torch.Tensor]] = None,
@@ -88,12 +118,14 @@ def _shuffle(ex: Exchange, shards: Shards, keys: List[str], send_cap: int, valid
     rows summed over the partitions."""
     valid = valid or [None] * len(shards)
     replicate = replicate or [None] * len(shards)
-    hashes = hashes or [None] * len(shards)
+    hashes = [_hashes(t, keys) if h is None else h
+              for t, h in zip(shards, hashes or [None] * len(shards))]
+    masks = [_row_mask(t, v) for t, v in zip(shards, valid)]
+    send_cap = _fit_send_cap(ex, shards[0].schema, hashes, masks, replicate, send_cap, kernels,
+                             heavy, heavy_to_all)
     packs, dropped = [], []
-    for rank, t, v, rep, h in zip(ex.ranks, shards, valid, replicate, hashes):
-        h = _hashes(t, keys) if h is None else h
-        grid, counts, d = kernels.dest_pack(h, _row_mask(t, v), ex.P, send_cap, heavy, rank, rep,
-                                            heavy_to_all)
+    for rank, t, h, m, rep in zip(ex.ranks, shards, hashes, masks, replicate):
+        grid, counts, d = kernels.dest_pack(h, m, ex.P, send_cap, heavy, rank, rep, heavy_to_all)
         send_valid = (torch.arange(send_cap, dtype=torch.int32, device=t.device)[None, :]
                       < counts[:, None])
         packs.append((pack_table(t).take_rows(grid.reshape(ex.P * send_cap)), send_valid))

@@ -59,7 +59,12 @@ class ExecutorMetrics:
     ("resident", "streamed", "streamed after a side-swap", "grace agg",
     "grace union", "grace mask"), and out of core the chunks or partitions
     run (`streamed_chunks`), the seconds of host packing (`host_pack_s`)
-    and of issuing the uploads (`upload_s`)."""
+    and of issuing the uploads (`upload_s`). Distributed
+    (runtime/distributed_executor.py): the bytes the collectives of the
+    last run delivered to one partition (`comm_bytes`; staged, summed over
+    the stages' last runs), each join's local candidate total per
+    partition (`balance`, join_id -> [P]), and per stage the bytes a
+    partition holds (`stage_bytes`)."""
 
     def __init__(self):
         self.launches = 0
@@ -71,6 +76,9 @@ class ExecutorMetrics:
         self.streamed_chunks = 0
         self.host_pack_s = 0.0
         self.upload_s = 0.0
+        self.comm_bytes = 0
+        self.balance: Dict[int, list] = {}
+        self.stage_bytes: list = []
 
 
 def _debug_retry(kind, key, node, cap, total, fit):

@@ -82,11 +82,14 @@ def _swap_join(j: PHashJoin) -> None:
     """In-place build/probe side swap. Every join type remaps under a swap
     (INNER/FULL are symmetric; LEFT<->RIGHT families mirror — the flip the
     planner's statistics-driven build-side choice uses). join_id is
-    preserved (the handle's capacities key on it)."""
+    preserved (the handle's capacities key on it); the side-specific
+    distributed settings are reset, as the JAX package does."""
     from ..models.planner import _flip_join_type
     j.build, j.probe = j.probe, j.build
     j.build_keys, j.probe_keys = j.probe_keys, j.build_keys
     j.join_type = _flip_join_type(j.join_type)
+    j.probe_mcv_share = 0.0
+    j.dist_mode = "partitioned"
     j.__post_init__()
 
 

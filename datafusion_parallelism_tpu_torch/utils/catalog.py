@@ -21,6 +21,10 @@ from .columnar import DeviceTable, HostTable, round_capacity
 class Statistics:
     row_count: int
     distinct: Dict[str, int] = field(default_factory=dict)
+    # most-common-value share per column (0..1); registrations may supply it,
+    # otherwise it is computed lazily from the data (mcv_share_of). Drives
+    # the automatic skew-salting decision (optimizer.ChooseDistModeRule).
+    mcv_share: Dict[str, float] = field(default_factory=dict)
 
 
 class RegisteredTable:
@@ -86,6 +90,31 @@ class RegisteredTable:
                 self._ranges[col] = (float(v.min()), float(v.max())) \
                     if v.size else None
         return self._ranges[col]
+
+    def mcv_share_of(self, col: str) -> float:
+        """Share (0..1) of the most common valid value of `col` — the cheap
+        histogram behind automatic skew salting (the reference mitigates the
+        same skew dynamically with work stealing,
+        work_stealing_repartition_exec.rs:50-115; TPUs cannot steal, so the
+        planner decides statically from this statistic). Computed once, on a
+        bounded STRIDED sample for very large tables — a prefix sample
+        grossly mis-estimates the hot-key share on value-clustered/sorted
+        columns (common for generated or ingested-sorted data) and would
+        silently flip the automatic skew_salted decision."""
+        d = self.statistics.mcv_share.get(col)
+        if d is None:
+            import numpy as np
+            vals, valid = self.host.columns[col]
+            n = len(vals)
+            stride = max(1, n >> 22)   # ≤4M sampled rows, spread over n
+            v = np.asarray(vals[::stride])[np.asarray(valid[::stride])]
+            if v.size == 0:
+                d = 0.0
+            else:
+                _, counts = np.unique(v, return_counts=True)
+                d = float(counts.max()) / float(v.size)
+            self.statistics.mcv_share[col] = d
+        return d
 
     def device(self) -> DeviceTable:
         if self._device is None:

@@ -512,7 +512,8 @@ def gather_table(t: "DeviceTable", indices: torch.Tensor, new_num_rows,
                  kernels=None) -> "DeviceTable":
     """New table of capacity len(indices): row j = t[indices[j]], as pack ->
     ONE K5 row gather -> unpack. (The JAX package's `row_valid` argument,
-    for outer-join padding, is not ported: ROADMAP queue 1 item 6.)"""
+    for outer-join padding, has no caller in either package and is left
+    out.)"""
     return unpack_table(pack_table(t, kernels).take_rows(indices, None, kernels), t.schema,
                         new_num_rows, kernels)
 

@@ -226,17 +226,29 @@ def test_dictmap_lut_clamps_like_jax_clip():
     assert v.tolist() == [5, 5, 7, 7] and valid.all()
 
 
-def test_session_refuses_what_is_not_ported():
-    """Several devices (and the settings that steer them) and parquet
-    raise, naming their ROADMAP items."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdfp.SessionContext(tdfp.SessionConfig(target_partitions=2), device="cpu")
-    for setting in ("broadcast_threshold", "skew_salting", "skew_factor", "skew_threshold",
-                    "distributed_staged"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tdfp.SessionConfig(**{setting: 1})
+def test_session_refuses_what_is_not_ported(monkeypatch):
+    """Several partitions and the settings that steer them are taken, with
+    the JAX package's defaults; parquet raises naming ROADMAP item 14, and
+    streaming a scan through the partitions (distributed morsel streaming)
+    item 13c."""
+    from datafusion_parallelism_tpu_torch.runtime.distributed_executor import \
+        DistributedQueryHandle
+    settings = ("broadcast_threshold", "skew_salting", "skew_factor", "skew_threshold",
+                "distributed_staged")
+    jcfg, tcfg = jdfp.SessionConfig(), tdfp.SessionConfig()
+    assert {s: getattr(tcfg, s) for s in settings} == {s: getattr(jcfg, s) for s in settings}
+    for setting in settings:
+        assert getattr(tdfp.SessionConfig(**{setting: 1}), setting) == 1
+    ctx = tdfp.SessionContext(tdfp.SessionConfig(target_partitions=2), device="cpu")
+    ctx.register_pydict("t", {"x": list(range(20))})
+    handle = ctx.sql("SELECT sum(x) AS s FROM t")
+    assert isinstance(handle, DistributedQueryHandle) and handle.mesh.P == 2
+    assert handle.collect().to_pylist() == [{"s": 190}]
     with pytest.raises(NotImplementedError, match="item 14"):
         tdfp.SessionContext(device="cpu").register_parquet("t", "t.parquet")
+    monkeypatch.setenv("DFP_STREAM_ROW_THRESHOLD", "10")
+    with pytest.raises(NotImplementedError, match="item 13c"):
+        ctx.sql("SELECT sum(x) AS s FROM t").collect()
 
 
 def test_streamed_scale_raises(monkeypatch):
