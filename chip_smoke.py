@@ -18,7 +18,10 @@ distributed hash join over P partitions (K18 dest_pack, K19
 key_histogram, with K1, K5, K11 and K12 around the exchange), and SQL
 over 8 partitions (the distributed executor: every shard's operators
 through K1-K12 and K17, the shuffles and owner-dedup through K5, K10,
-K11, K18 and K19); every expression of every path is K17 expr_eval.
+K11, K18 and K19), in process and through a one-rank NCCL group holding
+the 8 partitions, and streamed through the 8 partitions out of core
+(frozen per-partition builds, K12 unpacking every chunk's shards); every
+expression of every path is K17 expr_eval.
 Phases, one line each:
 
   1. build the kernels with nvcc, one process per source, all at once;
@@ -183,7 +186,11 @@ Phases, one line each:
      counts, a capacity off the tile, no rows, replicate flags, salted and
      heavy_to_all routes)
  20. (run after 19) a one-rank NCCL process group: the Size512 INNER join partitioned
-     through ProcessGroupExchange == single-device hash_join row for row
+     through ProcessGroupExchange == single-device hash_join row for row;
+     then (run after 21) a one-rank NCCL group from
+     init_multihost(..., local_device_count=8), whose Exchange holds the 8
+     partitions: TPC-H Q5 and Q9 at SF10 through
+     SessionConfig(target_partitions=8), both runs' rows == phase 21's
  21. (run after 15) SQL through SessionContext(SessionConfig(target_partitions=8))
      in process on the card: the 22 TPC-H queries at SF10 (the tables of
      phase 10), one collect() settling the capacities and one timed, each
@@ -195,6 +202,18 @@ Phases, one line each:
      NOT EXISTS over phase 19's Size512 exponential-key tables under
      skew_salting, each join skew_salted, counts == numpy's; K5, K10,
      K11, K18 and K19 launched during the phase
+ 22. (run after 20's SQL) distributed morsel streaming at
+     SessionConfig(target_partitions=8) in process: the TPC-H queries whose
+     plans stream at SF10 under phase 16's thresholds and 4,194,304-row
+     chunks (lineitem in 15 chunks of 524,288 rows a partition), then
+     LEFT, NOT EXISTS and FULL over customer x orders (orders streamed
+     against per-partition visited masks); one settling collect() and one
+     timed, both == the numpy oracle and phase 14's rows (the cells: ==
+     numpy); per query ms, chunks, retries, host pack and upload seconds,
+     seconds blocked on totals, comm bytes, peak, and how many chunks
+     were packed while the previous one computed; the synchronizing CUDA
+     calls of the settling runs by site, those inside chunk steps apart;
+     the queries that run resident; K1, K3 and K18 launched
 
 Exact means bit for bit, except float64 sums (and the averages built on
 them), which K7 and K8 add in another order than the plain versions:
@@ -3090,9 +3109,9 @@ def phase_tpch_sql(device, tables, meanwhile=None):
     phase 15 (those of the out-of-core kernels come from phase 16). The
     numpy oracle's answers, computed meanwhile by ORACLE_WORKERS spawned
     processes, are checked after the last query and kept for phases 16
-    and 17. `meanwhile(res)` (phase 17's runs, given this phase's results)
-    runs on the card while the oracle is still computing; what it returns
-    comes back last."""
+    and 17. `meanwhile(res, statistics)` (phase 17's runs, given this
+    phase's results and its tables' statistics) runs on the card while the
+    oracle is still computing; what it returns comes back last."""
     import concurrent.futures
     import multiprocessing
 
@@ -3106,7 +3125,7 @@ def phase_tpch_sql(device, tables, meanwhile=None):
                    for i in range(ORACLE_WORKERS)]
         res, lines, got, ctx, sizes = _run_tpch_sql(device, tables, queries)
         launches = kernel_launches()
-        extra = meanwhile(res) if meanwhile is not None else None
+        extra = meanwhile(res, table_statistics(ctx)) if meanwhile is not None else None
         t0 = time.perf_counter()
         oracle = {}
         for f in futures:
@@ -3128,6 +3147,14 @@ def phase_tpch_sql(device, tables, meanwhile=None):
         + " | ".join(lines) + f"; launches over the phase: {launches}; after the last query "
         f"the oracle's {ORACLE_WORKERS} processes took {oracle_wait_s:.1f} s more")
     return res, launches, ctx, sizes, oracle, got, extra
+
+
+def table_statistics(ctx) -> dict:
+    """Each registered table's statistics as `ctx` has computed them (the
+    distinct counts and hot-key shares its planning read): a later session
+    over the same tables registers them and plans without computing them
+    again from the SF10 columns."""
+    return {name: ctx.catalog.get(name).statistics for name in ctx.catalog.tables}
 
 
 def _run_tpch_sql(device, tables, queries):
@@ -3671,18 +3698,18 @@ def ooc_env(on: bool = True, **extra):
                 os.environ[k] = v
 
 
-def phase_out_of_core(device, tables, oracle, resident):
-    """All 22 TPC-H queries under OOC_ENV on phase 14's tables, and Q20
-    under DFP_FORCE_GRACE. Counters are zeroed before the first query and
-    read after the last; the largest K12, K13 and K10 accumulate calls are
-    noted for phase 15."""
+def phase_out_of_core(device, tables, oracle, resident, stats):
+    """All 22 TPC-H queries under OOC_ENV on phase 14's tables (registered
+    with phase 14's statistics, `stats`), and Q20 under DFP_FORCE_GRACE.
+    Counters are zeroed before the first query and read after the last;
+    the largest K12, K13 and K10 accumulate calls are noted for phase 15."""
     import torch
     from datafusion_parallelism_tpu_torch import SessionContext
     from datafusion_parallelism_tpu_torch.tpch import QUERIES
 
     ctx = SessionContext(device=device)
     for name, t in tables.items():
-        ctx.register_table(name, t)
+        ctx.register_table(name, t, stats[name])
     rec = LargestCalls(keep=lambda key: key in OOC_ENTRIES)
     for fn in set(all_counters().values()):
         fn.launches = 0
@@ -3737,11 +3764,12 @@ def phase_out_of_core(device, tables, oracle, resident):
     return res, launches, ctx, rec.sizes
 
 
-def run_strategies(device, tables, resident):
+def run_strategies(device, tables, resident, stats):
     """Phase 17's runs on the card (while phase 14's oracle computes): the
     22 TPC-H queries through SQL under the SORT strategy, then under OA, on
-    phase 14's tables: one settling collect() (its rows kept for the
-    check), then the median of the timed ones, and the peak memory.
+    phase 14's tables and statistics (`stats`): one settling collect() (its rows
+    kept for the check), then the median of the timed ones, and the peak
+    memory.
     Counters are zeroed before the first query and read per strategy; the
     largest calls of the strategies' entry points are noted for phase 15."""
     import torch
@@ -3756,7 +3784,7 @@ def run_strategies(device, tables, resident):
     for strategy in (JoinStrategy.SORT, JoinStrategy.OA):
         ctx = SessionContext(SessionConfig(join_strategy=strategy), device=device)
         for name, t in tables.items():
-            ctx.register_table(name, t)
+            ctx.register_table(name, t, stats[name])
         run["ctxs"][(17, strategy.name)] = ctx
         before = kernel_launches()
         for q in sorted(QUERIES):
@@ -4422,7 +4450,7 @@ def phase_distributed_sql(device, tables, oracle, resident, statistics):
     ctx = SessionContext(SessionConfig(target_partitions=DIST_P), device=device)
     for name, t in tables.items():
         ctx.register_table(name, t, statistics[name])
-    res = {}
+    res, dist_rows = {}, {}
     for q in queries:
         runs, handle, st = _dist_query(device, ctx, QUERIES[q])
         for run, rows in zip(("settling", "timed"), runs):
@@ -4432,6 +4460,7 @@ def phase_distributed_sql(device, tables, oracle, resident, statistics):
             except AssertionError as e:
                 raise AssertionError(f"Q{q} at P = {DIST_P}, {run} run: {e}") from None
         res[q] = st
+        dist_rows[q] = rows
         lines.append(_dist_line(f"Q{q}", rows, st))
         del handle
     del ctx
@@ -4487,6 +4516,275 @@ def phase_distributed_sql(device, tables, oracle, resident, statistics):
         f"{queries}, both runs of each == the numpy oracle and phase 14's resident rows; "
         f"BASELINE.json's fourth configuration (multi-join star queries Q5 / Q9): {named}; "
         + " | ".join(lines) + f"; launches over the phase: {launches}")
+    return res, launches, dist_rows
+
+
+# phase 20's SQL through NCCL: BASELINE.json's fourth configuration
+DIST_NCCL_QUERIES = (5, 9)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_nccl_sql(device, tables, statistics, dist_rows):
+    """Phase 20 at P = 8: a one-rank NCCL process group started by
+    `init_multihost(..., local_device_count=8)`, its ProcessGroupExchange
+    holding the 8 partitions, so every collective of the SQL path is an
+    NCCL call; TPC-H Q5 and Q9 at SF10 through
+    SessionConfig(target_partitions=8), both runs' rows == phase 21's (in
+    process) exactly."""
+    import torch
+    from datafusion_parallelism_tpu_torch import SessionConfig, SessionContext
+    from datafusion_parallelism_tpu_torch.parallel.multihost import (init_multihost,
+                                                                     shutdown_multihost)
+    from datafusion_parallelism_tpu_torch.tpch import QUERIES
+
+    lines = []
+    init_multihost(f"localhost:{_free_port()}", num_processes=1, process_id=0,
+                   local_device_count=DIST_P)
+    try:
+        ctx = SessionContext(SessionConfig(target_partitions=DIST_P), device=device)
+        for name, t in tables.items():
+            ctx.register_table(name, t, statistics[name])
+        for q in DIST_NCCL_QUERIES:
+            runs, handle, st = _dist_query(device, ctx, QUERIES[q])
+            if not repr(handle.mesh).startswith(f"ProcessGroupExchange(P={DIST_P}, "):
+                raise AssertionError(f"Q{q} ran over {handle.mesh}")
+            want = sorted(map(repr, dist_rows[q]))
+            for run, rows in zip(("settling", "timed"), runs):
+                if sorted(map(repr, rows)) != want:
+                    raise AssertionError(f"Q{q} through NCCL, {run} run: rows differ from "
+                                         "phase 21's")
+            lines.append(_dist_line(f"Q{q} over {handle.mesh}", rows, st))
+            del handle
+        del ctx
+    finally:
+        shutdown_multihost()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 20 ok (SQL through NCCL): a one-rank NCCL group from init_multihost(..., "
+        f"local_device_count={DIST_P}), TPC-H SF{TPCH_SF} "
+        f"{['Q%d' % q for q in DIST_NCCL_QUERIES]} at target_partitions={DIST_P}, both runs' "
+        "rows == phase 21's exactly: " + " | ".join(lines))
+
+
+# phase 22's visited cells (tests/test_distributed_streaming.py's LEFT, NOT
+# EXISTS and FULL) over SF10's customer x orders: orders streams, customer
+# is the frozen build, a third of the customers have no order
+DIST_STREAM_VISITED_SQL = {
+    "LEFT": ("SELECT c.c_mktsegment AS g, COUNT(o.o_totalprice) AS cnt, "
+             "SUM(o.o_totalprice) AS s FROM customer c LEFT JOIN orders o "
+             "ON c.c_custkey = o.o_custkey GROUP BY c.c_mktsegment"),
+    "NOT EXISTS": ("SELECT c.c_mktsegment AS g, COUNT(*) AS cnt FROM customer c WHERE "
+                   "NOT EXISTS (SELECT 1 FROM orders o WHERE o.o_custkey = c.c_custkey) "
+                   "GROUP BY c.c_mktsegment"),
+    "FULL": ("SELECT COUNT(*) AS n, SUM(o.o_totalprice) AS s, MIN(c.c_nationkey) AS mg "
+             "FROM customer c FULL JOIN orders o ON c.c_custkey = o.o_custkey"),
+}
+# the kernels phase 22 must launch: K1, K3 and K18
+DIST_STREAM_KERNELS = ("hash_slot", "probe_expand", "dest_pack")
+
+
+def _visited_expect(tables):
+    """numpy's answers to DIST_STREAM_VISITED_SQL, keyed as the check reads
+    the rows (prices in cents)."""
+    c, o = tables["customer"], tables["orders"]
+    ck = np.asarray(c.columns["c_custkey"][0]).astype(np.int64)
+    seg = np.asarray(c.columns["c_mktsegment"][0])
+    names = c.schema.field("c_mktsegment").dictionary.values
+    ok = np.asarray(o.columns["o_custkey"][0]).astype(np.int64)
+    price = np.asarray(o.columns["o_totalprice"][0]).astype(np.int64)
+    row_of = np.full(int(max(ck.max(), ok.max())) + 1, -1, np.int64)
+    row_of[ck] = np.arange(len(ck))
+    orow = row_of[ok]
+    hit = orow >= 0
+    n_orders = np.bincount(orow[hit], minlength=len(ck))
+    oseg = seg[orow[hit]]
+    left = {}
+    for code, name in enumerate(names):
+        cnt = int((oseg == code).sum())
+        left[str(name)] = (cnt, int(price[hit][oseg == code].sum()) if cnt else None)
+    anti = {str(name): int(((n_orders == 0) & (seg == code)).sum())
+            for code, name in enumerate(names)}
+    full = (int(hit.sum()) + int((n_orders == 0).sum()) + int((~hit).sum()),
+            int(price.sum()), int(np.asarray(c.columns["c_nationkey"][0]).min()))
+    return {"LEFT": left, "NOT EXISTS": {k: v for k, v in anti.items() if v},
+            "FULL": full}
+
+
+def _check_visited(cell, rows, want) -> None:
+    """A visited cell's rows against _visited_expect: counts exact, sums
+    (in cents) within rel 1e-12."""
+    import math
+
+    def close(a, b):
+        return a == b or (a is not None and b is not None
+                          and math.isclose(a, b, rel_tol=1e-12))
+
+    def cents(x):
+        return None if x is None else float(x) * 100
+    if cell == "LEFT":
+        got = {r["g"]: (r["cnt"], cents(r["s"])) for r in rows}
+        ok = got.keys() == want.keys() and all(
+            got[k][0] == want[k][0] and close(got[k][1], want[k][1]) for k in want)
+    elif cell == "NOT EXISTS":
+        got = {r["g"]: r["cnt"] for r in rows}
+        ok = got == want
+    else:
+        (r,) = rows
+        got = (r["n"], cents(r["s"]), r["mg"])
+        ok = got[0] == want[0] and close(got[1], want[1]) and got[2] == want[2]
+    if not ok:
+        raise AssertionError(f"{cell}: {got} != numpy {want}")
+
+
+@contextlib.contextmanager
+def sync_sites(out):
+    """Every synchronizing CUDA call inside (torch.cuda's sync debug
+    mode), counted in `out` by (the streaming loop's step it ran in: a
+    chunk's "load", "dispatch" or "validate", else the innermost function
+    of runtime/distributed_streaming.py; the port's innermost
+    file:line)."""
+    import traceback
+    import warnings
+
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        frames = traceback.extract_stack()[:-1]
+        port = [f for f in frames if "datafusion_parallelism_tpu_torch" in f.filename]
+        ours = [f.name for f in reversed(frames)
+                if f.filename.endswith("distributed_streaming.py")]
+        step = next((n for n in ours if n in ("load", "dispatch", "validate")),
+                    ours[0] if ours else "-")
+        site = port[-1] if port else frames[-1]
+        out[(step, f"{os.path.relpath(site.filename, root)}:{site.lineno}")] += 1
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _overlaps(timeline) -> tuple[int, int]:
+    """(chunks whose pack and upload window opened while the device still
+    ran the previous chunk's step, those whose window closed while it still
+    ran): read from the CUDA event recorded after each dispatched step."""
+    packs = [e for e in timeline if e["event"] == "pack_upload" and e["chunk"] > 0]
+    return sum(e["busy_t0"] for e in packs), sum(e["busy_t1"] for e in packs)
+
+
+def phase_distributed_streaming(device, tables, oracle, resident, statistics, queries=None):
+    """Phase 22: distributed morsel streaming at P = 8 in process on the
+    card, under OOC_ENV and the default 4,194,304-row chunk: each TPC-H
+    query whose plan streams (or `queries`), then the visited cells over
+    customer x orders. Per query one settling collect() (its synchronizing
+    CUDA calls counted by site) and one timed, each run == the numpy
+    oracle and phase 14's rows (the cells: == numpy); the route streamed,
+    no retry in the timed run. The queries that do not stream are named,
+    not run. Counters zeroed before the first query and read after the
+    last: K1, K3 and K18 launched."""
+    from collections import Counter
+
+    import torch
+    from datafusion_parallelism_tpu_torch import SessionConfig, SessionContext
+    from datafusion_parallelism_tpu_torch.tpch import QUERIES
+
+    ctx = SessionContext(SessionConfig(target_partitions=DIST_P), device=device)
+    for name, t in tables.items():
+        ctx.register_table(name, t, statistics[name])
+    cells = [(f"Q{q}", QUERIES[q], q) for q in sorted(QUERIES) if queries is None or q in queries]
+    cells += [(cell, sql, None) for cell, sql in DIST_STREAM_VISITED_SQL.items()]
+    visited_want = _visited_expect(tables)
+    for fn in set(all_counters().values()):
+        fn.launches = 0
+    res, lines, syncs, not_streamed = {}, [], Counter(), []
+    for label, sql, q in cells:
+        with ooc_env():
+            handle = ctx.sql(sql)
+            sp = handle.stream_plan()
+            if sp is None:
+                if q is None:
+                    raise AssertionError(f"{label} does not stream under OOC_ENV")
+                not_streamed.append(q)   # resident at P = 8, as in the JAX package
+                continue
+            vjoins = [j.join_type.value for j in sp.visited_joins]
+            t0 = time.perf_counter()
+            with sync_sites(syncs):
+                first = handle.collect().to_pylist()
+            first_s = time.perf_counter() - t0
+            m = handle.metrics
+            retries, pack0, up0, wait0 = m.retries, m.host_pack_s, m.upload_s, m.run_time_s
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            t0 = time.perf_counter()
+            again = handle.collect().to_pylist()
+            torch.cuda.synchronize(device)
+            ms = (time.perf_counter() - t0) * 1e3
+        if not m.route.startswith("streamed"):
+            raise AssertionError(f"{label} took the route {m.route} under OOC_ENV at P = {DIST_P}")
+        if m.retries != retries:
+            raise AssertionError(f"{label}: the timed run retried")
+        for run, rows in zip(("settling", "timed"), (first, again)):
+            try:
+                if q is None:
+                    _check_visited(label, rows, visited_want[label])
+                else:
+                    diff_rule_match(rows, oracle[q])
+                    diff_rule_match(rows, resident[q])
+            except AssertionError as e:
+                raise AssertionError(f"{label} streamed at P = {DIST_P}, {run} run: {e}") \
+                    from None
+        res[label] = st = {
+            "ms": ms, "first_ms": first_s * 1e3, "route": m.route, "chunks": m.streamed_chunks,
+            "retries": retries, "host_pack_s": m.host_pack_s - pack0,
+            "upload_s": m.upload_s - up0, "blocked_s": m.run_time_s - wait0,
+            "comm_bytes": m.comm_bytes, "peak_bytes": torch.cuda.max_memory_allocated(device),
+            "base_bytes": base, "overlaps": _overlaps(m.stream_timeline),
+            "visited": vjoins}
+        lines.append(f"{label} {ms:.3f} ms (first run {st['first_ms']:.1f}), {m.route}, "
+                     f"{st['chunks']} chunks, {retries} retries, host pack "
+                     f"{st['host_pack_s']:.3f} s, upload {st['upload_s']:.3f} s, blocked on "
+                     f"totals {st['blocked_s']:.3f} s, comm {st['comm_bytes']} bytes, peak "
+                     f"{st['peak_bytes']} bytes ({st['peak_bytes'] - base} over the {base} "
+                     f"held before), device still on the previous step when the next chunk's "
+                     f"pack opened / closed: {st['overlaps'][0]} / {st['overlaps'][1]} of "
+                     f"{st['chunks'] - 1}, visited joins {vjoins}")
+        del handle, first, again
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = kernel_launches()
+    missing = [k for k in DIST_STREAM_KERNELS if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the streamed distributed path: "
+                             f"{missing}")
+    streamed = [q for _, _, q in cells if q is not None and q not in not_streamed]
+    in_steps = {k: n for k, n in syncs.items() if k[0] == "dispatch"}
+    log(f"phase 22 ok: distributed morsel streaming at SessionConfig(target_partitions={DIST_P}) "
+        f"in process on one card, TPC-H SF{TPCH_SF} under {OOC_ENV} with "
+        f"{ {**os.environ, **OOC_ENV}.get('DFP_STREAM_CHUNK_ROWS', 1 << 22)}-row chunks: the "
+        f"queries whose plans stream, {streamed} (resident at P = {DIST_P}: {not_streamed}), "
+        f"and the visited cells {list(DIST_STREAM_VISITED_SQL)} "
+        "over customer x orders, both runs of each == the numpy oracle and phase 14's rows "
+        "(the cells: == numpy): " + " | ".join(lines)
+        + f"; timed runs, the device still on the previous step when the next chunk's pack "
+        f"opened / closed: {sum(st['overlaps'][0] for st in res.values())} / "
+        f"{sum(st['overlaps'][1] for st in res.values())} of "
+        f"{sum(st['chunks'] - 1 for st in res.values())} chunks"
+        f"; synchronizing CUDA calls in the settling runs by (loop function, site): "
+        f"{dict(syncs)}; inside chunk steps: {in_steps} ({sum(in_steps.values())} in all)"
+        f"; launches over the phase: {launches}")
     return res, launches
 
 
@@ -4572,20 +4870,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sql_res, sql_launches, ctx, sizes, oracle, resident, strategy_run = phase_tpch_sql(
-        device, tables, lambda res: run_strategies(device, tables, res))
-    _, ooc_launches, ooc_ctx, ooc_sizes = phase_out_of_core(device, tables, oracle, sql_res)
+        device, tables, lambda res, stats: run_strategies(device, tables, res, stats))
+    statistics = table_statistics(ctx)
+    _, ooc_launches, ooc_ctx, ooc_sizes = phase_out_of_core(device, tables, oracle, sql_res,
+                                                            statistics)
     _, strategy_launches = phase_strategies(strategy_run, oracle)
     replay = phase_replay(device, {14: ctx, 16: ooc_ctx, **strategy_run["ctxs"]},
                           {**sizes, **ooc_sizes, **strategy_run["sizes"]})
-    statistics = {name: ctx.catalog.get(name).statistics for name in tables}
     del ctx, ooc_ctx, strategy_run
     replay.update(dist_kernels)
     # distributed SQL holds up to a shuffle's received shards of lineitem:
     # it runs while the card holds nothing else
     gc.collect()
     torch.cuda.empty_cache()
-    phase_distributed_sql(device, tables, oracle, resident, statistics)
-    del tables, oracle, resident, statistics
+    _, _, dist_rows = phase_distributed_sql(device, tables, oracle, resident, statistics)
+    phase_nccl_sql(device, tables, statistics, dist_rows)
+    phase_distributed_streaming(device, tables, oracle, resident, statistics)
+    del tables, oracle, resident, statistics, dist_rows
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -12,10 +12,13 @@ local shard:
     or the CPU for the tests). An all-to-all is one block transpose, an
     all-gather one concatenation, a reduction one sum or max. It is a copy
     on one device, not a link between devices.
-  * `ProcessGroupExchange()`: one shard per process over an initialised
-    `torch.distributed` process group (NCCL between GPUs, gloo between CPU
-    processes): `all_to_all_single`, `all_gather_into_tensor`,
-    `all_reduce`.
+  * `ProcessGroupExchange(device)`: L shards per process over an
+    initialised `torch.distributed` process group (NCCL between GPUs, gloo
+    between CPU processes), P = world size x L; process `pid` holds
+    partitions pid * L to pid * L + L - 1 (`parallel/multihost.py` starts
+    the group and sets L). Each collective is one call for the L shards:
+    their blocks stacked into one `all_to_all_single`, one
+    `all_gather_into_tensor`, a local reduction then one `all_reduce`.
 
 Every collective notes the bytes one device receives (`record_comm_bytes`,
 the JAX package's comm-bytes counter, parallel/shuffle.py:42-59).
@@ -41,6 +44,17 @@ def record_comm_bytes(n: int) -> None:
 def get_comm_bytes() -> int:
     """Bytes received per device by the collectives since the last reset."""
     return _COMM_BYTES[0]
+
+
+def uncounted(collective, *args):
+    """`collective(*args)` left out of the comm bytes: the row counts an
+    all-gather of a table moves first, which the JAX package's count
+    leaves out too."""
+    before = _COMM_BYTES[0]
+    try:
+        return collective(*args)
+    finally:
+        _COMM_BYTES[0] = before
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -111,15 +125,21 @@ class InProcessExchange(Exchange):
 
 
 class ProcessGroupExchange(Exchange):
-    """One shard per process of the default `torch.distributed` process
-    group, on `device` (the process's GPU under NCCL, the CPU under gloo)."""
+    """`multihost.local_device_count()` shards per process of the default
+    `torch.distributed` process group, on `device` (the process's GPU under
+    NCCL, the CPU under gloo, when None)."""
 
     def __init__(self, device=None):
         import torch.distributed as dist
+
+        from .multihost import local_device_count
         if not dist.is_initialized():
             raise RuntimeError("ProcessGroupExchange: initialise torch.distributed first")
-        self.P = dist.get_world_size()
-        self.ranks = [dist.get_rank()]
+        self.L = local_device_count()
+        self.world = dist.get_world_size()
+        self.P = self.world * self.L
+        pid = dist.get_rank()
+        self.ranks = list(range(pid * self.L, (pid + 1) * self.L))
         if device is None:
             device = ("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" \
                 else "cpu"
@@ -127,30 +147,36 @@ class ProcessGroupExchange(Exchange):
         self.device = torch.device(device)
 
     def __repr__(self):
-        return f"ProcessGroupExchange(P={self.P}, rank={self.ranks[0]}, device={self.device})"
+        return (f"ProcessGroupExchange(P={self.P}, ranks={self.ranks[0]}-{self.ranks[-1]}, "
+                f"device={self.device})")
 
     def all_to_all(self, xs, dim):
         import torch.distributed as dist
-        (x,) = xs
-        record_comm_bytes(_nbytes(x))
-        send = x.movedim(dim, 0).contiguous()
+        record_comm_bytes(_nbytes(xs[0]))
+        # send[q, s, d]: local shard s's block for partition q * L + d
+        blocks = [x.movedim(dim, 0) for x in xs]
+        rest = tuple(blocks[0].shape[1:])
+        send = torch.stack(blocks).reshape((self.L, self.world, self.L) + rest)
+        send = send.transpose(0, 1).contiguous()
         recv = torch.empty_like(send)
         dist.all_to_all_single(_wire(recv), _wire(send))
-        return [recv.movedim(0, dim).contiguous()]
+        # recv[q, s, d]: what partition q * L + s sent local shard d
+        return [recv[:, :, d].reshape((self.P,) + rest).movedim(0, dim).contiguous()
+                for d in range(self.L)]
 
     def all_gather(self, xs, dim=0):
         import torch.distributed as dist
-        (x,) = xs
-        record_comm_bytes(_nbytes(x) * self.P)
-        send = x.movedim(dim, 0).contiguous()
-        out = torch.empty((self.P * send.shape[0],) + tuple(send.shape[1:]), dtype=send.dtype,
-                          device=send.device)
+        record_comm_bytes(_nbytes(xs[0]) * self.P)
+        send = torch.cat([x.movedim(dim, 0) for x in xs]).contiguous()
+        out = torch.empty((self.world * send.shape[0],) + tuple(send.shape[1:]),
+                          dtype=send.dtype, device=send.device)
         dist.all_gather_into_tensor(_wire(out), _wire(send))
-        return [out.movedim(0, dim).contiguous()]
+        out = out.movedim(0, dim).contiguous()
+        return [out] * self.L
 
     def all_reduce(self, xs, op="sum"):
         import torch.distributed as dist
-        (x,) = xs
-        out = x.clone()
+        st = torch.stack(list(xs))
+        out = st.sum(0, dtype=st.dtype) if op == "sum" else st.amax(0)
         dist.all_reduce(out, dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
-        return [out]
+        return [out] * self.L

@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's `parallel/mesh.py`, whose 1-D
 `jax.sharding.Mesh` holds one partition per device. The port's mesh is an
-`Exchange` (parallel/exchange.py): P partitions on one device, or one per
-process of a `torch.distributed` process group.
+`Exchange` (parallel/exchange.py): P partitions on one device, or L per
+process of a `torch.distributed` process group (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -19,8 +19,9 @@ PARTITION_AXIS = "p"
 def make_mesh(n_devices: Optional[int] = None, device="cuda", *,
               process_group: bool = False) -> Exchange:
     """An Exchange over `n_devices` partitions: with `process_group`, the
-    initialised default process group's (one partition per process; its
-    world size must equal n_devices where given); else all of them
+    initialised default process group's (`multihost.local_device_count()`
+    partitions per process; world size x that count must equal n_devices
+    where given); else all of them
     in-process on `device`, the card unless the caller names the CPU."""
     if process_group:
         ex = ProcessGroupExchange(None if device == "cuda" else device)

@@ -32,7 +32,7 @@ from ..ops.hashing import hash_rows
 from ..utils.columnar import (DeviceTable, HostTable, PackedTable, Schema, compact_rows,
                               concat_tables, f64_matrix, pack_table, packed_layout,
                               round_capacity, unpack_table)
-from .exchange import Exchange
+from .exchange import Exchange, uncounted
 
 Shards = List[DeviceTable]
 
@@ -223,7 +223,7 @@ def all_gather_table(ex: Exchange, shards: Sequence[DeviceTable]) -> Shards:
     process) share one result."""
     t0 = shards[0]
     cap, schema = t0.capacity, t0.schema
-    nr = ex.all_gather([t.num_rows.reshape(1) for t in shards], 0)
+    nr = uncounted(ex.all_gather, [t.num_rows.reshape(1) for t in shards], 0)
     pts = [pack_table(t) for t in shards]
     layout = pts[0].layout
     words = ex.all_gather([pt.packed for pt in pts], 1)

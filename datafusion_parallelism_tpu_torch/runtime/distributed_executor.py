@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's `runtime/distributed_executor.py`, which
 runs the plan as one SPMD program under `shard_map`. The port runs it
-eagerly over the local shards of an Exchange (parallel/exchange.py): every
-operator loops over the shards this process holds, one DeviceTable each,
+eagerly over the local shards of an Exchange (parallel/exchange.py; all P
+in process, or several in each process of a group): every operator loops
+over the shards this process holds, one DeviceTable each,
 and the collectives go through the Exchange (`lax.psum(1)` is `ex.P`,
 `lax.axis_index` `ex.ranks[k]`, `lax.pmax` / `lax.psum` its all_reduce,
 `_all_gather_table` parallel.shuffle.all_gather_table):
@@ -32,9 +33,14 @@ join and aggregate capacities seeded from the planner's estimates, grown
 to fit and shrunk (deferred, 64x a step) after a run. Each run reads all
 its totals and the per-partition candidate totals in one host sync.
 Multi-join plans over large inputs run staged, one join a stage, each
-stage's output kept on the devices for the next. Where the JAX package
-would stream a scan through the mesh (distributed morsel streaming), the
-port raises NotImplementedError (ROADMAP queue 1 item 13c).
+stage's output kept on the devices for the next. Where the biggest scan
+passes the out-of-core thresholds and every partition is in this
+process, the scan streams through the partitions in chunks against
+frozen per-partition builds (runtime/distributed_streaming.py): the hooks
+here are a join's frozen build (`ctx.prepared`: only the probe moves),
+a streamed build-emitting join's per-partition visited fold
+(`_dist_stream_chunk_join`) and the merge point's finished aggregate
+(`ctx.materialized`).
 
 In process, an all-gather hands every local shard the same tensors: the
 replicated sides are read, never written in place (a write on one replica
@@ -172,43 +178,67 @@ def _local_joins(node: PHashJoin, b2: Shards, p2: Shards, cap: int, ctx, join_ty
     """The single-device hash_join on every local shard's key range."""
     build_valid = kw.pop("build_valid", None) or [None] * len(p2)
     probe_valid = kw.pop("probe_valid", None) or [None] * len(p2)
+    prepared = kw.pop("prepared", None) or [None] * len(p2)
     return [hash_join(bk, pk, node.build_keys, node.probe_keys, join_type or node.join_type, cap,
                       strategy=node.strategy, residual=_residual_fn(node, ctx),
-                      build_valid=bv, probe_valid=pv, kernels=ctx.kernels, chain=ctx.chain, **kw)
-            for bk, pk, bv, pv in zip(b2, p2, build_valid, probe_valid)]
+                      build_valid=bv, probe_valid=pv, prepared=pb, kernels=ctx.kernels,
+                      chain=ctx.chain, **kw)
+            for bk, pk, bv, pv, pb in zip(b2, p2, build_valid, probe_valid, prepared)]
+
+
+def _send_cap(node: PHashJoin, ctx, P: int, tag: str, t: DeviceTable,
+              salted_share: bool = False) -> int:
+    """The (join_id, tag) per-destination send block: ~4x the balanced
+    share, raised to the planner's probe hot-key share (a hot key lands its
+    rows on one destination) unless the join is salted and `salted_share`
+    is off; dropped rows double it on retry, and a shard's capacity can
+    never drop one. The streamed chunk join raises it under salting too,
+    as the JAX package's does."""
+    key = (node.join_id, tag)
+    cap = ctx.join_caps.get(key)
+    if cap is None:
+        cap = max(1024, 4 * (t.capacity // max(P, 1)))
+        share = (node.probe_mcv_share
+                 if tag == "ps" and (salted_share or node.dist_mode != "skew_salted") else 0.0)
+        if share > 0:
+            cap = max(cap, round_capacity(int(1.3 * share * t.capacity), minimum=1024))
+        cap = min(t.capacity, cap)
+        ctx.join_caps[key] = cap
+    return cap
 
 
 def _dist_join(node: PHashJoin, tables, ctx, ex, expanded: bool = False):
     """Distributed hash join: both children shuffled (any late-materialized
     mask folded into the routing: masked rows are never sent), then the
     single-device join on the local key range. expanded=True returns
-    (uncompacted shards, masks) for the consumer to fold."""
-    b, b_mask = _dist_maybe_expanded(node.build, tables, ctx, ex)
+    (uncompacted shards, masks) for the consumer to fold.
+
+    Streaming: a frozen build (`ctx.prepared[join_id]`, one PreparedBuild a
+    local shard, already on its key range) is neither run nor shuffled,
+    whatever the join's mode: only the probe moves. A join under
+    `ctx.stream_visited` runs chunk-wise (`_dist_stream_chunk_join`)."""
+    prepared = ctx.prepared.get(node.join_id)
+    if node.join_id in ctx.stream_visited:
+        assert prepared is not None, "a streamed join needs a frozen build"
+        return _dist_stream_chunk_join(node, prepared, tables, ctx, ex, expanded)
+    b = b_mask = None
+    if prepared is None:
+        b, b_mask = _dist_maybe_expanded(node.build, tables, ctx, ex)
     p, p_mask = _dist_maybe_expanded(node.probe, tables, ctx, ex)
     P = ex.P
 
     def send_cap(tag, t):
-        # per-destination send block: ~4x the balanced share, raised to the
-        # planner's probe hot-key share when salting is off (a hot key
-        # lands its rows on one destination); dropped rows double it on
-        # retry, and a shard's capacity can never drop one
-        key = (node.join_id, tag)
-        cap = ctx.join_caps.get(key)
-        if cap is None:
-            cap = max(1024, 4 * (t.capacity // max(P, 1)))
-            share = (node.probe_mcv_share if tag == "ps" and node.dist_mode != "skew_salted"
-                     else 0.0)
-            if share > 0:
-                cap = max(cap, round_capacity(int(1.3 * share * t.capacity), minimum=1024))
-            cap = min(t.capacity, cap)
-            ctx.join_caps[key] = cap
-        return cap
+        return _send_cap(node, ctx, P, tag, t)
 
-    if node.dist_mode == "skew_salted" and node.join_type in _BUILD_EMITTING:
+    if (node.dist_mode == "skew_salted" and prepared is None
+            and node.join_type in _BUILD_EMITTING):
         return _salted_build_emitting(node, b, b_mask, p, p_mask, send_cap, ctx, ex, expanded)
     bdrop = pdrop = torch.zeros((), dtype=torch.int64, device=ex.device)
     p_valid = None   # the probe mask surviving INTO the local join
-    if node.dist_mode == "broadcast":
+    if prepared is not None:
+        b2 = [pb.build for pb in prepared]
+        p2, pdrop = shuffle_by_hash(ex, p, node.probe_keys, send_cap("ps", p[0]), valid=p_mask)
+    elif node.dist_mode == "broadcast":
         b2 = all_gather_table(ex, [_compact_masked(t, m, ctx.chain)
                                    for t, m in zip(b, b_mask or [None] * len(b))])
         p2, p_valid = p, p_mask
@@ -229,9 +259,11 @@ def _dist_join(node: PHashJoin, tables, ctx, ex, expanded: bool = False):
     ctx.join_totals[(node.join_id, "bs")] = bdrop
     ctx.join_totals[(node.join_id, "ps")] = pdrop
     cap = _join_cap(node, ctx, P, b2[0], p2[0])
-    if node.dist_mode == "broadcast" and node.join_type in _BUILD_EMITTING:
+    if (node.dist_mode == "broadcast" and prepared is None
+            and node.join_type in _BUILD_EMITTING):
         return _broadcast_build_emitting(node, b2, p2, p_valid, cap, expanded, ctx, ex)
-    results = _local_joins(node, b2, p2, cap, ctx, expanded=expanded, probe_valid=p_valid)
+    results = _local_joins(node, b2, p2, cap, ctx, expanded=expanded, probe_valid=p_valid,
+                           prepared=prepared)
     totals = [r[-1] for r in results]
     ctx.join_totals[node.join_id] = _pmax(ex, totals)
     # the LOCAL candidate totals: the work-balance proxy
@@ -358,6 +390,52 @@ def _broadcast_build_emitting(node: PHashJoin, b2: Shards, p2: Shards, p_valid: 
                             ctx)
 
 
+def _dist_stream_chunk_join(node: PHashJoin, prepared, tables, ctx, ex, expanded: bool) -> Shards:
+    """One probe chunk of a build-emitting join (LEFT, FULL, LEFT_SEMI,
+    LEFT_ANTI) streamed through the partitions: the chunk shuffled to the
+    frozen build's key range, its probe-linear rows emitted (as
+    PHashJoin._STREAM_CHUNK_TYPE maps the type; none for the semi and anti
+    types), and each partition's matches ORed into its visited mask over
+    its LOCAL build shard (hash partitioning puts each build row on one
+    partition, so the local masks compose exactly). K10 accumulates into a
+    copy of the incoming mask: a retried chunk starts again from the one it
+    was given. The deferred build rows are the flush pass's
+    (runtime/distributed_streaming.py)."""
+    assert not expanded   # _expandable_join excludes streamed joins
+    p, p_mask = _dist_maybe_expanded(node.probe, tables, ctx, ex)
+    skey = (node.join_id, "ps")
+    send_cap = _send_cap(node, ctx, ex.P, "ps", p[0], salted_share=True)
+    p2, pdrop = shuffle_by_hash(ex, p, node.probe_keys, send_cap, valid=p_mask)
+    del p, p_mask
+    ctx.join_totals[skey] = pdrop
+    cap = ctx.join_caps.get(node.join_id)
+    if cap is None:
+        cap = max(256, 2 * max(prepared[0].build.capacity, p2[0].capacity))
+        ctx.join_caps[node.join_id] = cap
+    chunk_type = PHashJoin._STREAM_CHUNK_TYPE.get(node.join_type)
+    kw = dict(strategy=node.strategy, residual=_residual_fn(node, ctx), return_visited=True,
+              kernels=ctx.kernels, chain=ctx.chain)
+    outs, totals, vis_out = [], [], []
+    for pb, pk, incoming in zip(prepared, p2, ctx.stream_visited[node.join_id]):
+        vis = incoming.clone()
+        if chunk_type is not None:            # LEFT / FULL: this chunk's pairs
+            out, total, _ = hash_join(pb.build, pk, node.build_keys, node.probe_keys, chunk_type,
+                                      cap, prepared=pb, visited_into=vis, **kw)
+        else:                                 # LEFT_SEMI / LEFT_ANTI: the fold alone
+            _, _, total, _ = hash_join(pb.build, pk, node.build_keys, node.probe_keys,
+                                       node.join_type, cap, prepared=pb, expanded=True,
+                                       visited_into=vis, **kw)
+            out = DeviceTable(node.schema, null_columns_like(node.schema, 128, device=ex.device),
+                              torch.zeros((), dtype=torch.int32, device=ex.device))
+        outs.append(out)
+        totals.append(total)
+        vis_out.append(vis)
+    ctx.visited_out[node.join_id] = vis_out
+    ctx.join_totals[node.join_id] = _pmax(ex, totals)
+    ctx.join_balance[node.join_id] = totals
+    return outs
+
+
 def _dist_fused_child(node: PAggregate, tables, ctx, ex) -> Tuple[Shards, Masks]:
     """(child shards, row filters | None): a filter or an expandable join
     under the aggregate (through projections) becomes a row mask on the
@@ -446,6 +524,10 @@ def execute_dist(node: PhysicalPlan, tables: Dict[str, Shards], ctx: ExecContext
             return ctx.materialized[node.join_id]
         return _dist_join(node, tables, ctx, ex)
     if isinstance(node, PAggregate):
+        if node.node_id in ctx.materialized:
+            # streaming's finish: the merge point's completed result
+            # (sharded by group key) in place of its subtree
+            return ctx.materialized[node.node_id]
         return _aggregate(node, tables, ctx, ex)
     if isinstance(node, PSort):
         child = execute_dist(node.child, tables, ctx, ex)
@@ -510,21 +592,23 @@ class DistributedQueryHandle(QueryHandle):
         super().__init__(plan, catalog, scalar_subqueries, config, **kernel_tables)
         self.mesh = mesh or make_mesh(config.target_partitions, catalog.device)
         self._sharded_inputs = None   # (label -> local shards, their bytes under JAX)
+        self._streamed_inputs = None  # the same without the streamed scan
 
     def run(self):
         raise NotImplementedError("the distributed handle returns host tables; use collect()")
 
-    def _shard_inputs(self):
+    def _shard_inputs(self, skip_labels=()):
         """Each scan's host table split into P contiguous row shards and
-        this process's shards uploaded, once per handle: its live columns,
-        renamed "label.col". Also the bytes the JAX package's shards of every
-        scan column hold ([P, cap] values and validity), which its staging
-        rule reads."""
+        this process's shards uploaded: its live columns, renamed
+        "label.col". Also the bytes the JAX package's shards of every scan
+        column hold ([P, cap] values and validity), which its staging rule
+        reads. `skip_labels`: scans left out (streamed in chunks)."""
         ex = self.mesh
         per_table = self._live_columns()
         tables, jax_bytes = {}, 0
         for node in self.plan.walk():
-            if not isinstance(node, PScan) or node.label in tables:
+            if not isinstance(node, PScan) or node.label in tables \
+                    or node.label in skip_labels:
                 continue
             host = self.catalog.get(node.table_name).host
             cap = round_capacity(max(-(-host.num_rows // ex.P), 1))
@@ -647,26 +731,33 @@ class DistributedQueryHandle(QueryHandle):
             sv.holder[0] = rows[0][result.schema.fields[0].name]
             sv._settled = True
 
-    def _refuse_streaming(self):
-        """Where the JAX package streams the biggest scan through the mesh
-        (its upload past the out-of-core thresholds, the plan stream-
-        decomposable, one process), the port raises: distributed morsel
-        streaming is ROADMAP queue 1 item 13c. It never falls back to the
-        single-device executor."""
+    def stream_plan(self):
+        """The StreamPlan collect() streams through the partitions, or None
+        (it runs resident): under the JAX package's conditions, with
+        DFP_NO_STREAM unset, every partition in this process, the biggest
+        scan past the out-of-core thresholds (`_need_stream`) and the plan
+        stream-decomposable, after a side-swap where needed."""
         if os.environ.get("DFP_NO_STREAM") or len(self.mesh.ranks) != self.mesh.P:
-            return
+            return None
         need_stream = self._need_stream()
         sp = plan_stream(self.plan, self.catalog)
         if sp is None and need_stream:
+            # the side-swap rule (runtime/executor.py): only when streaming
+            # is required, since it undoes the cost-based build-side choice
             sp = plan_stream(self.plan, self.catalog, allow_swap=True)
-        if sp is not None and need_stream:
-            raise NotImplementedError(
-                f"{sp.scan.table_name} would stream through the {self.mesh.P} partitions "
-                "(distributed morsel streaming), not ported (ROADMAP queue 1 item 13c)")
+            self._swapped = self._swapped or sp is not None
+        return sp if need_stream else None
 
     def collect(self) -> HostTable:
         self._run_subqueries()
-        self._refuse_streaming()
+        sp = self.stream_plan()
+        if sp is not None:
+            from ..models.physical import find_adaptive
+            from .distributed_streaming import run_streamed_dist
+            self.metrics.route = "streamed after a side-swap" if self._swapped else "streamed"
+            return run_streamed_dist(self, sp, self._live_columns().get(sp.scan.table_name),
+                                     find_adaptive(self.plan))
+        self.metrics.route = "resident"
         if self._sharded_inputs is None:
             self._sharded_inputs = self._shard_inputs()
         tables, leaf_bytes = self._sharded_inputs

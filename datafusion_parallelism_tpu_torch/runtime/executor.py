@@ -64,7 +64,10 @@ class ExecutorMetrics:
     last run delivered to one partition (`comm_bytes`; staged, summed over
     the stages' last runs), each join's local candidate total per
     partition (`balance`, join_id -> [P]), and per stage the bytes a
-    partition holds (`stage_bytes`)."""
+    partition holds (`stage_bytes`); streamed through the partitions
+    (runtime/distributed_streaming.py), each chunk's events
+    (`stream_timeline`: "pack_upload" with t0 and t1, "dispatch" and
+    "validated" with t, seconds from the loop's start)."""
 
     def __init__(self):
         self.launches = 0
@@ -79,6 +82,7 @@ class ExecutorMetrics:
         self.comm_bytes = 0
         self.balance: Dict[int, list] = {}
         self.stage_bytes: list = []
+        self.stream_timeline: list = []
 
 
 def _debug_retry(kind, key, node, cap, total, fit):

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -199,62 +200,90 @@ class ChunkUploader:
     memory) and the compute stream waits on its event. On the CPU the
     packed arrays are the table's words."""
 
+    # threads packing a chunk's shards at once (numpy releases the GIL)
+    PACK_THREADS = os.cpu_count() or 1
+
     def __init__(self, device: torch.device):
         self.device = device
         self.cuda = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self._pool: Dict[tuple, list] = {}
+        self._threads = None
 
-    def _buffer(self, key, width: int, n_f64: int, cap: int):
+    def _buffer(self, key, shapes):
+        """A pinned host buffer of tensors of `shapes` ((shape, dtype)
+        each), its last copy's event last."""
         bufs = self._pool.get(key)
         if bufs is None:
             bufs = self._pool[key] = [
-                [torch.empty((width, cap), dtype=torch.int32, pin_memory=True),
-                 torch.empty((n_f64, cap), dtype=torch.float64, pin_memory=True), None]
-                for _ in range(2)]
+                [torch.empty(shape, dtype=dtype, pin_memory=True) for shape, dtype in shapes]
+                + [None] for _ in range(2)]
         buf = bufs.pop(0)
         bufs.append(buf)
-        if buf[2] is not None:
-            buf[2].synchronize()     # its previous copy has left the buffer
+        if buf[-1] is not None:
+            buf[-1].synchronize()     # its previous copy has left the buffer
         return buf
 
     def pack(self, host, names, lo: int, n: int, cap: int, label: str, rows=None):
         """pack_host_slice of rows [lo, lo+n) (or `rows`) of the columns
         `names` of `host`, renamed label.column, padded to `cap`: ->
-        (schema, layout, (words, f64) host tensors)."""
+        (schema, layout, buffer: the (words, f64) host tensors)."""
         prefix = f"{label}."
         layout = packed_layout(Schema([f.with_name(prefix + f.name)
                                        for f in host.schema.fields if f.name in names]))
-        if self.cuda:
-            buf = self._buffer((label, layout, cap), layout.width, len(layout.f64_fields), cap)
-        else:
-            buf = [torch.zeros((layout.width, cap), dtype=torch.int32),
-                   torch.zeros((len(layout.f64_fields), cap), dtype=torch.float64), None]
+        shapes = [((layout.width, cap), torch.int32),
+                  ((len(layout.f64_fields), cap), torch.float64)]
+        buf = self._buffer((label, layout, cap), shapes) if self.cuda else \
+            [torch.zeros(s, dtype=d) for s, d in shapes] + [None]
         schema, layout, _, _ = pack_host_slice(host, names, lo, n, cap, prefix, rows,
                                                out=(buf[0].numpy(), buf[1].numpy()))
         return schema, layout, buf
 
+    def pack_shards(self, host, names, lo: int, counts, per: int, label: str):
+        """P contiguous row shards in one buffer, packed by up to PACK_THREADS
+        threads: shard p holds rows
+        [lo + p * per, lo + p * per + counts[p]) of `host`, packed as
+        `pack` packs (shard p's words [p], its f64 [p]), padded to `per`
+        rows; the counts ride in the buffer too, as int32 [P]. -> (schema,
+        layout, buffer: the (words [P, W, per], f64 [P, F, per], counts)
+        host tensors)."""
+        prefix, P = f"{label}.", len(counts)
+        layout = packed_layout(Schema([f.with_name(prefix + f.name)
+                                       for f in host.schema.fields if f.name in names]))
+        shapes = [((P, layout.width, per), torch.int32),
+                  ((P, len(layout.f64_fields), per), torch.float64), ((P,), torch.int32)]
+        buf = self._buffer((label, layout, P, per), shapes) if self.cuda else \
+            [torch.zeros(s, dtype=d) for s, d in shapes] + [None]
+
+        def one(p):
+            return pack_host_slice(host, names, lo + p * per, counts[p], per, prefix,
+                                   out=(buf[0][p].numpy(), buf[1][p].numpy()))[0]
+        if self._threads is None:
+            self._threads = ThreadPoolExecutor(self.PACK_THREADS)
+        schema = list(self._threads.map(one, range(P)))[0]
+        buf[2].copy_(torch.tensor(counts, dtype=torch.int32))
+        return schema, layout, buf
+
     def upload(self, buf):
-        """The buffer's (words, f64) on the device; the copy is queued on
-        the side stream and the current stream waits for it."""
+        """The buffer's tensors on the device; the copies are queued on the
+        side stream and the current stream waits for them."""
+        host = buf[:-1]
         if not self.cuda:
-            return buf[0], buf[1]
-        words, f64 = buf[0], buf[1]
-        if not all(t.is_pinned() for t in (words, f64) if t.numel()):
+            return tuple(host)
+        if not all(t.is_pinned() for t in host if t.numel()):
             raise RuntimeError("chunk buffers must be pinned: a pageable copy is synchronous")
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self.stream):
-            dw = torch.empty(words.shape, dtype=words.dtype, device=self.device)
-            df = torch.empty(f64.shape, dtype=f64.dtype, device=self.device)
-            dw.copy_(words, non_blocking=True)
-            df.copy_(f64, non_blocking=True)
+            dev = [torch.empty(t.shape, dtype=t.dtype, device=self.device) for t in host]
+            for d, t in zip(dev, host):
+                d.copy_(t, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self.stream)
-        buf[2] = done
+        buf[-1] = done
         compute.wait_event(done)
-        dw.record_stream(compute)
-        df.record_stream(compute)
-        return dw, df
+        for d in dev:
+            d.record_stream(compute)
+        return tuple(dev)
 
 
 def device_chunk(handle, schema, layout, words, f64, n: int) -> DeviceTable:

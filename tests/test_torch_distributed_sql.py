@@ -9,7 +9,7 @@ keyed by the node's place in the plan (the two packages number their nodes
 apart). Where the JAX tests read its compiled HLO, the port's collectives
 are read through a recording Exchange. Also: replicated build shards that
 stay unwritten, two gloo processes through ProcessGroupExchange, and the
-refusal where the JAX package would stream through the mesh."""
+graft entry's SQL, staged and streamed through the mesh."""
 
 import os
 import tempfile
@@ -454,24 +454,6 @@ def test_skew_salted_build_emitting_joins():
     assert covered == {"left", "full", "left_semi", "left_anti"}, covered
 
 
-def test_streaming_through_the_mesh_refused(monkeypatch):
-    """Where the JAX package streams a scan through the mesh (its biggest
-    scan past DFP_STREAM_ROW_THRESHOLD), the port raises naming ROADMAP
-    item 13c, and runs nothing on the single-device executor instead."""
-    monkeypatch.setenv("DFP_STREAM_ROW_THRESHOLD", "10")
-    data = {"t": {"x": list(range(20))}}
-    t, j = _sessions(data)
-    jh = j.sql("SELECT sum(x) AS s FROM t")
-    assert jh.collect().to_pylist() == [{"s": 190}]
-    assert jh.metrics.streamed_chunks >= 1
-    th = t.sql("SELECT sum(x) AS s FROM t")
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        th.collect()
-    assert th.metrics.launches == 0
-    monkeypatch.setenv("DFP_STREAM_ROW_THRESHOLD", str(1 << 26))
-    assert th.collect().to_pylist() == [{"s": 190}]
-
-
 def _gloo_rank(rank, store, out_dir):
     import torch.distributed as dist
     dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2, rank=rank,
@@ -548,8 +530,8 @@ def test_graft_entry_dryrun_sql(monkeypatch):
     """The SQL half of __graft_entry__.dryrun_multichip at P = 8: a
     three-table star query staged (DFP_DIST_STAGED=1) and a LEFT join
     whose order-less customers must each be emitted once, against the same
-    Python oracle; where it streams through the mesh
-    (DFP_STREAM_THRESHOLD_BYTES=0) the port raises naming item 13c."""
+    Python oracle; both again streamed through the mesh
+    (DFP_STREAM_THRESHOLD_BYTES=0), against the same oracle."""
     import collections
     rng = np.random.default_rng(1)
     n_ord = 64 * N_DEV
@@ -588,6 +570,14 @@ def test_graft_entry_dryrun_sql(monkeypatch):
         {k: list(v) for k, v in left_want.items()}
     monkeypatch.delenv("DFP_DIST_STAGED")
     monkeypatch.setenv("DFP_STREAM_THRESHOLD_BYTES", "0")
-    for sql in (star, left):
-        with pytest.raises(NotImplementedError, match="item 13c"):
-            _port(data).sql(sql).collect()
+    h = _port(data).sql(star)
+    rows = h.collect().to_pylist()
+    assert h.metrics.route.startswith("streamed") and h.metrics.streamed_chunks >= 1
+    assert [r["total"] for r in rows] == sorted((r["total"] for r in rows), reverse=True)
+    assert {r["n_name"]: [pytest.approx(r["total"]), r["cnt"]] for r in rows} == \
+        {k: list(v) for k, v in star_want.items()}
+    h = _port(data).sql(left)
+    rows = h.collect().to_pylist()
+    assert h.metrics.route.startswith("streamed") and h.metrics.streamed_chunks >= 1
+    assert {r["grp"]: [pytest.approx(r["total"] or 0.0), r["cnt"]] for r in rows} == \
+        {k: list(v) for k, v in left_want.items()}

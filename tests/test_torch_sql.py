@@ -228,9 +228,10 @@ def test_dictmap_lut_clamps_like_jax_clip():
 
 def test_session_refuses_what_is_not_ported(monkeypatch):
     """Several partitions and the settings that steer them are taken, with
-    the JAX package's defaults; parquet raises naming ROADMAP item 14, and
-    streaming a scan through the partitions (distributed morsel streaming)
-    item 13c."""
+    the JAX package's defaults; parquet raises naming ROADMAP item 14.
+    Streaming a scan through the partitions (distributed morsel streaming,
+    which raised before runtime/distributed_streaming.py was ported) runs
+    streamed and gives the same answer."""
     from datafusion_parallelism_tpu_torch.runtime.distributed_executor import \
         DistributedQueryHandle
     settings = ("broadcast_threshold", "skew_salting", "skew_factor", "skew_threshold",
@@ -247,8 +248,9 @@ def test_session_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 14"):
         tdfp.SessionContext(device="cpu").register_parquet("t", "t.parquet")
     monkeypatch.setenv("DFP_STREAM_ROW_THRESHOLD", "10")
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        ctx.sql("SELECT sum(x) AS s FROM t").collect()
+    streamed = ctx.sql("SELECT sum(x) AS s FROM t")
+    assert streamed.collect().to_pylist() == [{"s": 190}]
+    assert streamed.metrics.route == "streamed" and streamed.metrics.streamed_chunks >= 1
 
 
 def test_streamed_scale_raises(monkeypatch):
