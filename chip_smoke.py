@@ -21,11 +21,14 @@ through K1-K12 and K17, the shuffles and owner-dedup through K5, K10,
 K11, K18 and K19), in process and through a one-rank NCCL group holding
 the 8 partitions, and streamed through the 8 partitions out of core
 (frozen per-partition builds, K12 unpacking every chunk's shards); every
-expression of every path is K17 expr_eval.
+expression of every path is K17 expr_eval. Last, the TPC-H CLI, as a user
+runs it, drives the resident, out-of-core and 8-partition paths over the
+native generator's memmapped SF10 tables (phase 23).
 Phases, one line each:
 
-  1. build the kernels with nvcc, one process per source, all at once;
-     print the card's name and power limit
+  1. build the kernels with nvcc, one process per source, all at once,
+     and meanwhile the native host libraries with g++; print the card's
+     name and power limit
   2. K1-K4 against their plain versions on the card, exact, on seeded
      inputs (nulls, negative int64, a two-column key, padding, a hot key,
      no match, an overflowing out_cap, float keys, a non-power-of-two
@@ -214,6 +217,22 @@ Phases, one line each:
      were packed while the previous one computed; the synchronizing CUDA
      calls of the settling runs by site, those inside chunk steps apart;
      the queries that run resident; K1, K3 and K18 launched
+ 23. the TPC-H CLI (`tpch/cli.py`), as a user runs it: TPC-H SF10 written
+     in the binary columnar format by the port's native generator
+     (`tpch.generate --format bin`; the seconds and bytes) into a
+     temporary directory, after a check of 8 GB free; the 22 queries
+     through `cli.run(--data-path ... --iterations 2 --check)` over the
+     memmapped tables, each checked against the numpy oracle, every
+     kernel phase 14 launched launched again, no query's entry an error;
+     Q1, Q3 and Q10 out of core under phase 16's thresholds (route
+     "streamed", chunks read from the memmapped pages), their CSVs ==
+     the resident run's under `diff_results.diff_dirs`, each `eligible`
+     under `eligibility.classify`; Q5 and Q9 through `--concurrency 8`,
+     == the resident run's CSVs, their comm bytes; `generate --format
+     tbl` at SF 0.1 and Q6 over the `.tbl` files through the native
+     parser with --check; one warm Q3 under `utils/tracing.profile` (the
+     trace's bytes) and the spans of the load and the registration; the
+     warm medians, oracle ms and route of every query
 
 Exact means bit for bit, except float64 sums (and the averages built on
 them), which K7 and K8 add in another order than the plain versions:
@@ -496,13 +515,23 @@ def wall_s(fn, iters: int) -> float:
 # ---------------------------------------------------------------------------
 
 def phase_build() -> str:
+    """nvcc for the kernels, and meanwhile g++ for phase 23's host
+    libraries (native/)."""
+    import concurrent.futures
+
+    from datafusion_parallelism_tpu_torch import native
     from datafusion_parallelism_tpu_torch.kernels import _build
-    seconds = _build.build()
-    _build.library()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libs = [pool.submit(native.load_library, name) for name in NATIVE_LIBS]
+        seconds = _build.build()
+        _build.library()
+        for f in libs:
+            f.result()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    log(f"phase 1 ok: kernels built in {seconds:.1f} s; card: {smi}")
+    log(f"phase 1 ok: kernels built in {seconds:.1f} s, and {', '.join(NATIVE_LIBS)} with "
+        f"g++; card: {smi}")
     return smi
 
 
@@ -2307,7 +2336,6 @@ def phase_sf10_kernels(orders, lineitem, keys, out_cap) -> None:
 
 SUM_RTOL, SUM_ATOL_PER_ABS = 1e-9, 1e-12   # float64 sums in another order
 CHAIN_RTOL = 1e-9                           # a chain's float outputs
-ORACLE_REL, ORACLE_ABS = 1e-6, 1e-4         # tpch/diff_results.py's rule
 
 
 def recorder(record):
@@ -2696,16 +2724,19 @@ def phase_roofline(device):
 
 
 def _oracle_rows_match(got, want) -> None:
-    """tpch/diff_results.py's rule: the same rows in the same order (both
-    are ORDER BY results), floats within rel 1e-6 or abs 1e-4."""
+    """Stricter than tpch/diff_results.py's rule, with its tolerance: the
+    same rows in the same order (both are ORDER BY results), floats within
+    rel 1e-6 or abs 1e-4."""
     import math
+
+    from datafusion_parallelism_tpu_torch.tpch.diff_results import ABS, REL
     if len(got) != len(want):
         raise AssertionError(f"{len(got)} rows, oracle {len(want)}")
     for g, w in zip(got, want):
         for k, wv in w.items():
             gv = g[k]
             if isinstance(wv, float) or isinstance(gv, float):
-                ok = math.isclose(float(gv), float(wv), rel_tol=ORACLE_REL, abs_tol=ORACLE_ABS)
+                ok = math.isclose(float(gv), float(wv), rel_tol=REL, abs_tol=ABS)
             else:
                 ok = gv == wv
             if not ok:
@@ -3064,32 +3095,21 @@ def kernel_launches():
     return out
 
 
-def _diff_rule_rows(rows):
-    """tpch/diff_results.py's normal form: every value as its CSV text,
-    numbers rounded to 4 places, rows sorted."""
-    def norm(v):
-        s = "" if v is None else str(v)
-        try:
-            return (0, round(float(s), 4))
-        except ValueError:
-            return (1, s)
-    return sorted(tuple((k, norm(r[k])) for k in sorted(r)) for r in rows)
-
-
 def diff_rule_match(got, want) -> None:
-    """tpch/diff_results.py's rule: equal row multisets, floats within
-    rel 1e-6 or abs 1e-4."""
-    import math
-    a, b = _diff_rule_rows(got), _diff_rule_rows(want)
+    """tpch/diff_results.py's rule, imported: the rows as the CLI's CSVs
+    hold them (each value its text, NULL empty), equal row multisets,
+    floats within rel 1e-6 or abs 1e-4; and the same columns in every row
+    pair."""
+    from datafusion_parallelism_tpu_torch.tpch.diff_results import _norm, _rows_match
+
+    def text(rows):
+        return _norm([{k: "" if v is None else str(v) for k, v in r.items()} for r in rows])
+    a, b = text(got), text(want)
     if len(a) != len(b):
         raise AssertionError(f"{len(a)} rows, oracle {len(b)}")
     for ra, rb in zip(a, b):
-        for (ka, (ta, va)), (kb, (tb, vb)) in zip(ra, rb, strict=True):
-            ok = ka == kb and ta == tb and (
-                math.isclose(va, vb, rel_tol=ORACLE_REL, abs_tol=ORACLE_ABS) if ta == 0
-                else va == vb)
-            if not ok:
-                raise AssertionError(f"{ka}: {va!r} vs oracle {vb!r}")
+        if [k for k, _ in ra] != [k for k, _ in rb] or not _rows_match([ra], [rb]):
+            raise AssertionError(f"{ra} vs oracle {rb}")
 
 
 def _oracle_answers(sf: float, queries):
@@ -4788,6 +4808,179 @@ def phase_distributed_streaming(device, tables, oracle, resident, statistics, qu
     return res, launches
 
 
+NATIVE_LIBS = ("tpch_datagen", "tbl_parser")   # native/*.cpp, phase 23's host libraries
+CLI_MIN_FREE_BYTES = 8 * 10**9        # SF10 in the binary format is about 5.6 GB
+CLI_OOC_QUERIES = (1, 3, 10)          # plans that stream lineitem under OOC_ENV
+CLI_DIST_QUERIES = (5, 9)             # BASELINE.json's fourth configuration
+CLI_TBL_SF = 0.1
+
+
+def _cli(device, argv, out):
+    """tpch.cli.run(argv + --device device --output-path out), its printed
+    lines kept and shown only when it raises; no query's entry may be an
+    error."""
+    import io
+
+    from datafusion_parallelism_tpu_torch.tpch import cli
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = cli.run(argv + ["--device", str(device), "--output-path", out])
+    except BaseException:
+        print(buf.getvalue(), flush=True)
+        raise
+    errors = {q: m["error"] for q, m in res["query_metrics"].items() if "error" in m}
+    if errors:
+        raise AssertionError(f"cli {argv}: queries failed: {errors}")
+    return res
+
+
+def _same_csvs(out, against) -> None:
+    """tpch.diff_results.diff_dirs(out, against) must find no difference."""
+    import io
+
+    from datafusion_parallelism_tpu_torch.tpch.diff_results import diff_dirs
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        failures = diff_dirs(out, against)
+    if failures:
+        raise AssertionError(f"{out} differs from {against}: {buf.getvalue()}")
+
+
+def phase_cli(device, sql_launches):
+    """Phase 23: the TPC-H CLI over the native generator's SF10 tables,
+    resident with --check, out of core, at 8 partitions, over .tbl files,
+    and one query profiled. `sql_launches`: phase 14's launches by
+    kernel."""
+    import shutil
+    import tempfile
+
+    import torch
+    from datafusion_parallelism_tpu_torch import SessionContext, native
+    from datafusion_parallelism_tpu_torch.tpch import QUERIES
+    from datafusion_parallelism_tpu_torch.tpch.cli import load_data_path
+    from datafusion_parallelism_tpu_torch.tpch.eligibility import classify
+    from datafusion_parallelism_tpu_torch.tpch.generate import run as generate
+    from datafusion_parallelism_tpu_torch.utils import tracing
+
+    root = tempfile.mkdtemp(prefix="dfp_cli_")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < CLI_MIN_FREE_BYTES:
+            raise RuntimeError(f"phase 23 writes TPC-H SF{TPCH_SF} under {root}: "
+                               f"{free} bytes free, {CLI_MIN_FREE_BYTES - free} short of "
+                               f"{CLI_MIN_FREE_BYTES}")
+        data = os.path.join(root, "bin")
+        t0 = time.perf_counter()
+        generate(["--scale-factor", str(TPCH_SF), "--output", data, "--format", "bin"])
+        gen_s = time.perf_counter() - t0
+        gen_bytes = sum(os.path.getsize(os.path.join(d, f))
+                        for d, _, fs in os.walk(data) for f in fs)
+        lib = native.loaded_path("tpch_datagen")
+        want_lib = os.path.join(os.path.dirname(os.path.abspath(native.__file__)), "_build",
+                                "libtpch_datagen.so")
+        if lib != want_lib:
+            raise AssertionError(f"the generator ran from {lib}, not {want_lib}")
+
+        # (b) the 22 resident, checked, through the kernels
+        for fn in set(all_counters().values()):
+            fn.launches = 0
+        tracing.span_report(reset=True)
+        resident = os.path.join(root, "resident")
+        t0 = time.perf_counter()
+        res = _cli(device, ["--data-path", data, "--iterations", "2", "--check"], resident)
+        resident_s = time.perf_counter() - t0
+        spans = tracing.span_report(reset=True)
+        launches = kernel_launches()
+        unchecked = [q for q in sorted(QUERIES) if res["checked"].get(q) is not True]
+        if unchecked:
+            raise AssertionError(f"cli --check failed or missing for {unchecked}")
+        missing = [k for k, n in sql_launches.items() if n > 0 and launches.get(k, 0) < 1]
+        if missing:
+            raise AssertionError(f"kernels of phase 14 never launched by the CLI: {missing}")
+        oracle_s = sum(s["oracle_ms"] for s in res["query_summary"].values()) / 1e3
+
+        # (c) out of core from the memmapped pages
+        ooc = os.path.join(root, "ooc")
+        argv = ["--data-path", data, "--iterations", "1"]
+        for q in CLI_OOC_QUERIES:
+            argv += ["--query", str(q)]
+        t0 = time.perf_counter()
+        with ooc_env():
+            res_ooc = _cli(device, argv, ooc)
+            ctx = SessionContext(device=device)
+            tables = load_data_path(data)
+            for name, t in tables.items():
+                ctx.register_table(name, t, getattr(t, "statistics_hint", None))
+            eligible = {q: classify(ctx.sql(QUERIES[q]).plan, ctx.catalog)
+                        for q in CLI_OOC_QUERIES}
+        ooc_s = time.perf_counter() - t0
+        routes = {q: res_ooc["query_metrics"][q]["route"] for q in CLI_OOC_QUERIES}
+        if any(r != "streamed" for r in routes.values()):
+            raise AssertionError(f"out of core the CLI's routes were {routes}")
+        if not all(e.get("eligible") for e in eligible.values()):
+            raise AssertionError(f"eligibility.classify: {eligible}")
+        _same_csvs(ooc, resident)
+
+        # (d) eight partitions in process
+        dist = os.path.join(root, "dist")
+        argv = ["--data-path", data, "--iterations", "1", "--concurrency", str(DIST_P)]
+        for q in CLI_DIST_QUERIES:
+            argv += ["--query", str(q)]
+        t0 = time.perf_counter()
+        res_dist = _cli(device, argv, dist)
+        dist_s = time.perf_counter() - t0
+        _same_csvs(dist, resident)
+        comm = {q: res_dist["query_metrics"][q]["comm_bytes"] for q in CLI_DIST_QUERIES}
+
+        # (e) .tbl files through the native parser
+        tbl = os.path.join(root, "tbl")
+        t0 = time.perf_counter()
+        generate(["--scale-factor", str(CLI_TBL_SF), "--output", tbl, "--format", "tbl"])
+        tbl_gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_tbl = _cli(device, ["--data-path", tbl, "--query", "6", "--iterations", "2",
+                                "--check"], os.path.join(root, "tbl_out"))
+        tbl_s = time.perf_counter() - t0
+        if native.tbl_library() is None:
+            raise AssertionError("the .tbl files were not parsed by the native parser")
+        if res_tbl["checked"].get(6) is not True:
+            raise AssertionError("Q6 over the .tbl files failed --check")
+
+        # (f) one warm Q3 profiled
+        handle = ctx.sql(QUERIES[3])
+        handle.collect()
+        trace_dir = os.path.join(root, "trace")
+        with tracing.profile(trace_dir, device=device.type):
+            handle.collect()
+        trace_path = os.path.join(trace_dir, tracing.TRACE_FILE)
+        trace_bytes = os.path.getsize(trace_path)
+        with open(trace_path) as f:
+            trace = json.load(f)
+        device_ms = sum(e["dur"] for e in tracing.device_events(trace)) / 1e3
+        ops = sorted({e["name"] for e in trace["traceEvents"]
+                      if e.get("cat") == "user_annotation"})
+        del handle, ctx, tables
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = res["query_summary"]
+    log("phase 23 queries (warm median ms / oracle ms / route): " + ", ".join(
+        f"Q{q} {summary[q]['median_warm_ms']:.3f} / {summary[q]['oracle_ms']:.1f} / "
+        f"{res['query_metrics'][q]['route']}" for q in sorted(summary)))
+    log(f"phase 23 ok: TPC-H CLI over the native generator's SF{TPCH_SF} ({gen_bytes} bytes "
+        f"written in {gen_s:.1f} s by {lib}): the 22 queries resident with --check, all PASS, "
+        f"in {resident_s:.1f} s (oracle {oracle_s:.1f} s of it), launches {launches}; spans "
+        f"{[(n, c, round(t, 3)) for n, c, t, _ in spans]}; out of core Q1, Q3, Q10 routes "
+        f"{routes}, chunks {dict((q, res_ooc['query_metrics'][q]['streamed_chunks']) for q in CLI_OOC_QUERIES)}, "
+        f"== resident, eligible, in {ooc_s:.1f} s; --concurrency {DIST_P} Q5, Q9 == resident, "
+        f"comm bytes {comm}, in {dist_s:.1f} s; .tbl at SF {CLI_TBL_SF} generated in "
+        f"{tbl_gen_s:.1f} s, Q6 --check PASS through the native parser in {tbl_s:.1f} s; "
+        f"warm Q3 profiled: trace {trace_bytes} bytes, device time {device_ms:.3f} ms, "
+        f"operator ranges {ops}")
+
+
 def launch_counters():
     from datafusion_parallelism_tpu_torch.kernels import (compact_gather, csr_build,
                                                           hash_slot, probe_expand)
@@ -4887,6 +5080,9 @@ def main() -> int:
     phase_nccl_sql(device, tables, statistics, dist_rows)
     phase_distributed_streaming(device, tables, oracle, resident, statistics)
     del tables, oracle, resident, statistics, dist_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_cli(device, sql_launches)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -18,7 +18,10 @@ SORT and OA strategies' probes and placement, K17 every expression, K18
 and K19 the shuffle's routing and the skew histogram) with a plain torch
 version beside each.
 The package imports torch and never jax; the kernels are built with nvcc
-at first CUDA use, never at import.
+at first CUDA use, never at import. Around it: the TPC-H harness
+(`tpch/cli.py`, `generate.py`, `diff_results.py`, `eligibility.py`) and the
+host I/O (`utils/binfmt.py` over the native generator in `native/`,
+`tpch/tbl_loader.py`, `utils/parquet_io.py`, `utils/tracing.py`).
 """
 
 from .api import SessionConfig, SessionContext
@@ -41,3 +44,5 @@ __all__ = ["AggSpec", "BOOL", "BinOp", "Case", "Cast", "Coalesce", "Col",
            "STRING", "Schema", "SessionConfig", "SessionContext", "SortKey", "filter_table", "hash_aggregate",
            "hash_aggregate_counted", "hash_join", "limit_table", "project_table",
            "round_capacity", "sort_table"]
+
+__version__ = "0.1.0"

@@ -12,8 +12,9 @@ out-of-core thresholds streams or grace-partitions it
 SORT or OA). With `target_partitions` P > 1 a query runs over P
 partitions (runtime/distributed_executor.py): all of them in this process
 on the session's device, or, when `torch.distributed` is initialised, one
-per process of its process group (whose world size must be P). Parquet
-registration raises NotImplementedError naming its ROADMAP item.
+per process of its process group (whose world size must be P).
+`register_parquet` reads a parquet file, a directory of parts or a glob
+through `utils/parquet_io.py` (pyarrow, imported then).
 """
 
 from __future__ import annotations
@@ -86,8 +87,8 @@ class SessionContext:
 
     def register_parquet(self, name: str, path: str,
                          statistics: Optional[Statistics] = None):
-        raise NotImplementedError("parquet registration needs a parquet reader, not "
-                                  "ported (ROADMAP queue 1 item 14)")
+        from .utils.parquet_io import read_parquet
+        self.register_table(name, read_parquet(path), statistics)
 
     def sql(self, query: str, **kernel_tables) -> QueryHandle:
         """Plan `query`; `kernel_tables` (kernels=, chain=) replace the

@@ -35,6 +35,7 @@ from ..ops.join import JoinKernels, JoinType, hash_join, join_output_schema
 from ..ops.project import project_table
 from ..ops.sort import SortKey, limit_table, sort_table
 from ..utils.columnar import DeviceTable, Field, Schema, null_columns_like, round_capacity
+from ..utils.tracing import operator_range
 
 
 class PhysicalPlan:
@@ -111,6 +112,7 @@ class PScan(PhysicalPlan):
     def describe(self):
         return f"Scan({self.table_name} as {self.label})"
 
+    @operator_range
     def execute(self, tables, ctx):
         return tables[self.label]
 
@@ -134,6 +136,7 @@ class PFilter(PhysicalPlan):
     def describe(self):
         return f"Filter({self.predicate})"
 
+    @operator_range
     def execute(self, tables, ctx):
         child = self.child.execute(tables, ctx)
         # adaptive output capacity, seeded by the planner's selectivity
@@ -169,6 +172,7 @@ class PProject(PhysicalPlan):
     def describe(self):
         return f"Project({', '.join(n for _, n in self.exprs)})"
 
+    @operator_range
     def execute(self, tables, ctx):
         return project_table(self.child.execute(tables, ctx), self.exprs,
                              self.out_fields, ctx.chain)
@@ -266,6 +270,7 @@ class PHashJoin(PhysicalPlan):
         ctx.join_totals[self.join_id] = out[-1]
         return out[:-1]
 
+    @operator_range
     def execute(self, tables, ctx):
         if self.join_id in ctx.materialized:   # staged execution boundary
             return ctx.materialized[self.join_id]
@@ -311,6 +316,7 @@ class PHashJoin(PhysicalPlan):
         ctx.join_totals[self.join_id] = total
         return out
 
+    @operator_range
     def execute_expanded(self, tables, ctx):
         """Late-materialized execution for aggregate fusion: (table, mask) —
         the caller fuses the mask as an aggregate row filter instead of
@@ -422,6 +428,7 @@ class PAggregate(PhysicalPlan):
             return child, row_filter
         return self.child.execute(tables, ctx), None
 
+    @operator_range
     def execute(self, tables, ctx):
         if self.node_id in ctx.materialized:
             # out-of-core execution materializes the merge-point
@@ -460,6 +467,7 @@ class PSort(PhysicalPlan):
     def describe(self):
         return f"Sort({[(k.column, 'asc' if k.ascending else 'desc') for k in self.keys]})"
 
+    @operator_range
     def execute(self, tables, ctx):
         return sort_table(self.child.execute(tables, ctx), self.keys, ctx.chain)
 
@@ -479,6 +487,7 @@ class PLimit(PhysicalPlan):
     def describe(self):
         return f"Limit({self.n})"
 
+    @operator_range
     def execute(self, tables, ctx):
         return limit_table(self.child.execute(tables, ctx), self.n)
 

@@ -7,7 +7,8 @@ optimizer — reference src/utils/static_table.rs:45-140). The changes: a
 `RegisteredTable.device()` / `device_subset()` upload there;
 `release_device()` drops the cached device tables (the out-of-core
 fallback frees the device before it retries); `grace_parts` is the grace
-host partition pass's cache, per (column, K)."""
+host partition pass's cache, per (column, K); distinct counts are taken by
+a sort (`distinct_count`), with np.unique's value."""
 
 from __future__ import annotations
 
@@ -15,6 +16,15 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 from .columnar import DeviceTable, HostTable, round_capacity
+
+
+def distinct_count(v) -> int:
+    """np.unique(v).size through a sort: NumPy 2.3+ finds plain uniques
+    with a hash table, many times slower than a sort over SF10's tens of
+    millions of keys."""
+    import numpy as np
+    s = np.sort(v)
+    return int(np.count_nonzero(s[1:] != s[:-1])) + 1 if len(s) else 0
 
 
 @dataclass
@@ -67,7 +77,7 @@ class RegisteredTable:
                 m = np.uint64(0x9E3779B97F4A7C15)
                 h = v * m if h is None else h * m + v
                 mask = valid if mask is None else (mask & valid)
-            d = max(int(np.unique(h[mask]).size), 1)
+            d = max(distinct_count(h[mask]), 1)
             self.statistics.distinct[key] = d
         return d
 

@@ -21,6 +21,7 @@ from there.
 from __future__ import annotations
 
 import enum
+import warnings
 from dataclasses import dataclass, replace
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -184,6 +185,23 @@ def date32_of(s: str) -> int:
     return int((np.datetime64(s, "D") - _EPOCH).astype(np.int64))
 
 
+def _copy_host(dst: torch.Tensor, arr: np.ndarray) -> None:
+    """Copy the host column `arr` into the head of `dst` in one copy: a
+    zero-stride view (a broadcast validity mask) as a fill, a read-only
+    memmap straight from its pages, each read once."""
+    n = len(arr)
+    if n == 0:
+        return
+    if arr.strides == (0,):
+        dst[:n].fill_(arr[0].item())
+        return
+    with warnings.catch_warnings():
+        # copy_ only reads the array
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+    dst[:n].copy_(src)
+
+
 class HostTable:
     """Host-resident columnar table: numpy values + validity per column."""
 
@@ -285,8 +303,8 @@ class HostTable:
             v, valid = self.columns[f.name]
             tv = torch.zeros(cap, dtype=f.dtype.device_dtype, device=device)
             tm = torch.zeros(cap, dtype=torch.bool, device=device)
-            tv[:len(v)] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            tm[:len(valid)] = torch.from_numpy(np.ascontiguousarray(valid)).to(device)
+            _copy_host(tv, v)
+            _copy_host(tm, valid)
             cols[f.name] = (tv, tm)
         return DeviceTable(self.schema, cols,
                            torch.tensor(self.num_rows, dtype=torch.int32, device=device))

@@ -226,12 +226,14 @@ def test_dictmap_lut_clamps_like_jax_clip():
     assert v.tolist() == [5, 5, 7, 7] and valid.all()
 
 
-def test_session_refuses_what_is_not_ported(monkeypatch):
+def test_session_refuses_what_is_not_ported(monkeypatch, tmp_path):
     """Several partitions and the settings that steer them are taken, with
-    the JAX package's defaults; parquet raises naming ROADMAP item 14.
+    the JAX package's defaults. Parquet registration (which raised naming
+    ROADMAP item 14 before utils/parquet_io.py was ported) answers a query.
     Streaming a scan through the partitions (distributed morsel streaming,
     which raised before runtime/distributed_streaming.py was ported) runs
     streamed and gives the same answer."""
+    from datafusion_parallelism_tpu_torch.utils.parquet_io import write_parquet
     from datafusion_parallelism_tpu_torch.runtime.distributed_executor import \
         DistributedQueryHandle
     settings = ("broadcast_threshold", "skew_salting", "skew_factor", "skew_threshold",
@@ -245,8 +247,11 @@ def test_session_refuses_what_is_not_ported(monkeypatch):
     handle = ctx.sql("SELECT sum(x) AS s FROM t")
     assert isinstance(handle, DistributedQueryHandle) and handle.mesh.P == 2
     assert handle.collect().to_pylist() == [{"s": 190}]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tdfp.SessionContext(device="cpu").register_parquet("t", "t.parquet")
+    path = str(tmp_path / "t.parquet")
+    write_parquet(tdfp.HostTable.from_pydict({"x": list(range(20))}), path)
+    pq = tdfp.SessionContext(device="cpu")
+    pq.register_parquet("t", path)
+    assert pq.sql("SELECT sum(x) AS s FROM t").collect().to_pylist() == [{"s": 190}]
     monkeypatch.setenv("DFP_STREAM_ROW_THRESHOLD", "10")
     streamed = ctx.sql("SELECT sum(x) AS s FROM t")
     assert streamed.collect().to_pylist() == [{"s": 190}]
