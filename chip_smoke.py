@@ -21,9 +21,10 @@ through K1-K12 and K17, the shuffles and owner-dedup through K5, K10,
 K11, K18 and K19), in process and through a one-rank NCCL group holding
 the 8 partitions, and streamed through the 8 partitions out of core
 (frozen per-partition builds, K12 unpacking every chunk's shards); every
-expression of every path is K17 expr_eval. Last, the TPC-H CLI, as a user
+expression of every path is K17 expr_eval. Then the TPC-H CLI, as a user
 runs it, drives the resident, out-of-core and 8-partition paths over the
-native generator's memmapped SF10 tables (phase 23).
+native generator's memmapped SF10 tables (phase 23), and last the port's
+microbenchmarks run at their full sizes (phase 24).
 Phases, one line each:
 
   1. build the kernels with nvcc, one process per source, all at once,
@@ -233,6 +234,17 @@ Phases, one line each:
      parser with --check; one warm Q3 under `utils/tracing.profile` (the
      trace's bytes) and the spans of the load and the registration; the
      warm medians, oracle ms and route of every query
+ 24. the port's microbenchmarks (`datafusion_parallelism_tpu_torch/
+     benches/`), each once at its default full size through its
+     `main(argv)`, each checking its own answer: build_speed and
+     lookup_speed at Size512 under CSR, SORT and OA, the skewed join
+     (2^20 rows, both scenarios) on one device and at P = 8, the sort
+     carriage study (2^22 rows x 6 columns), Size256's four-way nested
+     join (10,240,000 rows), the roofline (N = 2^22; its JSON to
+     bench_out/roofline.json) and the streamed x distributed sweep at
+     SF1, P = 8, each at its defaults, nothing cut (BENCH_RUNS); each
+     bench's lines printed, its kernels' launch counts zeroed before it
+     and read after it, each kernel it runs launched
 
 Exact means bit for bit, except float64 sums (and the averages built on
 them), which K7 and K8 add in another order than the plain versions:
@@ -4981,6 +4993,68 @@ def phase_cli(device, sql_launches):
         f"operator ranges {ops}")
 
 
+# phase 24: (label, bench module, argv, kernels it must launch); each at its
+# defaults (sizes, iterations, rounds)
+BENCH_RUNS = (
+    *((f"build_speed/{s}", "build_speed", ["--strategy", s], k)
+      for s, k in (("csr", ("hash_slot", "csr_build")),
+                   ("sort", ("hash_slot", "radix_sort", "filter_compact")),
+                   ("oa", ("hash_slot", "radix_sort", "oa_place", "filter_compact")))),
+    *((f"lookup_speed/{s}", "lookup_speed", ["--strategy", s], k)
+      for s, k in (("csr", ("hash_slot", "probe_expand")),
+                   ("sort", ("hash_slot", "sorted_probe", "probe_expand")),
+                   ("oa", ("hash_slot", "oa_probe", "probe_expand")))),
+    ("exp_dist/single", "exponential_distribution", [],
+     ("hash_slot", "csr_build", "probe_expand", "compact_gather")),
+    ("exp_dist/partitions8", "exponential_distribution",
+     ["--partitions", str(DIST_P)],
+     ("hash_slot", "csr_build", "probe_expand", "compact_gather", "dest_pack", "key_histogram")),
+    ("sort", "sort_bench", [], ("radix_sort", "filter_compact", "pack_rows")),
+    ("my_benchmark/Size256", "my_benchmark", [],
+     ("hash_slot", "csr_build", "probe_expand", "compact_gather")),
+    ("roofline", "roofline", [],
+     ("hash_slot", "csr_build", "probe_expand", "compact_gather", "filter_compact",
+      "radix_sort", "segment_agg", "pack_rows")),
+    ("dist_stream_sweep", "dist_stream_sweep", [], DIST_STREAM_KERNELS),
+)
+
+
+def phase_benches(device) -> None:
+    """Phase 24: every bench of BENCH_RUNS through its main(argv) on the
+    card; each checks its own answer (and raises on a mismatch). Its lines
+    are printed after it ran; the launch counts are zeroed before each
+    bench and read after it."""
+    import importlib
+    import io
+
+    import torch
+    seconds = {}
+    for label, module, argv, need in BENCH_RUNS:
+        mod = importlib.import_module(f"datafusion_parallelism_tpu_torch.benches.{module}")
+        for fn in set(all_counters().values()):
+            fn.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv + ["--device", str(device)])
+        except BaseException:
+            print(buf.getvalue(), flush=True)
+            raise
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        launches = {k: n for k, n in kernel_launches().items() if n}
+        missing = [k for k in need if k not in launches]
+        if missing:
+            raise AssertionError(f"phase 24 {label}: kernels never launched: {missing}")
+        for line in buf.getvalue().splitlines():
+            log(f"phase 24 {label}: {line}")
+        log(f"phase 24 {label}: launches {launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 24 ok: the port's benches at their full sizes, every answer checked, seconds "
+        f"{seconds}")
+
+
 def launch_counters():
     from datafusion_parallelism_tpu_torch.kernels import (compact_gather, csr_build,
                                                           hash_slot, probe_expand)
@@ -5083,6 +5157,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_cli(device, sql_launches)
+    phase_benches(device)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

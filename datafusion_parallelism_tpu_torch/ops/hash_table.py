@@ -152,13 +152,16 @@ def oa_table_rows(hashes: torch.Tensor, ok: torch.Tensor, T: int,
     return table, rows_out
 
 
-def build_csr(hashes: torch.Tensor, key_valid: torch.Tensor, num_rows) -> JoinTable:
+def build_csr(hashes: torch.Tensor, key_valid: torch.Tensor, num_rows,
+              csr_build: Callable = k2.csr_build) -> JoinTable:
+    """The CSR table of hashes int32[cap]; `csr_build` is K2's wrapper or
+    its plain version."""
     cap = hashes.shape[0]
     T = table_size_for(cap)
     slot = torch.where(_valid_rows(hashes, key_valid, num_rows), slot_of(hashes, T),
                        T).to(torch.int32)
     no_rows = torch.empty((0, cap), dtype=torch.int32, device=hashes.device)
-    _, offsets, perm, start_count, _ = k2.csr_build(slot, T, no_rows)
+    _, offsets, perm, start_count, _ = csr_build(slot, T, no_rows)
     return JoinTable(offsets, perm, _empty(torch.int64, hashes.device), start_count)
 
 
