@@ -23,8 +23,9 @@ the 8 partitions, and streamed through the 8 partitions out of core
 (frozen per-partition builds, K12 unpacking every chunk's shards); every
 expression of every path is K17 expr_eval. Then the TPC-H CLI, as a user
 runs it, drives the resident, out-of-core and 8-partition paths over the
-native generator's memmapped SF10 tables (phase 23), and last the port's
-microbenchmarks run at their full sizes (phase 24).
+native generator's memmapped SF10 tables (phase 23), the port's
+microbenchmarks run at their full sizes (phase 24), and last the SF100
+campaign's driver runs its path at SF1 (phase 25).
 Phases, one line each:
 
   1. build the kernels with nvcc, one process per source, all at once,
@@ -245,6 +246,21 @@ Phases, one line each:
      SF1, P = 8, each at its defaults, nothing cut (BENCH_RUNS); each
      bench's lines printed, its kernels' launch counts zeroed before it
      and read after it, each kernel it runs launched
+25. the SF100 campaign's path at SF1: `tools/sf100_run.py` over the
+     native generator's SF1 tables under the out-of-core thresholds x
+     1/100 (SF100's routes), Q1 (stream), Q2 (grace row-union), Q9
+     (stream + side-swap), Q13 (stream over orders) and Q18 (grace
+     aggregate), each in its own process with --check, after a first run
+     in which Q18 is killed by a 0 s timeout (that run, which generates
+     the tables and plans the routes on the host and leaves the card
+     alone, is a process started before phase 24 and run beside it; the
+     second takes its tables and routes); the two runs merged by
+     `benches/merge_sf100` and rendered by `benches/sf100_report` into a
+     stand-in PERF.md holding the SF100 markers (this script needs no
+     PERF.md): the killed query an error entry, every check PASS,
+     every route (of the 22 in the run's eligibility.json, and of each
+     query run) that of `results/sf100/eligibility.json`, the merged Q18
+     the second run's; the seconds, routes and peak device bytes
 
 Exact means bit for bit, except float64 sums (and the averages built on
 them), which K7 and K8 add in another order than the plain versions:
@@ -5055,6 +5071,157 @@ def phase_benches(device) -> None:
         f"{seconds}")
 
 
+SF100_RUN_SF = 1                      # phase 25: SF100's routes at SF1 (thresholds x SF / 100)
+SF100_RUN_QUERIES = (1, 2, 9, 13, 18)  # stream, grace union, stream + swap, over orders, grace agg
+SF100_KILLED = 18                     # the first run's query, killed at once (its error entry)
+SF100_FIRST_RUN_WAIT_S = 300          # the most phase 25 waits for its first run
+
+
+def _sf100_argv(root: str, device) -> list:
+    """tools/sf100_run.py's arguments common to phase 25's two runs."""
+    return ["--scale-factor", str(SF100_RUN_SF), "--threshold-scale", str(SF100_RUN_SF / 100),
+            "--data", os.path.join(root, "bin"), "--device", device.type]
+
+
+def start_sf100_first_run(device):
+    """Phase 25's first run, started before phase 24 and run beside it:
+    tools/sf100_run.py in a process of its own, which generates the SF1
+    tables, plans the 22 routes and kills SF100_KILLED by a 0 s timeout
+    before that query's process reaches the card, so it does host work
+    only. -> {"proc", "root", "out", "log", "t0"}; stop_sf100_first_run
+    ends it and removes its directory."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="dfp_sf100_")
+    first = {"root": root, "out": os.path.join(root, "run1"),
+             "log": os.path.join(root, "run1.log"), "t0": time.perf_counter()}
+    with open(first["log"], "w") as out:
+        first["proc"] = subprocess.Popen(
+            [sys.executable, os.path.join(here, "tools", "sf100_run.py"),
+             *_sf100_argv(root, device), "--out", first["out"], "--timeout", "0",
+             "--query", str(SF100_KILLED)],
+            cwd=here, stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+    return first
+
+
+def stop_sf100_first_run(first) -> None:
+    """Kill the first run's process group if it still runs; remove its files."""
+    import shutil
+    import signal
+
+    proc = first["proc"]
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    shutil.rmtree(first["root"], ignore_errors=True)
+
+
+def phase_sf100_run(device, first) -> None:
+    """Phase 25: the campaign driver (tools/sf100_run.py) at SF1 under the
+    thresholds x 1/100: the first run (start_sf100_first_run, beside phase
+    24) awaited, then SF100_RUN_QUERIES one a process with --check over its
+    tables and routes; merge_sf100 over the two runs and sf100_report into a
+    stand-in PERF.md that holds the markers."""
+    import io
+
+    from datafusion_parallelism_tpu_torch.benches import merge_sf100, sf100_report
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tools"))
+    import sf100_run
+
+    with open(os.path.join(here, "results", "sf100", "eligibility.json")) as f:
+        reference = json.load(f)["queries"]
+    root = first["root"]
+    t0 = time.perf_counter()
+    try:
+        rc = first["proc"].wait(timeout=SF100_FIRST_RUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    waited = round(time.perf_counter() - t0, 1)
+    if rc != 0:
+        with open(first["log"]) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"phase 25: the first run exited {rc} (None: still running after "
+                             f"{SF100_FIRST_RUN_WAIT_S} s):\n{tail}")
+    runs = [first["out"], os.path.join(root, "run2")]
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            sf100_run.main(_sf100_argv(root, device) + ["--out", runs[1], "--timeout", "120"]
+                           + [a for q in SF100_RUN_QUERIES for a in ("--query", str(q))])
+    except BaseException:
+        print(buf.getvalue(), flush=True)
+        raise
+    second_s = round(time.perf_counter() - t1, 1)
+    merged = os.path.join(root, "merged")
+    with contextlib.redirect_stdout(io.StringIO()):
+        merge_sf100.main(["--run", runs[0], "--run", runs[1], "--label", "1",
+                          "--label", "2", "--out", merged])
+    # a stand-in: the checkout this script runs from need not hold PERF.md
+    perf = os.path.join(root, "PERF.md")
+    before, after = "# SF100\n\nabove the table\n\n", "\n\nbelow the table\n"
+    with open(perf, "w") as f:
+        f.write(before + sf100_report.BEGIN + "\n" + sf100_report.END + after)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rendered = sf100_report.main(["--results", merged, "--perf", perf])
+    with open(perf) as f:
+        md = f.read()
+    table = [ln for ln in md.split(sf100_report.BEGIN, 1)[1].split(sf100_report.END, 1)[0]
+             .splitlines() if ln.startswith("| Q")]
+    results = []
+    for path in (runs[0], runs[1], merged):
+        with open(os.path.join(path, "results.json")) as f:
+            results.append(json.load(f))
+    first_res, second, res = results
+    with open(os.path.join(merged, "eligibility.json")) as f:
+        elig = json.load(f)["queries"]
+    records = []
+    for path in runs:
+        with open(os.path.join(path, "device.json")) as f:
+            records.append(json.load(f))
+    killed = str(SF100_KILLED)
+    if first_res["query_metrics"][killed] != {"error": "timeout: killed after 0 s"}:
+        raise AssertionError(f"phase 25: the 0 s timeout left {first_res['query_metrics'][killed]}")
+    want = [str(q) for q in SF100_RUN_QUERIES]
+    failed = {q: res["query_metrics"].get(q) for q in want if res["checked"].get(q) is not True}
+    if failed:
+        raise AssertionError(f"phase 25: queries failed or unchecked: {failed}")
+    differ = sf100_run.route_differences(elig, reference)
+    routes = {q: res["query_metrics"][q]["route"] for q in want}
+    wrong = {q: r for q, r in routes.items() if r != sf100_run.executor_route(reference[q])}
+    if differ or wrong:
+        raise AssertionError(f"phase 25: routes differ from results/sf100: eligibility "
+                             f"{differ}, the queries' {wrong}")
+    if res["measured_in_round"][killed] != "2" or \
+            res["query_metrics"][killed] != second["query_metrics"][killed]:
+        raise AssertionError(f"phase 25: the merged Q{killed} is not the second run's")
+    if rendered != 0 or len(table) != len(want) or not md.startswith(before) \
+            or not md.endswith(after):
+        raise AssertionError(f"phase 25: sf100_report wrote {md!r} (exit {rendered})")
+    if not (records[1]["data_reused"] and records[1]["eligibility_reused"]):
+        raise AssertionError("phase 25: the second run did not take the first run's tables "
+                             "and routes")
+    peaks = {q: res["query_metrics"][q]["peak_device_bytes"] for q in want}
+    record = records[1]
+    log(f"phase 25 ok: tools/sf100_run.py at SF{SF100_RUN_SF:g} under the out-of-core "
+        f"thresholds x {SF100_RUN_SF:g}/100: a first run beside phase 24 (host work only: "
+        f"generation {records[0]['generation']['seconds']} s, eligibility "
+        f"{records[0]['eligibility_s']} s, Q{killed} killed by a 0 s timeout, its error entry; "
+        f"{records[0]['seconds']} s in its process, awaited {waited} s), then "
+        f"{len(want)} queries one a process over its tables and routes (taken in "
+        f"{record['eligibility_s']} s), each --check PASS, in {second_s} s (each query's "
+        f"process {dict((k, v['seconds']) for k, v in record['queries'].items())}"
+        f" s, peak rss {dict((k, v['peak_rss_bytes']) for k, v in record['queries'].items())}"
+        f" bytes, maxrss {dict((k, v['maxrss_bytes']) for k, v in record['queries'].items())}"
+        f" bytes); the two runs merged (Q{killed} the second's) and rendered; routes {routes}, "
+        f"== results/sf100/eligibility.json for all 22; peak device bytes {peaks}")
+
+
 def launch_counters():
     from datafusion_parallelism_tpu_torch.kernels import (compact_gather, csr_build,
                                                           hash_slot, probe_expand)
@@ -5157,7 +5324,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_cli(device, sql_launches)
-    phase_benches(device)
+    # phase 25's first run (host work only) goes on beside phase 24
+    first = start_sf100_first_run(device)
+    try:
+        phase_benches(device)
+        phase_sf100_run(device, first)
+    finally:
+        stop_sf100_first_run(first)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -11,7 +11,8 @@ results.json is kept. The port compiles no query, so `compiles` and
 `compile_time_s` read 0; the CUDA kernels are built by nvcc at their
 first launch, inside iteration 0, which the median of the warm iterations
 leaves out. Each query's metrics also carry its `route` ("resident",
-"streamed", "grace agg", ...).
+"streamed", "grace agg", ...) and `peak_device_bytes`, the most device
+memory its iterations held (None off the card).
 
 `--device` (default "cuda") names the session's device; "cuda" raises
 when there is no GPU, and "cpu" runs the kernels' plain versions.
@@ -32,6 +33,8 @@ import json
 import os
 import time
 from datetime import datetime
+
+import torch
 
 from .. import SessionConfig, SessionContext, __version__
 from ..ops.hash_table import JoinStrategy
@@ -180,6 +183,8 @@ def run(argv=None) -> dict:
             print(f"-- Q{q} plan --\n{handle.explain()}")
         times = []
         first_rows = None
+        if ctx.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(ctx.device)
         try:
             for it in range(args.iterations):
                 t0 = time.time()
@@ -198,6 +203,8 @@ def run(argv=None) -> dict:
         results["query_metrics"][q] = {
             "compiles": 0, "compile_time_s": 0.0,
             "retries": m.retries, "route": m.route,
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(ctx.device)
+                                  if ctx.device.type == "cuda" else None),
             # distributed send-cap keys are (join_id, side) tuples — JSON
             # object keys must be strings
             "join_caps": {str(k): v for k, v in m.join_caps.items()},

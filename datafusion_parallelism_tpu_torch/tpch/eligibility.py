@@ -84,7 +84,8 @@ def main(argv=None):
     tables = load_data_path(args.data_path)
     ctx = SessionContext(device=args.device)
     for name, host in tables.items():
-        ctx.register_table(name, host)
+        # the binary tables' exact distinct counts, as the CLI registers them
+        ctx.register_table(name, host, getattr(host, "statistics_hint", None))
     report = {}
     for q in sorted(QUERIES):
         try:

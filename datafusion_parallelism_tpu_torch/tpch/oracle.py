@@ -9,8 +9,9 @@ A copy of the JAX package's `tpch/oracle.py` over the port's HostTable (the
 machine with the GPU has no jax); a test holds it equal to the original.
 Its numpy paths give the original's answers in less time at SF10: plain
 uniques go through `_unique` (a sort), Q1 groups by a count over its small
-key range and sums each column once, and Q19 tests only the rows its
-ship mode and instruction keep.
+key range and sums each column once, in passes of 2^25 lineitem rows (at
+SF100 its temporaries at once would take ~48 GB of host memory), and Q19
+tests only the rows its ship mode and instruction keep.
 """
 
 from __future__ import annotations
@@ -559,23 +560,34 @@ def _unique_inverse_small(key):
     return uniq, lut[key]
 
 
-def _q1_np(t, li=None):
+Q1_BLOCK_ROWS = 1 << 25   # lineitem rows a pass of _q1_np: about 3 GB of temporaries
+
+
+def _q1_np(t, li=None, block_rows=Q1_BLOCK_ROWS):
+    """Q1 in passes of `block_rows` lineitem rows, each group's sums
+    accumulated over the passes (one pass below block_rows rows): the
+    temporaries of a 600M-row lineitem would take ~48 GB at once."""
     import numpy as np
     l = t["lineitem"]
-    m = _col(l, "l_shipdate") <= (_d("1998-12-01") - 90)
-    rf, ls = _col(l, "l_returnflag")[m], _col(l, "l_linestatus")[m]
-    qty, price = _dec(l, "l_quantity")[m], _dec(l, "l_extendedprice")[m]
-    disc, tax = _dec(l, "l_discount")[m], _dec(l, "l_tax")[m]
-    key = rf.astype(np.int64) * 1000 + ls
-    uniq, inv = _unique_inverse_small(key)
-    n = np.bincount(inv, minlength=len(uniq)).astype(np.float64)
-    def s(x):
-        return np.bincount(inv, weights=x, minlength=len(uniq))
-    disc_price = price * (1 - disc)
-    charge = disc_price * (1 + tax)
     rfd, lsd = _dict_of(l, "l_returnflag"), _dict_of(l, "l_linestatus")
-    s_qty, s_price, s_disc = s(qty), s(price), s(disc)
-    s_disc_price, s_charge = s(disc_price), s(charge)
+    width = max(len(rfd.values), 1) * 1000
+    n = np.zeros(width)
+    sums = np.zeros((5, width))      # qty, price, disc, disc_price, charge
+    cutoff = _d("1998-12-01") - 90
+    for lo in range(0, l.num_rows, block_rows):
+        rows = slice(lo, lo + block_rows)
+        m = np.flatnonzero(_col(l, "l_shipdate")[rows] <= cutoff) + lo
+        key = _col(l, "l_returnflag")[m].astype(np.int64) * 1000 + _col(l, "l_linestatus")[m]
+        qty, price = _dec(l, "l_quantity", m), _dec(l, "l_extendedprice", m)
+        disc, tax = _dec(l, "l_discount", m), _dec(l, "l_tax", m)
+        disc_price = price * (1 - disc)
+        charge = disc_price * (1 + tax)
+        n += np.bincount(key, minlength=width)
+        for i, x in enumerate((qty, price, disc, disc_price, charge)):
+            sums[i] += np.bincount(key, weights=x, minlength=width)
+    uniq = np.flatnonzero(n)
+    s_qty, s_price, s_disc, s_disc_price, s_charge = sums[:, uniq]
+    n = n[uniq]
     out = []
     for i, k in enumerate(uniq):
         out.append({

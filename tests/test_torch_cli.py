@@ -21,9 +21,9 @@ from datafusion_parallelism_tpu_torch import SessionConfig, __version__
 from datafusion_parallelism_tpu_torch.tpch import cli, diff_results
 
 CLI_QUERIES = (1, 3, 6, 13)
-# the keys the port adds: the session's device, each query's route
+# the keys the port adds: the session's device, each query's route and peak device memory
 PORT_ARGS = {"device"}
-PORT_METRICS = {"route"}
+PORT_METRICS = {"route", "peak_device_bytes"}
 
 
 @pytest.fixture(scope="module")
